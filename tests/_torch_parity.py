@@ -1,0 +1,76 @@
+"""Shared helpers for the PyTorch port's parity tests (tests/test_torch_*).
+
+Not a test module. Every input is made with numpy from a seed and handed
+to both packages as numpy arrays: the JAX package (lambda_cdm_tpu) runs
+on the CPU as its own tests run it, the port (lambda_cdm_tpu_torch) on
+CPU tensors, where each kernel wrapper takes its plain PyTorch version.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+# tier-1 runs several xdist workers: one intra-op thread each
+torch.set_num_threads(1)
+
+
+def fields(obj) -> dict:
+    """A JAX dataclass's fields as numpy arrays (the interop hand-off)."""
+    return {f.name: np.asarray(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)}
+
+
+def tt(x, dtype=torch.float32) -> torch.Tensor:
+    """numpy (or a JAX array) -> CPU tensor (a copy: JAX buffers are
+    read-only)."""
+    return torch.tensor(np.asarray(x), dtype=dtype)
+
+
+def nn(x) -> np.ndarray:
+    """A tensor or JAX array -> numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def max_rel(got, ref, mask=None) -> float:
+    """max |got - ref| / max |ref| (over `mask` when given)."""
+    got, ref = np.asarray(nn(got), np.float64), np.asarray(nn(ref),
+                                                           np.float64)
+    diff = np.abs(got - ref)
+    if mask is not None:
+        diff = np.where(mask, diff, 0.0)
+        ref = np.where(mask, ref, 0.0)
+    return float(diff.max() / max(np.abs(ref).max(), 1e-300))
+
+
+def uniform_particles(n, box, seed, mass_range=(0.5, 2.0)):
+    """(positions [n, 3] in [0, box), masses [n]) as float32 numpy."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0.0, box, (n, 3)).astype(np.float32)
+    m = rng.uniform(*mass_range, n).astype(np.float32)
+    return pos, m
+
+
+def clustered_particles(n, box, seed, n_clump, sigma, centre):
+    """Uniform background plus a Gaussian clump of n_clump particles."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0.0, box, (n, 3))
+    pos[:n_clump] = np.asarray(centre) + sigma * rng.standard_normal(
+        (n_clump, 3))
+    pos = np.mod(pos, box).astype(np.float32)
+    m = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    return pos, m
+
+
+@pytest.fixture
+def cuda_device():
+    """The first CUDA device; skips the test without one (decided at run
+    time, never at import, so every xdist worker collects the same
+    tests)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (on the GPU host: python -m pytest "
+                    "tests/test_torch_cuda.py -m cuda --noconftest)")
+    return torch.device("cuda", 0)

@@ -1,0 +1,118 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card
+(K1 CIC deposit, K2 fd4 gather, K3 short-range pairs), and the treepm_fast
+stepper on the card against the same run on the CPU. These need a CUDA
+card and nvcc; elsewhere they skip:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+(--noconftest: tests/conftest.py sets up JAX, which the GPU host lacks.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import clustered_particles, cuda_device, tt, \
+    uniform_particles  # noqa: F401  (cuda_device is a fixture)
+
+from lambda_cdm_tpu_torch.ops import fast_treepm, pm_rods, short_range
+from lambda_cdm_tpu_torch.ops.bucketed_pm import live_counts
+from lambda_cdm_tpu_torch.physics.cosmology import CosmologyParams
+
+pytestmark = pytest.mark.cuda
+
+
+def _state(device, pos, m, box, ncell, cap, push=0.0):
+    plan = {"ncell": ncell, "capacity": cap, "margin": 1, "rs": 1.0}
+    fs = fast_treepm.build_fast_state(tt(pos).to(device), torch.zeros(
+        pos.shape, device=device), tt(m).to(device), 0.5, box_size=box,
+        plan=plan)
+    assert int(fs.overflow) == 0
+    bpos = fs.bpos.clone()
+    if push:
+        gen = torch.Generator(device=device).manual_seed(1)
+        sel = (torch.rand(fs.bmass.shape, generator=gen, device=device)
+               < push) & (fs.bmass > 0)
+        bpos[0] += torch.where(sel, 2.5, 0.0)
+    return bpos, fs.bmass, live_counts(fs.bmass)
+
+
+def _rel(got, ref):
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("push", [0.0, 0.05])
+def test_cic_deposit_kernel(cuda_device, push):
+    box, ncell, ng = 32.0, 8, 32
+    pos, m = uniform_particles(20000, box, 0)
+    bpos, bmass, counts = _state(cuda_device, pos, m, box, ncell, 128, push)
+    geo = dict(ncell=ncell, ng=ng, box_size=box)
+    before = pm_rods.launches["cic_deposit"]
+    grid, drop = pm_rods.cic_deposit(bpos, bmass, counts, **geo)
+    assert pm_rods.launches["cic_deposit"] == before + 1
+    ref, rdrop = pm_rods.cic_deposit_plain(bpos, bmass, counts, **geo)
+    torch.cuda.synchronize()
+    # float32 atomics in another order: a few ulps of a cell's sum
+    assert _rel(grid, ref) < 1e-5
+    assert int(drop) == int(rdrop)
+    assert (int(drop) > 0) == (push > 0)
+
+
+def test_fd4_gather_kernel(cuda_device):
+    box, ncell, ng = 32.0, 8, 32
+    pos, m = uniform_particles(20000, box, 1)
+    bpos, bmass, counts = _state(cuda_device, pos, m, box, ncell, 128, 0.05)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    phi = torch.randn((ng, ng, ng), generator=gen, device=cuda_device)
+    geo = dict(ncell=ncell, ng=ng, box_size=box)
+    got = pm_rods.fd4_gather(phi, bpos, counts, **geo)
+    ref = pm_rods.fd4_gather_plain(phi, bpos, counts, **geo)
+    torch.cuda.synchronize()
+    # the differences are taken per corner instead of on whole grids
+    assert _rel(got, ref) < 1e-5
+    live = torch.arange(128, device=cuda_device)[None] < counts[:, None]
+    assert bool(torch.all(got[:, ~live] == 0))
+
+
+@pytest.mark.parametrize("clustered", [False, True])
+def test_short_range_kernel(cuda_device, clustered):
+    """Uniform at capacity 64 and a clump of 3000 in one cell (capacity
+    4096: more live i than a block's threads, more j than one tile)."""
+    box, ncell = 40.0, 5
+    if clustered:
+        pos, m = clustered_particles(12000, box, 3, n_clump=3000,
+                                     sigma=1.0, centre=(20.0, 20.0, 20.0))
+        cap = 4096
+    else:
+        pos, m = uniform_particles(4000, box, 4)
+        cap = 64
+    bpos, bmass, counts = _state(cuda_device, pos, m, box, ncell, cap)
+    kw = dict(ncell=ncell, capacity=cap, box_size=box, rs=1.5,
+              softening=0.1)
+    got = short_range.short_range(bpos, bmass, counts, **kw)
+    ref = short_range.short_range_plain(bpos, bmass, counts, **kw)
+    torch.cuda.synchronize()
+    # the kernel contracts r^2 and the polynomial into FMAs
+    assert _rel(got, ref) < 1e-4
+    if clustered:
+        assert int(counts.max()) > 2500
+
+
+def test_stepper_on_card_matches_cpu(cuda_device):
+    box, ng = 50.0, 32
+    pos, m = uniform_particles(8000, box, 5)
+    vel = np.random.default_rng(6).normal(size=pos.shape).astype(np.float32)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        fs, kw = fast_treepm.initialize_fast(
+            tt(pos).to(dev), tt(vel).to(dev), tt(m).to(dev), 0.1,
+            box_size=box, pm_grid=ng, softening=0.1, kick_mode="comoving")
+        fs = fast_treepm.fast_run(fs, CosmologyParams(), 1e-5, n_steps=6,
+                                  rebucket_every=3, **kw)
+        out.append(fs)
+    g, c = out
+    assert torch.equal(g.ids.cpu(), c.ids)
+    assert _rel(g.bpos.cpu(), c.bpos) < 1e-6
+    assert _rel(g.bvel.cpu(), c.bvel) < 1e-4
+    assert int(g.dropped) == int(c.dropped)
+    assert int(g.overflow) == int(c.overflow)
