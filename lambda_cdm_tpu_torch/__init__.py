@@ -4,13 +4,25 @@ GPU (sm_90a).
 
 Ported so far: the single-device treepm_fast path -- config, 2LPT
 initial conditions, the cell-bucketed stepper with its three kernels
-(K1 CIC deposit, K2 fused CIC x fd4 gather, K3 short-range pairs; their
-plain PyTorch versions run for CPU tensors), and the engine/builder.
-This package never imports JAX; the tests hold it against lambda_cdm_tpu.
+(K1 CIC deposit, K2 fused CIC x fd4 gather, K3 short-range pairs), the
+engine/builder with its diagnostics, snapshots and checkpoints -- and
+the CLI run with its analysis: P(k), the FoF + SO halo finder with its
+kernel (K5 FoF hook sweep) and the config-driven observers. The kernels'
+plain PyTorch versions run for CPU tensors. This package never imports
+JAX; the tests hold it against lambda_cdm_tpu.
 """
 
 __version__ = "0.1.0"
 
+from .analysis.halo_finder import HaloCatalog, find_halos
+from .analysis.power_spectrum import (PowerSpectrumData,
+                                      measure_power_spectrum)
+from .core.analysis_observers import (ConservationObserver,
+                                      HaloFinderObserver,
+                                      ParticleStatisticsObserver,
+                                      PowerSpectrumObserver,
+                                      SnapshotObserver,
+                                      build_observers_from_config)
 from .core.config import SimulationConfig
 from .core.engine import (LifecycleState, SimulationBuilder,
                           SimulationEngine, SimulationStatistics)
@@ -23,6 +35,11 @@ __all__ = [
     "SimulationConfig", "SimulationBuilder", "SimulationEngine",
     "SimulationStatistics", "LifecycleState",
     "Observer", "ProgressObserver", "MetricsRecorder",
+    "SnapshotObserver", "PowerSpectrumObserver", "HaloFinderObserver",
+    "ConservationObserver", "ParticleStatisticsObserver",
+    "build_observers_from_config",
     "SimState", "make_state",
     "CosmologyParams", "PLANCK",
+    "HaloCatalog", "find_halos", "PowerSpectrumData",
+    "measure_power_spectrum",
 ]

@@ -9,10 +9,13 @@ and retries when a rebucket would overflow, halves the cadence when
 deposits were dropped, and syncs the public SimState (original particle
 order, positions wrapped into the box) for the observers.
 
+Diagnostics (energy, momentum, angular momentum), npz snapshots and
+checkpoints (periodic ones at simulation.checkpoint_frequency, timed into
+statistics.io_time_s) and resume follow the JAX engine.
+
 Not ported yet (each raises NotImplementedError, see ROADMAP.md): the
-device mesh, the stateless solvers (direct, pm, treepm, pm_fast),
-checkpoints and snapshots, compute_energy, the force-accuracy harness
-and the profiler trace.
+device mesh, the stateless solvers (direct, pm, treepm, pm_fast), orbax
+checkpoints, the force-accuracy harness and the profiler trace.
 """
 
 from __future__ import annotations
@@ -418,8 +421,10 @@ class SimulationEngine:
                 if (cfg.simulation.checkpoint_frequency > 0
                         and self.statistics.total_steps
                         % cfg.simulation.checkpoint_frequency == 0):
-                    raise _not_ported("periodic checkpoints "
-                                      "(simulation.checkpoint_frequency)")
+                    t_io0 = time.perf_counter()
+                    self._periodic_checkpoint()
+                    self.statistics.io_time_s += \
+                        time.perf_counter() - t_io0
             self.lifecycle = LifecycleState.FINISHED
         except Exception as exc:
             self.lifecycle = LifecycleState.ERROR
@@ -481,19 +486,79 @@ class SimulationEngine:
         self.statistics = SimulationStatistics()
         self.lifecycle = LifecycleState.UNINITIALIZED
 
-    # -- not ported yet -------------------------------------------------------
+    # -- diagnostics ---------------------------------------------------------
     def compute_energy(self) -> dict:
-        raise _not_ported("compute_energy (forces/direct KE/PE)")
+        """KE, PE (the O(N^2) pair sum, plain PyTorch) and their total,
+        as 0-d tensors on the engine's device."""
+        from ..forces.direct import kinetic_energy, potential_energy
+        cfg = self.config
+        st = self.state
+        ke = kinetic_energy(st.velocities, st.masses)
+        pe = potential_energy(st.positions, st.masses,
+                              cfg.particles.box_size,
+                              cfg.forces.softening_length, cfg.units.G)
+        return {"kinetic": ke, "potential": pe, "total": ke + pe}
 
+    def momentum(self) -> torch.Tensor:
+        """Total momentum [3]."""
+        st = self.state
+        return torch.sum(st.masses[:, None] * st.velocities, dim=0)
+
+    def angular_momentum(self) -> torch.Tensor:
+        """Total angular momentum about the box centre [3]."""
+        st = self.state
+        rel = st.positions - self.config.particles.box_size / 2.0
+        return torch.sum(st.masses[:, None]
+                         * torch.cross(rel, st.velocities, dim=-1), dim=0)
+
+    # -- snapshots / checkpoints ---------------------------------------------
     def save_snapshot(self, path: str | None = None) -> str:
-        raise _not_ported("snapshots")
+        """Snapshot of the public state; without `path`, the configured
+        filename pattern with the extension io.output_format selects."""
+        from ..utils import checkpoint as ckpt
+        cfg = self.config
+        if path is None:
+            path = cfg.io.snapshots.filename_pattern.format(
+                step=int(self.state.step),
+                redshift=float(self.state.redshift))
+            ext = {"hdf5": ".h5", "lcdm": ".lcdm",
+                   "ascii": ".txt"}.get(cfg.io.output_format)
+            if ext and path.endswith(".npz"):
+                path = path[:-4] + ext
+        return ckpt.save_snapshot(path, self.state, self.config,
+                                  fields=cfg.io.snapshots.fields)
 
     def save_checkpoint(self, path: str) -> str:
-        raise _not_ported("checkpoints")
+        from ..utils import checkpoint as ckpt
+        if self.config.io.output_format == "orbax":
+            raise _not_ported("orbax checkpoints (io.output_format)")
+        out = ckpt.save_checkpoint(path, self.state, self.config,
+                                   self.statistics.to_dict())
+        self.observers.notify("on_checkpoint", self, out)
+        return out
 
     def load_checkpoint(self, path: str) -> None:
-        raise _not_ported("checkpoints")
+        """Resume from an npz checkpoint: the state (initializing the
+        engine if needed) and the saved statistics."""
+        from ..utils import checkpoint as ckpt
+        state, _cfg_dict, stats = ckpt.load_checkpoint(path, self.device)
+        if self._fstate is None:
+            self.initialize(state=state)
+        else:
+            self.state = state
+        for k, v in stats.items():
+            if hasattr(self.statistics, k):
+                setattr(self.statistics, k, v)
+        self.lifecycle = LifecycleState.INITIALIZED
 
+    def _periodic_checkpoint(self) -> None:
+        import os
+        outdir = self.config.simulation.output_directory
+        os.makedirs(outdir, exist_ok=True)
+        self.save_checkpoint(os.path.join(
+            outdir, f"checkpoint_{self.statistics.total_steps:06d}"))
+
+    # -- not ported yet -------------------------------------------------------
     def validate_force_accuracy(self, n_sample: int = 1024,
                                 seed: int = 0) -> dict:
         raise _not_ported("validate_force_accuracy (stateless solvers)")

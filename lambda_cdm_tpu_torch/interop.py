@@ -16,6 +16,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .analysis.halo_finder import HaloCatalog
+from .analysis.power_spectrum import PowerSpectrumData
 from .core.state import SimState, host_scalar
 from .ops.fast_treepm import FastState
 from .physics.cosmology import CosmologyParams
@@ -76,3 +78,15 @@ def cosmology_params_from_dict(d: dict) -> CosmologyParams:
 
 def cosmology_params_to_dict(p: CosmologyParams) -> dict:
     return dataclasses.asdict(p)
+
+
+def halo_catalog_to_arrays(cat: HaloCatalog) -> dict:
+    """HaloCatalog -> {field: numpy array} (the JAX catalogue's fields)."""
+    return {f.name: _to_numpy(getattr(cat, f.name))
+            for f in dataclasses.fields(cat)}
+
+
+def power_spectrum_to_arrays(data: PowerSpectrumData) -> dict:
+    """PowerSpectrumData -> {field: numpy array}."""
+    return {f.name: _to_numpy(getattr(data, f.name))
+            for f in dataclasses.fields(data)}

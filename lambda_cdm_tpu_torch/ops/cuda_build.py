@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
-All sources under lambda_cdm_tpu_torch/csrc/*.cu compile with one plain
-`nvcc` call (sm_90a, no PyTorch headers: seconds, not minutes) into one
-shared library with a C interface, cached in lambda_cdm_tpu_torch/_build/
-under a name keyed by a hash of the sources and flags. The library is
+Each source under lambda_cdm_tpu_torch/csrc/*.cu compiles with its own
+plain `nvcc` process (sm_90a, no PyTorch headers: seconds, not minutes),
+all started together; one more `nvcc` links the objects into one shared
+library with a C interface, cached in lambda_cdm_tpu_torch/_build/ under
+a name keyed by a hash of the sources and flags. The library is
 loaded with ctypes; wrappers pass raw pointers (tensor.data_ptr()) and
 PyTorch's current stream, and every C entry point returns
 cudaGetLastError() so a refused launch raises at once.
@@ -25,8 +26,9 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared",
-                           "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                              "-Xptxas", "-v"]
+LINK_FLAGS = ARCH_FLAGS + ["-shared"]
 
 _lock = threading.Lock()
 _lib = None
@@ -42,6 +44,8 @@ _SIGNATURES = {
     "lcdm_fd4_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "lcdm_short_range": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
                          _P],
+    "lcdm_fof_hook": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                      _P],
 }
 
 
@@ -59,11 +63,29 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
     return os.path.join(BUILD_DIR, f"liblcdm_kernels_{h.hexdigest()[:16]}.so")
+
+
+def _run_all(cmds) -> None:
+    """Start every command at once, wait for all; append their output to
+    build_log and raise if any failed."""
+    global build_log
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        build_log += out
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({proc.returncode})")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "; ".join(failed)
+                           + f"\n{build_log}")
 
 
 def build() -> str:
@@ -75,14 +97,16 @@ def build() -> str:
         return out
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc] + NVCC_FLAGS + ["-o", tmp] + \
-        [s for s in _sources() if s.endswith(".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)
+    tag = f"{out}.{os.getpid()}"
+    srcs = [s for s in _sources() if s.endswith(".cu")]
+    objs = [f"{tag}.{os.path.basename(s)}.o" for s in srcs]
+    build_log = ""
+    _run_all([[nvcc] + COMPILE_FLAGS + ["-c", "-o", o, s]
+              for s, o in zip(srcs, objs)])
+    _run_all([[nvcc] + LINK_FLAGS + ["-o", f"{tag}.tmp"] + objs])
+    for o in objs:
+        os.remove(o)
+    os.replace(f"{tag}.tmp", out)
     return out
 
 

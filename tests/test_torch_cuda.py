@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(K1 CIC deposit, K2 fd4 gather, K3 short-range pairs), and the treepm_fast
-stepper on the card against the same run on the CPU. These need a CUDA
-card and nvcc; elsewhere they skip:
+(K1 CIC deposit, K2 fd4 gather, K3 short-range pairs, K5 FoF hook), and the
+treepm_fast stepper and fof_labels on the card against the same runs on
+the CPU. These need a CUDA card and nvcc; elsewhere they skip:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
@@ -15,7 +15,9 @@ import torch
 from _torch_parity import clustered_particles, cuda_device, tt, \
     uniform_particles  # noqa: F401  (cuda_device is a fixture)
 
-from lambda_cdm_tpu_torch.ops import fast_treepm, pm_rods, short_range
+from lambda_cdm_tpu_torch.analysis import halo_finder
+from lambda_cdm_tpu_torch.ops import fast_treepm, fof_hook, pm_rods, \
+    short_range
 from lambda_cdm_tpu_torch.ops.bucketed_pm import live_counts
 from lambda_cdm_tpu_torch.physics.cosmology import CosmologyParams
 
@@ -96,6 +98,71 @@ def test_short_range_kernel(cuda_device, clustered):
     assert _rel(got, ref) < 1e-4
     if clustered:
         assert int(counts.max()) > 2500
+
+
+def _fof_inputs(device, ncell, cap, seed=7):
+    """A clustered box bucketed for the FoF hook, with a few inactive
+    cells: (bx, by, bz, slot labels, counts, active, n, box, b)."""
+    box, b = 20.0, 0.3
+    pos, _ = clustered_particles(6000, box, seed, n_clump=2500, sigma=0.4,
+                                 centre=(10.0, 10.0, 10.0))
+    n = pos.shape[0]
+    bxyz, _, counts, pslot, _, ovf = halo_finder._fof_setup(
+        tt(pos).to(device), torch.ones(n, dtype=torch.bool, device=device),
+        box, ncell, cap)
+    assert int(ovf) == 0
+    nslots = ncell ** 3 * cap
+    lab = torch.full((nslots + 1,), n, dtype=torch.int32, device=device)
+    rng = np.random.default_rng(seed)
+    plab = torch.tensor(rng.permutation(n).astype(np.int32), device=device)
+    lab[torch.where(pslot >= 0, pslot, nslots)] = plab
+    active = torch.tensor(rng.random(ncell ** 3) < 0.9, device=device
+                          ).to(torch.int32)
+    return (*bxyz, lab[:nslots].reshape(ncell ** 3, cap), counts, active,
+            n, box, b)
+
+
+@pytest.mark.parametrize("ncell,cap", [(16, 2048), (2, 4096)])
+def test_fof_hook_kernel(cuda_device, ncell, cap):
+    """One full sweep, kernel against plain: exactly equal labels, dead
+    rows and inactive cells untouched (more live rows in the clump's
+    cells than a block holds; a lattice of two cells, where neighbours
+    alias under several shifts)."""
+    bx, by, bz, lab, counts, active, n, box, b = _fof_inputs(
+        cuda_device, ncell, cap)
+    kw = dict(ncell=ncell, capacity=cap, n_sentinel=n, box_size=box,
+              linking_length=b)
+    before = fof_hook.launches["fof_hook"]
+    got = fof_hook.fof_hook(bx, by, bz, lab, counts, active, **kw)
+    assert fof_hook.launches["fof_hook"] == before + 1
+    ref = fof_hook.fof_hook_plain(bx, by, bz, lab, counts, active, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert int((got != lab).sum()) > 0
+    assert int(counts.max()) > fof_hook.THREADS
+
+
+def test_fof_labels_card_matches_cpu(cuda_device):
+    """fof_labels through K5 on the card against the plain version on
+    the CPU, with overflow and dead rows: exactly equal labels."""
+    box = 20.0
+    pos, _ = clustered_particles(8000, box, 9, n_clump=3000, sigma=0.3,
+                                 centre=(11.25, 11.25, 11.25))
+    live = np.ones(len(pos), bool)
+    live[-50:] = False
+    b = 0.25 * box / len(pos) ** (1 / 3)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        p = tt(pos).to(dev)
+        plan = halo_finder.fof_plan(len(pos), box, b, positions=p,
+                                    live=torch.tensor(live, device=dev))
+        out.append(halo_finder.fof_labels(
+            p, box, b, ncell=8, capacity=512, live=torch.tensor(
+                live, device=dev)))
+        assert plan["ncell"] >= 1
+    (lg, og), (lc, oc) = out
+    assert torch.equal(lg.cpu(), lc)
+    assert int(og) == int(oc) > 0
 
 
 def test_stepper_on_card_matches_cpu(cuda_device):

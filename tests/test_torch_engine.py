@@ -172,7 +172,7 @@ def test_drops_halve_the_cadence_alike():
     assert teng._fast_rebucket_every == jeng._fast_rebucket_every == 8
 
 
-def test_builder_device_and_refusals():
+def test_builder_device_and_refusals(tmp_path):
     cfg = tlc.SimulationConfig()
     cfg.forces.type = "treepm_fast"
     b = tlc.SimulationBuilder()
@@ -184,10 +184,15 @@ def test_builder_device_and_refusals():
         c.forces.type = kind
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tlc.SimulationEngine(c, device="cpu").initialize()
-    for call in (eng.compute_energy, lambda: eng.save_checkpoint("x"),
-                 lambda: eng.load_checkpoint("x")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.validate_force_accuracy()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.load_checkpoint(str(tmp_path))              # orbax directories
+    with pytest.raises(RuntimeError, match="not initialized"):
+        eng.compute_energy()
+    cfg.io.output_format = "orbax"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.save_checkpoint(str(tmp_path / "x"))
     c = tlc.SimulationConfig()
     c.forces.type = "treepm_fast"
     c.compute.mesh.enabled = True
