@@ -35,7 +35,31 @@ fatal on failure and each printing its seconds:
      the card against the same run on the CPU (the kernels' plain
      versions) from one initial state;
   7. energy timing: one potential_energy at 131,072 particles, and its
-     N^2 extrapolation to 1M.
+     N^2 extrapolation to 1M;
+  8. K4 phase: 100,000 particles uniform in a 100 Mpc/h box (unit
+     masses, softening 0.05: the JAX package's bench.py direct figure),
+     K4 (v1, v2) and K4s (sym, sym2) against their plain versions and
+     timed; K4 also at two and three ragged tiles and without the
+     minimum image (no path of the port runs K4s: its launches are read
+     from the direct_10k run, and are 0);
+  9. direct_10k phase: examples/configs/direct_10k.json at full size
+     (10,648 particles, direct solver) through the CLI's engine for its
+     500 steps with its energy and momentum observers; K4 must have
+     launched once at the start, once a step and twice for the
+     force-fraction timing; then validate_force_accuracy on the final
+     state;
+ 10. stateless pm/treepm phase (plain PyTorch, no TPU kernel on their
+     path): pm_128_256.json (2,097,152 particles, 256^3) and
+     basic_lambda_cdm.json (262,144 particles, treepm on 128^3) at full
+     size for 10 steps each, with validate_force_accuracy;
+ 11. stateless reference check: a 4096-particle direct run of 8 steps on
+     the card (K4) against the CPU (the solver's row-blocked sum) from
+     three seeds' 2LPT states, the same card run with two planted K4
+     faults (which the check must see), and pm and treepm accelerations
+     of one state on both.
+
+The CLI phase also validates the treepm_1m state's forces through the
+stateless treepm solver.
 
 Prints the card, the errors and times, one JSON line of kernel records,
 the `nvidia-smi` name and power limit, and last one JSON status line.
@@ -46,6 +70,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -71,6 +96,18 @@ PEAK_BYTES = 3.35e12
 # (rsqrt as 1) and K5
 FLOPS = {"cic_deposit": 47, "fd4_gather": 175, "short_range": 44,
          "fof_hook": 8}
+
+# K4/K4s against their plain versions (relative to the plain result's
+# largest |a|): every variant holds the JAX package's bar for its kernel
+DIRECT_TOL = {"v1": 1e-5, "sym": 1e-5, "v2": 1e-5, "sym2": 1e-5}
+# float operations per pair, as the JAX package's cost estimates count
+# them (pallas_direct.py:380-384, :442-446): 22 per ordered pair for K4,
+# 26 per unordered pair for K4s
+DIRECT_FLOPS = {"direct": 22, "direct_sym": 26}
+DIRECT_CONFIG = os.path.join(ROOT, "examples", "configs", "direct_10k.json")
+PM_CONFIG = os.path.join(ROOT, "examples", "configs", "pm_128_256.json")
+TREEPM_CONFIG = os.path.join(ROOT, "examples", "configs",
+                             "basic_lambda_cdm.json")
 
 # the CLI phase: treepm_1m.json cut to 40 steps, every observer at a
 # cadence that fires inside them, energy off (an O(N^2) pair sum at 1M)
@@ -147,14 +184,17 @@ def stencil_pairs(counts, ncell: int) -> float:
 
 
 def reset_counts() -> None:
-    from lambda_cdm_tpu_torch.ops import fof_hook, pm_rods, short_range
-    for mod in (pm_rods, short_range, fof_hook):
+    from lambda_cdm_tpu_torch.ops import direct, fof_hook, pm_rods, \
+        short_range
+    for mod in (pm_rods, short_range, fof_hook, direct):
         mod.reset_launch_counts()
 
 
 def read_counts() -> dict:
-    from lambda_cdm_tpu_torch.ops import fof_hook, pm_rods, short_range
-    return dict(pm_rods.launches, **short_range.launches, **fof_hook.launches)
+    from lambda_cdm_tpu_torch.ops import direct, fof_hook, pm_rods, \
+        short_range
+    return dict(pm_rods.launches, **short_range.launches,
+                **fof_hook.launches, **direct.launches)
 
 
 def timed(name: str, fn, *args):
@@ -595,14 +635,28 @@ def cli_phase(device, card):
             if name.startswith(("analysis.", "diagnostics.")):
                 print(f"  {name}: {t['count']} x {1e3 * t['mean_s']:.2f} ms")
         check("CLI", stats.total_steps == 40, "steps not taken")
-        check("CLI", all(v > 0 for v in launches.values()),
-              "a kernel of the path was not launched")
+        check("CLI", all(launches[k] > 0 for k in (
+            "cic_deposit", "fd4_gather", "short_range", "fof_hook")),
+            "a kernel of the path was not launched")
         halo_obs = [o for o in eng.observers if isinstance(
             o, HaloFinderObserver)]
         check("CLI", len(halo_obs) == 1 and len(halo_obs[0].catalogs) == 1,
               "no halo catalogue recorded")
         print(f"CLI halo catalogue at step 40: "
               f"{halo_obs[0].catalogs[0]['num_halos']} halos")
+        # the treepm_fast state's forces through the stateless treepm
+        # solver against the min-image direct oracle
+        t0 = time.perf_counter()
+        res = eng.validate_force_accuracy(n_sample=1024)
+        torch.cuda.synchronize()
+        print(f"CLI state force validation (treepm, 1024 targets, "
+              f"{time.perf_counter() - t0:.2f} s): scale-normalized avg "
+              f"{res['avg_err']:.4e} max {res['max_err']:.4e}, per-target "
+              f"avg {res['avg_rel_err']:.4e}; against the min-image "
+              f"oracle, where the JAX package's bar is force RMS 2.84e-3 "
+              f"(bar 5e-3) against Ewald")
+        check("CLI", res["n_sample"] == 1024 and math.isfinite(
+            res["max_err"]), "force validation failed")
         names = sorted(os.listdir(out_dir))
         pk_files = [f for f in names if f.startswith("power_")]
         check("CLI", len(pk_files) == 2, f"P(k) files {pk_files}")
@@ -796,6 +850,284 @@ def energy_timing(device, card):
     check("energy", pe < 0 and pe == pe, "bad potential energy")
 
 
+def direct_inputs(n: int, box: float, seed: int, device):
+    """n particles uniform in the box (torch generator on the card), unit
+    masses."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pos = torch.rand((n, 3), generator=gen, device=device) * box
+    return pos, torch.ones(n, device=device)
+
+
+def k4_phase(device, card):
+    """K4 (v1, v2) and K4s (sym, sym2) at 100k against their plain
+    versions, timed; K4 at ragged tiles and without the minimum image."""
+    from lambda_cdm_tpu_torch.ops import direct
+    n, box, soft = 100_000, 100.0, 0.05
+    pos, mass = direct_inputs(n, box, 41, device)
+    failures = []
+    out = {}
+    for variant in direct.VARIANTS:
+        kw = dict(periodic=True, variant=variant)
+        name = "direct_sym" if variant.startswith("sym") else "direct"
+        got = direct.pairwise_accelerations(pos, mass, box, soft, **kw)
+        ref = direct.pairwise_accelerations_plain(pos, mass, box, soft, **kw)
+        err, rel = rel_err(got, ref)
+        ms = cuda_ms(lambda: direct.pairwise_accelerations(
+            pos, mass, box, soft, **kw), 10)
+        pms = cuda_ms(lambda: direct.pairwise_accelerations_plain(
+            pos, mass, box, soft, **kw), 1, warmup=0)
+        pairs = float(n) * n / (2 if name == "direct_sym" else 1)
+        b_ms, b_by = bound(28.0 * n, DIRECT_FLOPS[name] * pairs)
+        print(f"K4 {variant} at N={n}: max_abs_err {err:.3e} (rel "
+              f"{rel:.3e}, tol {DIRECT_TOL[variant]:g}); kernel {ms:.4f} "
+              f"ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+              f"{pairs:.3e} pairs) on {card}")
+        check(f"K4 {variant}", rel <= DIRECT_TOL[variant],
+              f"rel err {rel} > tol", failures)
+        out[variant] = (err, rel, ms, pms, b_ms, b_by)
+    # ragged tiles (two and three of K4's 128) and no minimum image
+    for m_n, periodic in ((200, True), (333, True), (4096, False)):
+        p, m = direct_inputs(m_n, 20.0, m_n, device)
+        for variant in ("v1", "sym"):
+            kw = dict(periodic=periodic, variant=variant)
+            _, rel = rel_err(direct.pairwise_accelerations(p, m, 20.0, soft,
+                                                           **kw),
+                             direct.pairwise_accelerations_plain(
+                                 p, m, 20.0, soft, **kw))
+            print(f"K4 {variant} N={m_n} periodic={periodic}: rel "
+                  f"{rel:.3e} (tol {DIRECT_TOL[variant]:g})")
+            check(f"K4 {variant} N={m_n}", rel <= DIRECT_TOL[variant],
+                  f"rel err {rel} > tol", failures)
+    if failures:
+        raise AssertionError("K4 phase: " + "; ".join(failures))
+    return out
+
+
+def direct_phase(device, card):
+    """direct_10k.json at full size through the CLI's engine (energy and
+    momentum observers on, output every 10), then its force accuracy."""
+    import torch
+    from lambda_cdm_tpu_torch import cli
+    from lambda_cdm_tpu_torch.core.config import SimulationConfig
+    tmp = tempfile.mkdtemp(prefix="lcdm_chip_smoke_direct_")
+    try:
+        cfg = SimulationConfig.from_file(DIRECT_CONFIG)
+        rest = cfg.apply_cli_overrides([
+            f"--simulation.output_directory={tmp}",
+            f"--profiling.output_file={os.path.join(tmp, 'profile.json')}"])
+        check("direct_10k", not rest, f"overrides not taken: {rest}")
+        cfg.validate()
+        reset_counts()
+        t0 = time.perf_counter()
+        eng = cli._build_engine(cfg, device=device)
+        eng.initialize()
+        eng.run()
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        launches = read_counts()
+        st, stats = eng.state, eng.statistics
+        n = st.num_particles
+        steps = stats.total_steps
+        ms_step = 1e3 * stats.compute_time_s / max(steps, 1)
+        rate = n * steps / max(stats.compute_time_s, 1e-9)
+        expect = steps + 1 + (2 if cfg.profiling.detailed_timing else 0)
+        print(f"direct_10k: N={n} box={cfg.particles.box_size} softening "
+              f"{cfg.forces.softening_length}; {steps} steps to a="
+              f"{float(st.scale_factor):.5f} (z={float(st.redshift):.4f}) in "
+              f"{t_run:.2f} s (compute {stats.compute_time_s:.3f} s, "
+              f"{ms_step:.4f} ms/step, {rate:.4e} particle-updates/s; "
+              f"observers {stats.analysis_time_s:.2f} s) on {card}")
+        print(f"direct_10k: K4 launches {launches['direct']} (expected "
+              f"{expect}: one at the start, one a step, two for the "
+              f"force-fraction timing); final relative energy error "
+              f"{eng.last_energy_error:.4e}")
+        check("direct_10k", steps == cfg.time.max_steps, "steps not taken")
+        check("direct_10k", launches["direct"] == expect,
+              "K4 launch count differs")
+        check("direct_10k", bool(torch.all(torch.isfinite(st.positions))),
+              "non-finite positions")
+        check("direct_10k", eng.last_energy_error is not None
+              and eng.last_energy_error == eng.last_energy_error,
+              "no energy error recorded")
+        # the step's split: one K4 launch at this N against the step
+        from lambda_cdm_tpu_torch.ops import direct
+        k_ms = cuda_ms(lambda: direct.pairwise_accelerations(
+            st.positions, st.masses, cfg.particles.box_size,
+            cfg.forces.softening_length, cfg.units.G), 20)
+        b_ms, b_by = bound(28.0 * n, DIRECT_FLOPS["direct"] * float(n) * n)
+        print(f"direct_10k: K4 at N={n} {k_ms:.4f} ms a launch (CUDA "
+              f"events, mean of 20; bound {b_ms:.4f} ms, {b_by}): "
+              f"{100 * k_ms / ms_step:.1f}% of the step; the rest is the "
+              f"fused KDK's elementwise launches and its host-side "
+              f"scale-factor arithmetic")
+        res = eng.validate_force_accuracy(n_sample=1024)
+        print(f"direct_10k force validation (1024 targets): scale-normalized"
+              f" avg {res['avg_err']:.4e} max {res['max_err']:.4e} against "
+              f"the plain min-image oracle")
+        check("direct_10k", res["max_err"] < 1e-4, "K4 forces disagree")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def stateless_phase(device, card):
+    """pm_128_256.json and basic_lambda_cdm.json at full size, 10 steps
+    each, through SimulationBuilder; plain PyTorch (no TPU kernel on
+    these paths), with validate_force_accuracy and peak memory."""
+    import torch
+    from lambda_cdm_tpu_torch import SimulationBuilder
+    from lambda_cdm_tpu_torch.core.config import SimulationConfig
+    from lambda_cdm_tpu_torch.forces import auto_pm_grid
+    from lambda_cdm_tpu_torch.forces.treepm import treepm_plan
+    for path in (PM_CONFIG, TREEPM_CONFIG):
+        cfg = SimulationConfig.from_file(path)
+        cfg.profiling.output_file = ""
+        cfg.io.diagnostics.energy_conservation = False
+        n = cfg.particles.num_particles
+        ng = auto_pm_grid(cfg)
+        t0 = time.perf_counter()
+        eng = SimulationBuilder(device=device).with_config(cfg).build()
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        eng.run(num_steps=10)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        stats = eng.statistics
+        ms_step = 1e3 * stats.compute_time_s / max(stats.total_steps, 1)
+        extra = ""
+        if cfg.forces.type == "treepm":
+            plan = treepm_plan(n, cfg.particles.box_size, ng,
+                               split_factor=cfg.forces.split_factor,
+                               cut_factor=cfg.forces.cut_factor,
+                               capacity=cfg.forces.bucket_capacity)
+            extra = (f", plan ncell {plan['ncell']} capacity "
+                     f"{plan['capacity']}")
+        res = eng.validate_force_accuracy(n_sample=1024)
+        rate = n * stats.total_steps / max(stats.compute_time_s, 1e-9)
+        print(f"{os.path.basename(path)} ({cfg.forces.type}, plain PyTorch: "
+              f"no TPU kernel on this path): N={n} ng={ng}{extra}; init "
+              f"{t_init:.2f} s; {stats.total_steps} steps {ms_step:.3f} "
+              f"ms/step, {rate:.4e} particle-updates/s, peak memory {peak:.2f} GiB on {card}; "
+              f"force validation (1024 targets, min-image oracle): avg "
+              f"{res['avg_err']:.4e} max {res['max_err']:.4e}")
+        check(path, stats.total_steps == 10, "steps not taken")
+        check(path, bool(torch.all(torch.isfinite(eng.state.positions))),
+              "non-finite positions")
+        check(path, res["n_sample"] == 1024 and math.isfinite(
+            res["max_err"]), "force validation failed")
+        del eng
+
+
+# the stateless reference check: the card's 8-step direct run against the
+# CPU's, positions relative to the box and velocities to max |v|. On the
+# H100 sound runs read at most 1.5e-6 in velocity (1.2e-4 while K4 took
+# the image of d * (1/box), which differs from the CPU's d / box for some
+# pairs half a box apart); a planted K4 fault of G 0.1% high reads 3.0e-4
+# and one without the minimum image 1.7
+REF_SEEDS = (6, 7, 8)
+REF_TOL = {"pos": 1e-5, "vel": 1e-5}
+
+
+def _planted_fault(g_factor: float, periodic: bool):
+    """A `direct` solver builder whose K4 call carries a planted fault
+    (registered in place of the solver for one run: the config accepts
+    only the built-in names)."""
+    def build(config):
+        from lambda_cdm_tpu_torch.ops import direct
+        box, soft = config.particles.box_size, config.forces.softening_length
+        g = config.units.G * g_factor
+
+        def accel_fn(state):
+            return direct.pairwise_accelerations(
+                state.positions, state.masses, box, soft, g,
+                periodic=periodic)
+        return accel_fn
+    return build
+
+
+def stateless_reference_check(device):
+    """A 4096-particle direct run of 8 steps on the card (K4) against the
+    CPU (the solver's row-blocked sum) from three seeds' states, and two
+    planted K4 faults that the check must see; then pm and treepm
+    accelerations of one state on both."""
+    import torch
+    from lambda_cdm_tpu_torch import SimulationBuilder, forces
+    from lambda_cdm_tpu_torch.core.config import SimulationConfig
+    from lambda_cdm_tpu_torch.forces import create_force_computer, \
+        register_force_computer
+    from lambda_cdm_tpu_torch.physics.initial_conditions import \
+        generate_state
+    cfg = SimulationConfig.from_dict({
+        "forces": {"type": "direct", "softening_length": 0.1,
+                   "pm_grid_size": 32},
+        "particles": {"num_particles": 4096, "box_size": 50.0},
+        "cosmology": {"initial_redshift": 9.0},
+        "time": {"initial_timestep": 2e-5},
+        "simulation": {"output_frequency": 4, "checkpoint_frequency": 0},
+        "profiling": {"output_file": ""},
+        "logging": {"performance_logging": False}})
+    box = cfg.particles.box_size
+    faults = {"G 0.1% high": (1.001, True), "no minimum image": (1.0, False)}
+
+    def run(dev, st0):
+        eng = (SimulationBuilder(device=dev).with_config(cfg)
+               .with_initial_state(st0).build())
+        st = eng.run(num_steps=8)
+        return st.positions.cpu(), st.velocities.cpu()
+
+    def errs(got, ref):
+        (gp, gv), (cp, cv) = got, ref
+        d = torch.remainder(gp - cp + box / 2, box) - box / 2
+        return (float(d.abs().max()) / box,
+                float((gv - cv).abs().max() / cv.abs().max()))
+
+    ic = cfg.particles.initial_conditions
+    ic.type, ic.grid_size = "2lpt", 16
+    sound, planted = {}, {}
+    for seed in REF_SEEDS:
+        ic.random_seed = seed
+        st0 = generate_state(cfg, device="cpu")
+        ref = run("cpu", st0)
+        sound[seed] = errs(run(device, st0), ref)
+        if seed == REF_SEEDS[0]:
+            first = st0
+            solver = forces._REGISTRY["direct"]
+            for name, args in faults.items():
+                register_force_computer("direct")(_planted_fault(*args))
+                try:
+                    planted[name] = errs(run(device, st0), ref)
+                finally:
+                    register_force_computer("direct")(solver)
+    acc = {}
+    for kind in ("pm", "treepm"):
+        cfg.forces.type = kind
+        fn = create_force_computer(cfg)
+        a_g = fn(first.replace(positions=first.positions.to(device),
+                               velocities=first.velocities.to(device),
+                               masses=first.masses.to(device))).cpu()
+        acc[kind] = rel_err(a_g, fn(first))[1]
+    print("stateless reference check (4096 particles, direct, 8 steps, "
+          "card K4 vs CPU row-blocked sum): " + "; ".join(
+              f"seed {k}: positions {p:.3e} of the box, velocities {v:.3e} "
+              f"of max |v|" for k, (p, v) in sound.items())
+          + f" (tol {REF_TOL['pos']:g} / {REF_TOL['vel']:g}); planted K4 "
+          "faults: " + "; ".join(
+              f"{k}: positions {p:.3e}, velocities {v:.3e}"
+              for k, (p, v) in planted.items())
+          + f"; one state's accelerations card vs CPU: pm {acc['pm']:.3e}, "
+          f"treepm {acc['treepm']:.3e} (tol 1e-4)")
+    check("stateless reference", all(
+        p <= REF_TOL["pos"] and v <= REF_TOL["vel"]
+        for p, v in sound.values()), "card and CPU direct runs disagree")
+    check("stateless reference", all(
+        p > REF_TOL["pos"] or v > REF_TOL["vel"]
+        for p, v in planted.values()), "a planted K4 fault passes the check")
+    check("stateless reference", max(acc.values()) <= 1e-4,
+          "pm/treepm card and CPU accelerations disagree")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -834,9 +1166,15 @@ def main() -> int:
     launches = timed("CLI phase", cli_phase, device, card)
     timed("reference check", reference_check, device)
     timed("energy timing", energy_timing, device, card)
+    k4 = timed("K4 phase", k4_phase, device, card)
+    k4_launches = timed("direct_10k phase", direct_phase, device, card)
+    timed("stateless pm/treepm phase", stateless_phase, device, card)
+    timed("stateless reference check", stateless_reference_check, device)
 
     rec["fof_hook"] = (k5["max_abs_err"], 0.0, k5["ms"], k5["plain_ms"],
                        k5["bound_ms"], k5["bound_by"])
+    rec["direct"] = k4["v1"]
+    rec["direct_sym"] = k4["sym"]
     sources = {"cic_deposit": ("csrc/cic_deposit.cu",
                                "lambda_cdm_tpu/ops/pallas_pm_rods.py:550"),
                "fd4_gather": ("csrc/fd4_gather.cu",
@@ -844,9 +1182,18 @@ def main() -> int:
                "short_range": ("csrc/short_range.cu",
                                "lambda_cdm_tpu/ops/pallas_short_range.py:169"),
                "fof_hook": ("csrc/fof_hook.cu",
-                            "lambda_cdm_tpu/ops/pallas_fof.py:46")}
-    # launches: the CLI run, the slice's main path; no single PyTorch call
-    # computes any of these kernels' functions, so library_ms is null
+                            "lambda_cdm_tpu/ops/pallas_fof.py:46"),
+               "direct": ("csrc/direct.cu",
+                          "lambda_cdm_tpu/ops/pallas_direct.py:253"),
+               "direct_sym": ("csrc/direct.cu",
+                              "lambda_cdm_tpu/ops/pallas_direct.py:47")}
+    # launches: K1-K3 and K5 on the CLI run of treepm_1m, K4 and K4s on
+    # the direct_10k run (0 for K4s: no path of the port runs it; the JAX
+    # package drives its kernel only from bench.py); K4 and K4s report
+    # their v1 and sym variants. No single PyTorch call computes any of
+    # these kernels' functions, so library_ms is null
+    launches = dict(launches, direct=k4_launches["direct"],
+                    direct_sym=k4_launches["direct_sym"])
     kernels = [{"name": name, "route": "cuda",
                 "source": f"lambda_cdm_tpu_torch/{src}", "replaces": rep,
                 "launches": launches[name], "max_abs_err": rec[name][0],
@@ -854,6 +1201,9 @@ def main() -> int:
                 "bound_ms": rec[name][4], "bound_by": rec[name][5],
                 "library_ms": None}
                for name, (src, rep) in sources.items()]
+    print(f"direct_sym (K4s): {launches['direct_sym']} launches in the "
+          f"direct_10k run: no path of the port runs it; its times and error "
+          f"are the K4 phase's")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

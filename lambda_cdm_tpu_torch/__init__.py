@@ -5,11 +5,14 @@ GPU (sm_90a).
 Ported so far: the single-device treepm_fast path -- config, 2LPT
 initial conditions, the cell-bucketed stepper with its three kernels
 (K1 CIC deposit, K2 fused CIC x fd4 gather, K3 short-range pairs), the
-engine/builder with its diagnostics, snapshots and checkpoints -- and
-the CLI run with its analysis: P(k), the FoF + SO halo finder with its
-kernel (K5 FoF hook sweep) and the config-driven observers. The kernels'
-plain PyTorch versions run for CPU tensors. This package never imports
-JAX; the tests hold it against lambda_cdm_tpu.
+engine/builder with its diagnostics, snapshots and checkpoints -- the
+CLI run with its analysis: P(k), the FoF + SO halo finder with its
+kernel (K5 FoF hook sweep) and the config-driven observers -- and the
+stateless solvers (direct with its kernels K4/K4s, pm, treepm) behind the
+force-computer registry, with the engine's fused KDK loop, the
+force-accuracy harness, EnergyMonitor and glass initial conditions. The
+kernels' plain PyTorch versions run for CPU tensors. This package never
+imports JAX; the tests hold it against lambda_cdm_tpu.
 """
 
 __version__ = "0.1.0"
@@ -26,7 +29,8 @@ from .core.analysis_observers import (ConservationObserver,
 from .core.config import SimulationConfig
 from .core.engine import (LifecycleState, SimulationBuilder,
                           SimulationEngine, SimulationStatistics)
-from .core.observers import MetricsRecorder, Observer, ProgressObserver
+from .core.observers import (EnergyMonitor, MetricsRecorder, Observer,
+                             ProgressObserver)
 from .core.state import SimState, make_state
 from .physics.cosmology import PLANCK, CosmologyParams
 
@@ -34,7 +38,7 @@ __all__ = [
     "__version__",
     "SimulationConfig", "SimulationBuilder", "SimulationEngine",
     "SimulationStatistics", "LifecycleState",
-    "Observer", "ProgressObserver", "MetricsRecorder",
+    "Observer", "ProgressObserver", "EnergyMonitor", "MetricsRecorder",
     "SnapshotObserver", "PowerSpectrumObserver", "HaloFinderObserver",
     "ConservationObserver", "ParticleStatisticsObserver",
     "build_observers_from_config",

@@ -3,6 +3,7 @@
 
     python -m lambda_cdm_tpu_torch run examples/configs/treepm_1m.json \\
         --time.max_steps=40
+    python -m lambda_cdm_tpu_torch run examples/configs/direct_10k.json
     python -m lambda_cdm_tpu_torch resume output/checkpoint_000200.npz
     python -m lambda_cdm_tpu_torch analyze snap.npz --pk-out pk.txt \\
         --halos-out halos.npz                     # offline P(k)+halos
@@ -83,6 +84,7 @@ def cmd_info(argv, device="cuda") -> int:
     import torch
 
     from . import __version__
+    from .forces import available_force_computers
 
     print(f"lambda_cdm_tpu_torch {__version__}")
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda})")
@@ -92,10 +94,12 @@ def cmd_info(argv, device="cuda") -> int:
     else:
         print("devices: no CUDA device (the CPU runs the kernels' plain "
               "versions)")
-    print("force computers: treepm_fast")
-    print("capabilities: cosmology, zeldovich/2lpt ICs, KDK leapfrog,")
-    print("  treepm_fast gravity (CUDA kernels K1-K3), P(k), FoF+SO halos")
-    print("  (CUDA kernel K5), diagnostics, npz/ascii snapshots,")
+    print(f"force computers: {', '.join(available_force_computers())}, "
+          f"treepm_fast")
+    print("capabilities: cosmology, zeldovich/2lpt/glass ICs, KDK leapfrog,")
+    print("  direct gravity (CUDA kernels K4/K4s), PM/TreePM, treepm_fast")
+    print("  gravity (CUDA kernels K1-K3), P(k), FoF+SO halos (CUDA kernel")
+    print("  K5), diagnostics, force validation, npz/ascii snapshots,")
     print("  checkpoint/resume")
     return 0
 

@@ -1,21 +1,30 @@
-"""SimulationEngine + SimulationBuilder for the single-device treepm_fast
-path (counterpart of lambda_cdm_tpu/core/engine.py).
+"""SimulationEngine + SimulationBuilder on one device (counterpart of
+lambda_cdm_tpu/core/engine.py).
 
-The engine generates (or accepts) a SimState, buckets it into the
-persistent FastState (ops/fast_treepm) on `device`, and advances it in
-output-cadence chunks: each chunk applies the proactive drift guard,
+The engine generates (or accepts) a SimState on `device` and advances it
+in output-cadence chunks on one of two branches:
+
+* stateless solvers (forces.type direct, direct_reference, pm, treepm, or
+  a registered plugin): a Python loop of kdk_step_fused with one force
+  evaluation a step, the closing force of a step opening the next (the
+  JAX engine's jit(scan) chunk); the cached acceleration feeds the
+  adaptive timestep;
+* treepm_fast: the state is bucketed into the persistent FastState
+  (ops/fast_treepm) and each chunk applies the proactive drift guard,
 carries the rebucket cadence across chunks, grows the bucket capacity
 and retries when a rebucket would overflow, halves the cadence when
 deposits were dropped, and syncs the public SimState (original particle
 order, positions wrapped into the box) for the observers.
 
-Diagnostics (energy, momentum, angular momentum), npz snapshots and
-checkpoints (periodic ones at simulation.checkpoint_frequency, timed into
-statistics.io_time_s) and resume follow the JAX engine.
+Diagnostics (energy, momentum, angular momentum), the force-accuracy
+harness (validate_force_accuracy against a direct-sum oracle), npz
+snapshots and checkpoints (periodic ones at
+simulation.checkpoint_frequency, timed into statistics.io_time_s) and
+resume follow the JAX engine.
 
 Not ported yet (each raises NotImplementedError, see ROADMAP.md): the
-device mesh, the stateless solvers (direct, pm, treepm, pm_fast), orbax
-checkpoints, the force-accuracy harness and the profiler trace.
+device mesh, pm_fast, warmup (AOT compilation), orbax checkpoints and the
+profiler trace.
 """
 
 from __future__ import annotations
@@ -97,6 +106,8 @@ class SimulationEngine:
         self._state: SimState | None = None
         self._fstate = None
         self._fast_kw: dict | None = None
+        self._acc = None                  # accelerations at state.positions
+        self._accel_fn = None
         self._dt = None
 
     # -- properties ---------------------------------------------------------
@@ -109,8 +120,16 @@ class SimulationEngine:
     @state.setter
     def state(self, new_state: SimState) -> None:
         self._state = self._on_device(new_state)
+        self._acc = None
         if self._fstate is not None:
             self._init_fast_path()
+
+    @property
+    def accel_fn(self):
+        """The stateless solver's `accel_fn(state) -> [N, 3]`."""
+        if self._accel_fn is None:
+            raise RuntimeError("engine not initialized")
+        return self._accel_fn
 
     def _on_device(self, st: SimState) -> SimState:
         return st.replace(positions=st.positions.to(self.device),
@@ -120,27 +139,34 @@ class SimulationEngine:
     # -- lifecycle ----------------------------------------------------------
     def initialize(self, state: SimState | None = None) -> None:
         """Validate the config, generate (or accept) the initial state and
-        bucket it into the fast path."""
+        build the force solver: the persistent buckets of treepm_fast, or
+        the registry's accel_fn for a stateless solver."""
         try:
             cfg = self.config
             cfg.validate()
             if cfg.compute.mesh.enabled:
                 raise _not_ported("compute.mesh (multi-device runs)")
-            if cfg.forces.type != "treepm_fast":
-                raise _not_ported(f"forces.type={cfg.forces.type!r} (only "
-                                  f"treepm_fast is ported)")
-            if cfg.validation.validate_forces:
-                raise _not_ported("validation.validate_forces")
+            if cfg.forces.type == "pm_fast":
+                raise _not_ported("forces.type='pm_fast'")
             if cfg.profiling.enabled and cfg.profiling.trace_dir:
                 raise _not_ported("profiling.trace_dir")
+            use_fast = cfg.forces.type == "treepm_fast"
             if state is None:
                 from ..physics.initial_conditions import generate_state
                 state = generate_state(cfg, device=self.device)
+            if not use_fast:
+                from ..forces import create_force_computer
+                self._accel_fn = create_force_computer(cfg)
             self._state = self._on_device(state)
+            self._acc = None
             self._dt = host_scalar(cfg.time.initial_timestep)
-            self._init_fast_path()
+            if use_fast:
+                self._init_fast_path()
             if cfg.validation.check_initial_conditions:
                 self._validate_state()
+            if cfg.validation.validate_forces:
+                self.validate_force_accuracy(
+                    n_sample=cfg.validation.force_samples)
             self.lifecycle = LifecycleState.INITIALIZED
         except Exception as exc:
             self.lifecycle = LifecycleState.ERROR
@@ -315,11 +341,47 @@ class SimulationEngine:
             time=self._fstate.time.clone(),
             step=self._fstate.step.clone())
 
+    # -- stateless solvers: a loop of the fused KDK step ---------------------
+    def _ensure_acc(self) -> None:
+        if self._acc is None and self._fstate is None:
+            self._acc = self._accel_fn(self._state)
+
+    def _stateless_chunk(self, n: int) -> None:
+        """`n` fused KDK steps, one force evaluation each (the JAX
+        engine's jit(scan) chunk as a Python loop)."""
+        from ..physics.integrators import kdk_step_fused
+        cfg = self.config
+        cosmological = cfg.cosmology.model != "Newtonian"
+        params = cfg.cosmology_params()
+        step_kw = dict(
+            h0_internal=cfg.units.H0_internal,
+            kick_mode=(cfg.integration.kick_mode if cosmological
+                       else "newtonian"),
+            sf_method=cfg.integration.scale_factor_update,
+            periodic=cfg.particles.periodic_boundaries,
+            cosmological=cosmological)
+        self._ensure_acc()
+        st, acc = self._state, self._acc
+        for _ in range(n):
+            st, acc = kdk_step_fused(st, acc, self._accel_fn, params,
+                                     self._dt, cfg.particles.box_size,
+                                     **step_kw)
+        self._state, self._acc = st, acc
+
+    def _chunk(self, n: int) -> None:
+        if self._fstate is not None:
+            self._fast_chunk(n)
+        else:
+            self._stateless_chunk(n)
+
+    def warmup(self, chunk_len: int | None = None) -> dict:
+        raise _not_ported("warmup (ahead-of-time compilation, M15)")
+
     def step(self, num_steps: int = 1) -> SimState:
         """Advance `num_steps` steps in one chunk."""
         if self.lifecycle == LifecycleState.UNINITIALIZED:
             raise RuntimeError("initialize() first")
-        self._fast_chunk(num_steps)
+        self._chunk(num_steps)
         self.statistics.total_steps += num_steps
         return self._state
 
@@ -329,15 +391,20 @@ class SimulationEngine:
         each chunk to force time."""
         if getattr(self, "_force_eval_s", None) is not None:
             return
-        from ..ops.fast_treepm import _accel
-        keys = ("box_size", "ng", "ncell", "capacity", "margin", "rs",
-                "softening", "g_const", "gradient")
-        kw = {k: self._fast_kw[k] for k in keys}
-        acc = _accel(self._fstate, **kw)[0]            # warm caches
-        synchronize(acc)
+        if self._fstate is not None:
+            from ..ops.fast_treepm import _accel
+            keys = ("box_size", "ng", "ncell", "capacity", "margin", "rs",
+                    "softening", "g_const", "gradient")
+            kw = {k: self._fast_kw[k] for k in keys}
+
+            def force():
+                return _accel(self._fstate, **kw)[0]
+        else:
+            def force():
+                return self._accel_fn(self._state)
+        synchronize(force())                            # warm caches
         t0 = time.perf_counter()
-        acc = _accel(self._fstate, **kw)[0]
-        synchronize(acc)
+        synchronize(force())
         self._force_eval_s = time.perf_counter() - t0
 
     def run(self, num_steps: int | None = None) -> SimState:
@@ -356,6 +423,7 @@ class SimulationEngine:
         t_start = time.perf_counter()
         steps_done = 0
         try:
+            self._ensure_acc()
             if cfg.profiling.detailed_timing:
                 self._measure_force_fraction()
             if cfg.integration.adaptive_timestep \
@@ -382,7 +450,7 @@ class SimulationEngine:
                                       int(self._state.step))
                 t_chunk0 = time.perf_counter()
                 with self.profiler.timer("run.chunk"):
-                    self._fast_chunk(n)
+                    self._chunk(n)
                     synchronize(self._state.positions)
                 dt_chunk = time.perf_counter() - t_chunk0
                 self.statistics.compute_time_s += dt_chunk
@@ -458,8 +526,14 @@ class SimulationEngine:
     def _update_dt(self) -> None:
         from ..physics.integrators import adaptive_dt, hubble_internal
         cfg = self.config
-        live = (self._fstate.bmass > 0)[None]
-        acc = torch.where(live, self._fstate.acc, 0.0).reshape(3, -1).T
+        if self._fstate is not None:
+            # padding slots carry field values at their parked positions
+            live = (self._fstate.bmass > 0)[None]
+            acc = torch.where(live, self._fstate.acc, 0.0).reshape(3, -1).T
+        elif self._acc is not None:
+            acc = self._acc
+        else:
+            return
         hubble = None
         if cfg.integration.max_dloga > 0 \
                 and cfg.cosmology.model != "Newtonian":
@@ -483,6 +557,8 @@ class SimulationEngine:
         self._state = None
         self._fstate = None
         self._fast_kw = None
+        self._acc = None
+        self._accel_fn = None
         self.statistics = SimulationStatistics()
         self.lifecycle = LifecycleState.UNINITIALIZED
 
@@ -542,7 +618,7 @@ class SimulationEngine:
         engine if needed) and the saved statistics."""
         from ..utils import checkpoint as ckpt
         state, _cfg_dict, stats = ckpt.load_checkpoint(path, self.device)
-        if self._fstate is None:
+        if self._fstate is None and self._accel_fn is None:
             self.initialize(state=state)
         else:
             self.state = state
@@ -558,10 +634,76 @@ class SimulationEngine:
         self.save_checkpoint(os.path.join(
             outdir, f"checkpoint_{self.statistics.total_steps:06d}"))
 
-    # -- not ported yet -------------------------------------------------------
+    # -- force accuracy -------------------------------------------------------
     def validate_force_accuracy(self, n_sample: int = 1024,
                                 seed: int = 0) -> dict:
-        raise _not_ported("validate_force_accuracy (stateless solvers)")
+        """The configured solver against exact direct summation: the
+        solver on the whole current state, the oracle (plain PyTorch,
+        minimum image) for `n_sample` live targets drawn with
+        np.random.default_rng(seed) -- the JAX package's draw, so both
+        packages pick the same rows -- over all sources. treepm_fast
+        validates through treepm on the same state. Returns
+        {"avg_err", "max_err"} (|a_solver - a_direct| over the rms
+        |a_direct|), {"avg_rel_err", "max_rel_err"} (per target) and
+        "n_sample", "solver"; warns above validation.force_tolerance."""
+        import copy
+
+        import numpy as np
+
+        from ..forces import create_force_computer
+        from ..forces.direct import direct_accelerations_chunked
+        cfg = self.config
+        st = self.state
+        solver_name = {"treepm_fast": "treepm", "pm_fast": "pm"}.get(
+            cfg.forces.type, cfg.forces.type)
+        vcfg = copy.deepcopy(cfg)
+        vcfg.forces.type = solver_name
+        acc_solver = create_force_computer(vcfg)(st)
+
+        idx_all = np.nonzero((st.masses > 0).cpu().numpy())[0]
+        rng = np.random.default_rng(seed)
+        k = int(min(n_sample, idx_all.size))
+        idx = torch.as_tensor(rng.choice(idx_all, size=k, replace=False),
+                              device=st.positions.device)
+
+        mg = (float(cfg.forces.modified_gravity_strength)
+              if cfg.forces.force_kernel == "modified_gravity" else 0.0)
+        # 64 rows a block: peak temporary 64 * N * 3
+        a_ref = direct_accelerations_chunked(
+            st.positions, st.masses, float(cfg.particles.box_size),
+            float(cfg.forces.softening_length), float(cfg.units.G), mg,
+            chunk_size=64, targets=idx)
+        a_sol = acc_solver[idx]
+        diff = torch.linalg.norm(a_sol - a_ref, dim=-1)
+        ref_mag = torch.linalg.norm(a_ref, dim=-1)
+        # scale-normalized error: per-target relative errors diverge on
+        # near-cancellation targets
+        scale = torch.sqrt(torch.mean(ref_mag ** 2))
+        floor = 1e-12 * torch.max(ref_mag)
+        rel = diff / torch.maximum(ref_mag, floor)
+        result = {"avg_err": float(torch.mean(diff) / scale),
+                  "max_err": float(torch.max(diff) / scale),
+                  "avg_rel_err": float(torch.mean(rel)),
+                  "max_rel_err": float(torch.max(rel)),
+                  "n_sample": k, "solver": solver_name}
+        self.statistics.force_avg_err = result["avg_err"]
+        self.statistics.force_max_err = result["max_err"]
+        if result["avg_err"] > cfg.validation.force_tolerance:
+            _log.warning(
+                "force validation: scale-normalized error %.3e vs direct "
+                "summation exceeds validation.force_tolerance %.1e "
+                "(solver=%s, max %.3e, per-target avg/max rel %.3e/%.3e "
+                "over %d targets)", result["avg_err"],
+                cfg.validation.force_tolerance, solver_name,
+                result["max_err"], result["avg_rel_err"],
+                result["max_rel_err"], k)
+        else:
+            _log.info(
+                "force validation: solver=%s scale-normalized err avg "
+                "%.3e max %.3e (per-target rel avg %.3e) over %d targets",
+                solver_name, result["avg_err"], result["max_err"],
+                result["avg_rel_err"], k)
+        return result
 
     # -- observers ------------------------------------------------------------
     def add_observer(self, observer: Observer) -> None:

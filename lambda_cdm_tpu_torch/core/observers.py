@@ -1,5 +1,5 @@
 """Observer bus: lifecycle event hooks with fan-out (counterpart of
-lambda_cdm_tpu/core/observers.py; EnergyMonitor is not ported yet).
+lambda_cdm_tpu/core/observers.py).
 
 Real implementation of the reference's IObserver pattern
 (include/core/interfaces.hpp:84-93: on_simulation_start/end,
@@ -100,6 +100,35 @@ class ProgressObserver(Observer):
         dt = time.perf_counter() - self._t0
         print(f"[lambda_cdm_tpu_torch] done: "
               f"{engine.statistics.total_steps} steps in {dt:.2f}s")
+
+
+class EnergyMonitor(Observer):
+    """Total energy drift relative to the energy at the start of the run:
+    engine.last_energy_error and a history of KE, PE, total and relative
+    error at every chunk end."""
+
+    def __init__(self):
+        self.initial_energy: float | None = None
+        self.history: list[dict[str, float]] = []
+
+    def on_simulation_start(self, engine):
+        # baseline before any step
+        if self.initial_energy is None:
+            self.initial_energy = float(engine.compute_energy()["total"])
+
+    def on_step_end(self, engine, step):
+        e = engine.compute_energy()
+        total = float(e["total"])
+        if self.initial_energy is None:
+            self.initial_energy = total
+        err = abs(total - self.initial_energy) / max(
+            abs(self.initial_energy), 1e-30)
+        engine.last_energy_error = err
+        self.history.append({
+            "step": int(step), "kinetic": float(e["kinetic"]),
+            "potential": float(e["potential"]), "total": total,
+            "relative_error": err,
+        })
 
 
 class MetricsRecorder(Observer):

@@ -1,0 +1,287 @@
+// K4 and K4s: softened O(N^2) direct-sum accelerations with the minimum
+// image.
+//
+// K4 replaces the TPU kernels lambda_cdm_tpu/ops/pallas_direct.py
+// _direct_kernel (variant v1) and _direct_kernel_v2 (v2). For every
+// particle i < n:
+//
+//   a_i = oscale * sum_j m_j (r^2)^(-3/2) d,   d = x_j - x_i,
+//   v1: d -= box * rint(d / box) (the quotient of a true division,
+//       rounded half to even), r^2 = ((dx^2 + dy^2) + dz^2) + eps^2;
+//   v2: coordinates arrive in box units, d -= rint(d),
+//       r^2 = dx^2 + (dy^2 + (dz^2 + eps^2)),
+//
+// with oscale = G (v1) or G / box^2 (v2). The self pair has d = 0 and adds
+// nothing; eps > 0 keeps it finite. Design: one thread per i (kThreads a
+// block); the j particles pass through shared memory in tiles of kThreads
+// float4 (x, y, z, m); the sums stay in registers, each tile's summed
+// apart and then added to the total (on the H100 one float32 running sum
+// over 1e5 pairs drifted 1.8e-5 of the largest |a| from the plain tree
+// reduction; the TPU kernel also sums per tile); the ragged last tile is
+// cut by its count, so there is no zero-mass padding. The TPU kernel's
+// [4, Np] lane layout, its padding to 2048-wide j tiles and its VMEM
+// accumulator tiles are TPU workarounds and are not carried over.
+//
+// The image is that of the true quotient d / box, as forces/direct's
+// min_image (the CPU solver) takes it. The TPU kernel's d * (1/box) can
+// round to the other side of a half-integer for a pair half a box apart;
+// on an initial-condition lattice such pairs are common, and those flips
+// alone moved an 8-step 4096-particle run's velocities 1.2e-4 of max |v|
+// away from the CPU run (card against CPU), against 1.2e-6 without them.
+// The quotient costs two FMAs a component, no division (see quotient()).
+//
+// K4s replaces _direct_kernel_sym (variants sym and sym2): the same
+// accelerations, with K4's image, each unordered pair evaluated once
+// (Newton's third law). Tiles of kSymTile particles; P tiles, made odd,
+// so that the TPU's half-matrix wrap (tile p against q = (p + k) mod P,
+// k = 0..(P-1)/2) covers every unordered tile pair exactly once. Here that wrap is a
+// schedule: one block per (p, k). A block keeps the row forces
+// m_i m_j f d of its i tile in registers and writes them to a row
+// partial; for k >= 1 it reduces the column forces over its i (a warp
+// shuffle tree, then the warps in order through shared memory) and writes
+// them negated to a column partial of tile q. A second pass sums, for each
+// particle, its half + 1 row partials and half column partials in a fixed
+// order and divides by the mass once (zero mass gives 0). No atomics:
+// the result is deterministic. sym2 passes coordinates in box units with
+// box = 1.
+//
+// Bound on the H100: operations. About 22 float operations and one rsqrt
+// (on the SFUs) per ordered pair, n^2 pairs for K4 and n^2 / 2 for K4s,
+// against 67 TFLOP/s of FP32: 1e10 pairs at 100k particles is about
+// 3.3 ms for K4. Bytes are negligible (16 B a particle in, 12 B out; K4s
+// adds its partials, 24 B a particle per tile pair). The design keeps each
+// staged j in shared memory for a whole block of i and all sums in
+// registers; the Gram form of r^2 that would put the pairs on the tensor
+// cores loses the softened r^2 to cancellation in float32, so the pairs
+// stay on the FP32 units.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 128;   // must equal ops/direct.THREADS
+constexpr int kSymTile = 256;   // must equal ops/direct.SYM_TILE
+constexpr int kSymWarps = kSymTile / 32;
+
+// d / box rounded as a true division rounds it, without dividing: with
+// inv_box the correctly rounded 1/box, q = d * inv_box lies within about
+// an ulp of the quotient, the remainder d - q * box is exact in one FMA,
+// and q + remainder * inv_box rounds to the quotient (Markstein's
+// correction, the last step of IEEE division in software): two FMAs,
+// where __fdiv_rn adds a reciprocal on the SFUs and a slow-path branch.
+__device__ __forceinline__ float quotient(float d, float box,
+                                          float inv_box) {
+  const float q = __fmul_rn(d, inv_box);
+  return __fmaf_rn(__fmaf_rn(-q, box, d), inv_box, q);
+}
+
+// The minimum image of one component: d - box * rint(d / box). box * rint
+// is exact for |rint| <= 2, so the FMA the subtraction contracts into
+// rounds as the plain version's multiply and subtract.
+__device__ __forceinline__ float wrap(float d, float box, float inv_box) {
+  return d - box * rintf(quotient(d, box, inv_box));
+}
+
+template <bool kScaled, bool kPeriodic>
+__global__ void direct_kernel(const float4* __restrict__ pts,
+                              float* __restrict__ out, int n, float box,
+                              float soft2, float oscale) {
+  __shared__ float4 tile[kThreads];
+  const float inv_box = __frcp_rn(box);
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const float4 pi = i < n ? pts[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+  float ax = 0.f, ay = 0.f, az = 0.f;
+
+  for (int jbase = 0; jbase < n; jbase += kThreads) {
+    const int j = jbase + threadIdx.x;
+    __syncthreads();                     // the previous tile is consumed
+    if (j < n) tile[threadIdx.x] = pts[j];
+    __syncthreads();
+    const int nt = min(kThreads, n - jbase);
+    float tx = 0.f, ty = 0.f, tz = 0.f;  // this tile's sums
+#pragma unroll 4
+    for (int t = 0; t < nt; ++t) {
+      const float4 p = tile[t];
+      float dx = p.x - pi.x;
+      float dy = p.y - pi.y;
+      float dz = p.z - pi.z;
+      if (kPeriodic) {
+        if (kScaled) {
+          dx -= rintf(dx);
+          dy -= rintf(dy);
+          dz -= rintf(dz);
+        } else {
+          dx = wrap(dx, box, inv_box);
+          dy = wrap(dy, box, inv_box);
+          dz = wrap(dz, box, inv_box);
+        }
+      }
+      const float r2 = kScaled ? dx * dx + (dy * dy + (dz * dz + soft2))
+                               : dx * dx + dy * dy + dz * dz + soft2;
+      const float inv_r = rsqrtf(r2);
+      const float w = p.w * (inv_r * inv_r * inv_r);
+      tx += w * dx;
+      ty += w * dy;
+      tz += w * dz;
+    }
+    ax += tx;
+    ay += ty;
+    az += tz;
+  }
+  if (i < n) {
+    out[3 * i] = ax * oscale;
+    out[3 * i + 1] = ay * oscale;
+    out[3 * i + 2] = az * oscale;
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;                              // lane 0 holds the sum
+}
+
+// Partials are [slot][3][kSymTile]: row slot p * (half + 1) + k, column
+// slot p * half + (k - 1) (targeting tile (p + k) mod P).
+template <bool kPeriodic>
+__global__ void direct_sym_pairs(const float4* __restrict__ pts,
+                                 float* __restrict__ rowpart,
+                                 float* __restrict__ colpart, int n,
+                                 int ntiles, int half, float box,
+                                 float soft2) {
+  __shared__ float4 tile[kSymTile];
+  __shared__ float colbuf[kSymWarps][3][kSymTile];
+  const float inv_box = __frcp_rn(box);
+  const int p = blockIdx.x / (half + 1);
+  const int k = blockIdx.x % (half + 1);
+  const int q = (p + k) % ntiles;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int i = p * kSymTile + tid;
+  const bool active = i < n;
+  const float4 pi = active ? pts[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+  const int j = q * kSymTile + tid;
+  if (j < n) tile[tid] = pts[j];
+  __syncthreads();
+  const int nt = max(0, min(kSymTile, n - q * kSymTile));
+
+  float fx = 0.f, fy = 0.f, fz = 0.f;
+  for (int t = 0; t < nt; ++t) {
+    const float4 pj = tile[t];
+    float dx = pj.x - pi.x;
+    float dy = pj.y - pi.y;
+    float dz = pj.z - pi.z;
+    if (kPeriodic) {
+      dx = wrap(dx, box, inv_box);
+      dy = wrap(dy, box, inv_box);
+      dz = wrap(dz, box, inv_box);
+    }
+    const float r2 = dx * dx + (dy * dy + (dz * dz + soft2));
+    const float inv_r = rsqrtf(r2);
+    const float w = active ? (pj.w * pi.w) * (inv_r * inv_r * inv_r) : 0.f;
+    const float tx = w * dx, ty = w * dy, tz = w * dz;
+    fx += tx;
+    fy += ty;
+    fz += tz;
+    if (k > 0) {                         // uniform across the block
+      const float cx = warp_sum(tx);
+      const float cy = warp_sum(ty);
+      const float cz = warp_sum(tz);
+      if (lane == 0) {
+        colbuf[warp][0][t] = cx;
+        colbuf[warp][1][t] = cy;
+        colbuf[warp][2][t] = cz;
+      }
+    }
+  }
+  float* row = rowpart + (long long)blockIdx.x * 3 * kSymTile;
+  row[tid] = fx;
+  row[kSymTile + tid] = fy;
+  row[2 * kSymTile + tid] = fz;
+  if (k > 0) {
+    __syncthreads();
+    float* col = colpart + ((long long)p * half + (k - 1)) * 3 * kSymTile;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float s = 0.f;
+      if (tid < nt) {
+#pragma unroll
+        for (int w = 0; w < kSymWarps; ++w) s += colbuf[w][c][tid];
+      }
+      col[c * kSymTile + tid] = -s;
+    }
+  }
+}
+
+__global__ void direct_sym_reduce(const float4* __restrict__ pts,
+                                  const float* __restrict__ rowpart,
+                                  const float* __restrict__ colpart,
+                                  float* __restrict__ out, int n,
+                                  int ntiles, int half, float oscale) {
+  const int t = blockIdx.x, tid = threadIdx.x;
+  const int i = t * kSymTile + tid;
+  if (i >= n) return;
+  float f[3] = {0.f, 0.f, 0.f};
+  for (int k = 0; k <= half; ++k) {
+    const float* row = rowpart + ((long long)t * (half + 1) + k) * 3
+                                     * kSymTile;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) f[c] += row[c * kSymTile + tid];
+  }
+  for (int k = 1; k <= half; ++k) {
+    const int p = (t - k + ntiles) % ntiles;
+    const float* col = colpart + ((long long)p * half + (k - 1)) * 3
+                                     * kSymTile;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) f[c] += col[c * kSymTile + tid];
+  }
+  const float m = pts[i].w;
+  const float inv_m = m > 0.f ? 1.0f / m : 0.f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) out[3 * i + c] = f[c] * inv_m * oscale;
+}
+
+}  // namespace
+
+extern "C" int lcdm_direct(const float4* pts, float* out, int n,
+                           int scaled, int periodic, float box, float soft2,
+                           float oscale, void* stream) {
+  const int blocks = (n + kThreads - 1) / kThreads;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (blocks > 0) {
+    if (scaled && periodic)
+      direct_kernel<true, true><<<blocks, kThreads, 0, s>>>(
+          pts, out, n, box, soft2, oscale);
+    else if (scaled)
+      direct_kernel<true, false><<<blocks, kThreads, 0, s>>>(
+          pts, out, n, box, soft2, oscale);
+    else if (periodic)
+      direct_kernel<false, true><<<blocks, kThreads, 0, s>>>(
+          pts, out, n, box, soft2, oscale);
+    else
+      direct_kernel<false, false><<<blocks, kThreads, 0, s>>>(
+          pts, out, n, box, soft2, oscale);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lcdm_direct_sym(const float4* pts, float* rowpart,
+                               float* colpart, float* out, int n,
+                               int ntiles, int periodic, float box,
+                               float soft2, float oscale, void* stream) {
+  const int half = (ntiles - 1) / 2;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n <= 0) return (int)cudaGetLastError();
+  const int pair_blocks = ntiles * (half + 1);
+  if (periodic)
+    direct_sym_pairs<true><<<pair_blocks, kSymTile, 0, s>>>(
+        pts, rowpart, colpart, n, ntiles, half, box, soft2);
+  else
+    direct_sym_pairs<false><<<pair_blocks, kSymTile, 0, s>>>(
+        pts, rowpart, colpart, n, ntiles, half, box, soft2);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  direct_sym_reduce<<<ntiles, kSymTile, 0, s>>>(pts, rowpart, colpart, out,
+                                                n, ntiles, half, oscale);
+  return (int)cudaGetLastError();
+}

@@ -46,6 +46,8 @@ _SIGNATURES = {
                          _P],
     "lcdm_fof_hook": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
                       _P],
+    "lcdm_direct": [_P, _P, _I, _I, _I, _F, _F, _F, _P],
+    "lcdm_direct_sym": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
 }
 
 

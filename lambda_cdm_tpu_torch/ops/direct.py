@@ -1,0 +1,153 @@
+"""K4 and K4s: the softened minimum-image O(N^2) direct sum -- the CUDA
+kernels csrc/direct.cu with their plain PyTorch versions (counterpart of
+lambda_cdm_tpu/ops/pallas_direct.py).
+
+For every particle i:
+    a_i = G sum_j m_j (r^2)^(-3/2) d,  d = x_j - x_i (minimum image),
+    r^2 = |d|^2 + eps^2.
+The variants compute that one function with the TPU kernels' arithmetic:
+
+  v1    physical units, d -= box * round(d / box),
+        r^2 = ((dx^2 + dy^2) + dz^2) + eps^2, w = m_j r^-3;
+  v2    coordinates in box units, d -= round(d),
+        r^2 = dx^2 + (dy^2 + (dz^2 + eps^2)), output times G / box^2;
+  sym   each unordered pair once: forces m_i m_j r^-3 d, physical units,
+        divided by m_i at the end (zero mass gives 0);
+  sym2  sym in box units.
+
+round() rounds half to even, as jnp.round does. The physical-unit image
+takes the true quotient d / box, as forces/direct.min_image (the CPU
+solver) does; the TPU kernels multiply by 1/box, which picks the other
+image for some pairs next to half a box apart. CUDA tensors launch K4
+(v1, v2) or K4s (sym, sym2); CPU tensors take the plain version. There
+is no fallback: a CUDA tensor goes to its kernel or the call raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..forces.direct import min_image
+from . import cuda_build
+
+THREADS = 128     # i particles per block of K4 (kThreads in direct.cu)
+SYM_TILE = 256    # tile edge of K4s (kSymTile in direct.cu)
+VARIANTS = ("v1", "v2", "sym", "sym2")
+
+launches = {"direct": 0, "direct_sym": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _check(softening, variant):
+    if float(softening) <= 0.0:
+        raise ValueError("the direct kernel requires softening > 0")
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown direct variant {variant!r}; choose from "
+                         f"{VARIANTS}")
+
+
+def _scale(box_size: float, variant: str) -> float:
+    """Coordinate factor: 1/box for the box-unit variants, else 1."""
+    return 1.0 / box_size if variant in ("v2", "sym2") else 1.0
+
+
+def sym_tiles(n: int) -> int:
+    """K4s tile count: ceil(n / SYM_TILE), made odd so that the half-matrix
+    wrap covers every unordered tile pair once."""
+    p = max(1, (n + SYM_TILE - 1) // SYM_TILE)
+    return p if p % 2 else p + 1
+
+
+def pairwise_accelerations_plain(positions, masses, box_size, softening=0.01,
+                                 g_const=1.0, *, periodic: bool = True,
+                                 variant: str = "v1"):
+    """Plain PyTorch K4/K4s: [N, 3] accelerations with each variant's
+    arithmetic, in row blocks of about 8M pairs."""
+    _check(softening, variant)
+    box_size = float(box_size)
+    scale = _scale(box_size, variant)
+    sym = variant in ("sym", "sym2")
+    soft2 = (float(softening) * scale) ** 2
+    pos = positions.to(torch.float32) * scale
+    m = masses.to(torch.float32)
+    n = pos.shape[0]
+    chunk = max(1, (1 << 23) // max(n, 1))
+    out = torch.empty((n, 3), dtype=torch.float32, device=pos.device)
+    for i0 in range(0, n, chunk):
+        pi = pos[i0:i0 + chunk]
+        d = [pos[None, :, c] - pi[:, c, None] for c in range(3)]
+        if periodic:
+            # the box-unit variants wrap with box = 1, as the TPU kernels do
+            if variant in ("v2", "sym2"):
+                d = [dc - torch.round(dc) for dc in d]
+            else:
+                d = [min_image(dc, box_size) for dc in d]
+        dx, dy, dz = d
+        if variant == "v1":
+            r2 = dx * dx + dy * dy + dz * dz + soft2
+        else:
+            r2 = dx * dx + (dy * dy + (dz * dz + soft2))
+        inv_r = torch.rsqrt(r2)
+        if sym:
+            mi = m[i0:i0 + chunk, None]
+            w = (m[None, :] * mi) * (inv_r * inv_r * inv_r)
+        else:
+            w = m[None, :] * (inv_r * inv_r * inv_r)
+        f = torch.stack([torch.sum(w * dc, dim=1) for dc in d], dim=1)
+        if sym:
+            mi = m[i0:i0 + chunk]
+            inv_m = torch.where(mi > 0, 1.0 / torch.where(mi > 0, mi, 1.0),
+                                0.0)
+            f = f * inv_m[:, None]
+        out[i0:i0 + chunk] = f
+    return (float(g_const) * scale * scale) * out
+
+
+def pairwise_accelerations(positions, masses, box_size, softening=0.01,
+                           g_const=1.0, *, periodic: bool = True,
+                           variant: str = "v1"):
+    """Softened pairwise accelerations [N, 3] (minimum image unless
+    `periodic` is False). CUDA tensors launch K4 (v1, v2) or K4s (sym,
+    sym2) from csrc/direct.cu, replacing pallas_direct's _direct_kernel,
+    _direct_kernel_v2 and _direct_kernel_sym; CPU tensors take
+    pairwise_accelerations_plain. Requires softening > 0."""
+    _check(softening, variant)
+    if positions.device.type == "cpu":
+        return pairwise_accelerations_plain(
+            positions, masses, box_size, softening, g_const,
+            periodic=periodic, variant=variant)
+    box_size = float(box_size)
+    n = positions.shape[0]
+    if tuple(positions.shape) != (n, 3) or tuple(masses.shape) != (n,):
+        raise ValueError(f"positions must be [N, 3] and masses [N], got "
+                         f"{tuple(positions.shape)} and "
+                         f"{tuple(masses.shape)}")
+    scale = _scale(box_size, variant)
+    pts = torch.cat([positions.to(torch.float32) * scale,
+                     masses.to(torch.float32)[:, None]], dim=1).contiguous()
+    cuda_build.require_cuda("direct", pts)
+    out = torch.empty((n, 3), dtype=torch.float32, device=pts.device)
+    soft2 = (float(softening) * scale) ** 2
+    oscale = float(g_const) * scale * scale
+    if variant in ("v1", "v2"):
+        launches["direct"] += 1
+        cuda_build.launch("lcdm_direct", pts.data_ptr(), out.data_ptr(), n,
+                          int(variant == "v2"), int(bool(periodic)),
+                          box_size, soft2, oscale)
+        return out
+    ntiles = sym_tiles(n)
+    half = (ntiles - 1) // 2
+    box = box_size * scale
+    rowpart = torch.empty((ntiles * (half + 1), 3, SYM_TILE),
+                          dtype=torch.float32, device=pts.device)
+    colpart = torch.empty((max(ntiles * half, 1), 3, SYM_TILE),
+                          dtype=torch.float32, device=pts.device)
+    launches["direct_sym"] += 1
+    cuda_build.launch("lcdm_direct_sym", pts.data_ptr(), rowpart.data_ptr(),
+                      colpart.data_ptr(), out.data_ptr(), n, ntiles,
+                      int(bool(periodic)), box, soft2, oscale)
+    return out

@@ -1,6 +1,6 @@
 """Cosmological initial conditions in PyTorch (counterpart of
 lambda_cdm_tpu/physics/initial_conditions.py): Gaussian random fields,
-Zel'dovich and 2LPT displacements, lattice and uniform loads.
+Zel'dovich and 2LPT displacements, lattice, uniform and glass loads.
 
 The white noise comes from an explicit torch.Generator, or is passed in
 as a tensor or array (the parity tests hand in the JAX package's own
@@ -189,6 +189,42 @@ def lpt_displacements(noise, params: CosmologyParams, *, ng: int,
     return pos, vel
 
 
+def glass_relax(positions, box_size: float, iterations: int = 20,
+                softening: float | None = None):
+    """Relax a particle load towards a glass: `iterations` steps of
+    *repulsive* unit-mass gravity, each moving every particle 0.05 of the
+    mean separation times its acceleration over the largest acceleration
+    component. Softening defaults to 0.05 of the lattice spacing. On the
+    card the forces come from the K4 kernel; on the CPU from the
+    row-blocked direct sum, as in the JAX package."""
+    from ..forces.direct import direct_accelerations_chunked
+    from ..ops.direct import pairwise_accelerations
+    n = positions.shape[0]
+    if softening is None:
+        softening = 0.05 * box_size / max(round(n ** (1 / 3)), 1)
+    step_scale = 0.05 * (box_size / max(n ** (1 / 3), 1.0))
+    pos = positions
+    ones = torch.ones((n,), dtype=pos.dtype, device=pos.device)
+    for _ in range(iterations):
+        if pos.device.type == "cuda":
+            acc = pairwise_accelerations(pos, ones, box_size, softening, 1.0)
+        else:
+            acc = direct_accelerations_chunked(pos, ones, box_size,
+                                               softening, 1.0)
+        norm = torch.clamp(torch.max(torch.abs(acc)), min=1e-30)
+        pos = torch.remainder(pos - step_scale * acc / norm, box_size)
+    return pos
+
+
+def glass_positions(generator, n: int, box_size: float,
+                    iterations: int = 20, softening: float | None = None):
+    """Glass-like load: n uniform random points (from `generator`)
+    relaxed by glass_relax."""
+    pos = torch.rand((n, 3), generator=generator, device=generator.device,
+                     dtype=torch.float32) * box_size
+    return glass_relax(pos, box_size, iterations, softening)
+
+
 def generate_state(config, device="cuda") -> SimState:
     """Config-driven IC dispatch; returns a SimState at
     a_init = 1/(1+initial_redshift). Noise comes from a torch.Generator
@@ -240,9 +276,8 @@ def generate_state(config, device="cuda") -> SimState:
         pos = lattice_positions(n_side, box, device=device)
         vel = torch.zeros((n, 3), dtype=torch.float32, device=device)
     elif kind == "glass":
-        raise NotImplementedError(
-            "glass ICs are not ported yet (needs the direct solver); "
-            "see ROADMAP.md")
+        pos = glass_positions(gen, n, box)
+        vel = torch.zeros((n, 3), dtype=torch.float32, device=device)
     else:
         raise ValueError(f"unknown IC generator {ic.type!r}")
 

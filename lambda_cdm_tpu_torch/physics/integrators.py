@@ -1,6 +1,7 @@
-"""Time integration helpers in PyTorch (counterpart of
+"""Time integration in PyTorch (counterpart of
 lambda_cdm_tpu/physics/integrators.py): the KDK prefactors, the
-scale-factor ODE step, the periodic wrap and the adaptive limiter.
+scale-factor ODE step, the periodic wrap, the adaptive limiter and the
+kick-drift-kick steps of the stateless solvers.
 
 Scale factors are float32 tensors (0-d on the host in the stepper), so
 the arithmetic runs in float32 in the same order as the JAX reference.
@@ -79,3 +80,56 @@ def adaptive_dt(acc, softening, dt, min_dt, max_dt, eta=0.25,
         dt_lim = torch.minimum(dt_lim, max_dloga / torch.clamp(h, min=1e-30))
     dt = as_f32(dt).to(dt_lim.device)
     return torch.clamp(torch.minimum(dt, dt_lim), min_dt, max_dt)
+
+
+def kdk_step(state, accel_fn, params: CosmologyParams, dt, box_size: float,
+             *, h0_internal: float = 100.0, kick_mode: str = "reference",
+             sf_method: str = "rk4", periodic: bool = True,
+             cosmological: bool = True):
+    """One kick-drift-kick leapfrog step with two force evaluations:
+    half kick at a0, drift at the half-step scale factor, half kick at a1
+    with the forces at the new positions. `accel_fn(state) -> [N, 3]` is
+    any force computer."""
+    a0 = state.scale_factor
+    dt = as_f32(dt)
+    acc = accel_fn(state)
+    vel = state.velocities + acc * (0.5 * dt) * kick_factor(a0, kick_mode)
+    a_half = (update_scale_factor(params, a0, 0.5 * dt, h0_internal,
+                                  sf_method) if cosmological else a0)
+    pos = state.positions + vel * dt * drift_factor(a_half, kick_mode)
+    if periodic:
+        pos = wrap_positions(pos, box_size)
+    a1 = (update_scale_factor(params, a_half, 0.5 * dt, h0_internal,
+                              sf_method) if cosmological else a0)
+    mid = state.replace(positions=pos, velocities=vel, scale_factor=a1)
+    acc2 = accel_fn(mid)
+    vel = vel + acc2 * (0.5 * dt) * kick_factor(a1, kick_mode)
+    return state.replace(positions=pos, velocities=vel, scale_factor=a1,
+                         time=state.time + dt, step=state.step + 1)
+
+
+def kdk_step_fused(state, acc, accel_fn, params: CosmologyParams, dt,
+                   box_size: float, *, h0_internal: float = 100.0,
+                   kick_mode: str = "reference", sf_method: str = "rk4",
+                   periodic: bool = True, cosmological: bool = True):
+    """KDK step with one force evaluation: `acc` is the acceleration at
+    the current positions (the previous step's closing half-kick force).
+    Returns (new state, acceleration at the new positions)."""
+    a0 = state.scale_factor
+    dt = as_f32(dt)
+    vel = state.velocities + acc * (0.5 * dt) * kick_factor(a0, kick_mode)
+    if cosmological:
+        a_half = update_scale_factor(params, a0, 0.5 * dt, h0_internal,
+                                     sf_method)
+        a1 = update_scale_factor(params, a_half, 0.5 * dt, h0_internal,
+                                 sf_method)
+    else:
+        a_half, a1 = a0, a0
+    pos = state.positions + vel * dt * drift_factor(a_half, kick_mode)
+    if periodic:
+        pos = wrap_positions(pos, box_size)
+    mid = state.replace(positions=pos, velocities=vel, scale_factor=a1)
+    acc_new = accel_fn(mid)
+    vel = vel + acc_new * (0.5 * dt) * kick_factor(a1, kick_mode)
+    return state.replace(positions=pos, velocities=vel, scale_factor=a1,
+                         time=state.time + dt, step=state.step + 1), acc_new

@@ -49,9 +49,10 @@ def state_to_host(state: SimState) -> dict:
     return out
 
 
-def state_from_host(arrays: dict, device="cpu") -> SimState:
+def state_from_host(arrays: dict, device="cuda") -> SimState:
     """SimState from the checkpoint arrays (`rng_key` ignored); particle
-    arrays on `device`, scalars on the host."""
+    arrays on `device` (the card by default, as the engine's), scalars on
+    the host."""
     return SimState(
         positions=torch.tensor(arrays["positions"], device=device),
         velocities=torch.tensor(arrays["velocities"], device=device),
@@ -120,7 +121,7 @@ def _fill_missing_fields(arrays: dict) -> dict:
     return arrays
 
 
-def load_snapshot(path: str, device="cpu") -> tuple[SimState, dict]:
+def load_snapshot(path: str, device="cuda") -> tuple[SimState, dict]:
     """(state on `device`, meta dict) from an npz snapshot."""
     _check_format(path)
     if not path.endswith(".npz"):
@@ -145,7 +146,7 @@ def save_checkpoint(path: str, state: SimState, config=None,
     return path
 
 
-def load_checkpoint(path: str, device="cpu") -> tuple[SimState, dict, dict]:
+def load_checkpoint(path: str, device="cuda") -> tuple[SimState, dict, dict]:
     """(state on `device`, config dict, statistics dict)."""
     if os.path.isdir(path):
         raise _not_ported("orbax checkpoints (directories)")

@@ -54,6 +54,26 @@ def uniform_particles(n, box, seed, mass_range=(0.5, 2.0)):
     return pos, m
 
 
+def half_box_lattice(box, seed, side=8):
+    """A lattice of side^3 unit masses, jittered in y and z, whose middle
+    x layer sits one ulp past half a box from layer 0: for those pairs
+    d * (1/box) and d / box round to different minimum images. Returns
+    (positions, masses, flips), flips counting such pairs along x."""
+    g = np.arange(side, dtype=np.float32) * np.float32(box / side)
+    pos = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    rng = np.random.default_rng(seed)
+    pos[:, 1:] = np.mod(pos[:, 1:] + rng.uniform(-0.3, 0.3, (len(pos), 2)),
+                        box)
+    half = np.float32(box / 2)
+    pos[pos[:, 0] == half, 0] = np.nextafter(half, np.float32(box))
+    pos = pos.astype(np.float32)
+    d = pos[None, :, 0] - pos[:, None, 0]
+    box32 = np.float32(box)
+    flips = int(np.sum(np.round(d * (np.float32(1) / box32))
+                       != np.round(d / box32)))
+    return pos, np.ones(len(pos), np.float32), flips
+
+
 def clustered_particles(n, box, seed, n_clump, sigma, centre):
     """Uniform background plus a Gaussian clump of n_clump particles."""
     rng = np.random.default_rng(seed)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(K1 CIC deposit, K2 fd4 gather, K3 short-range pairs, K5 FoF hook), and the
-treepm_fast stepper and fof_labels on the card against the same runs on
-the CPU. These need a CUDA card and nvcc; elsewhere they skip:
+(K1 CIC deposit, K2 fd4 gather, K3 short-range pairs, K4/K4s direct sums,
+K5 FoF hook), and the treepm_fast stepper, fof_labels and the `direct`
+solver on the card against the same runs on the CPU. These need a CUDA
+card and nvcc; elsewhere they skip:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
@@ -12,12 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import clustered_particles, cuda_device, tt, \
-    uniform_particles  # noqa: F401  (cuda_device is a fixture)
+from _torch_parity import clustered_particles, cuda_device, \
+    half_box_lattice, tt, uniform_particles  # noqa: F401  (a fixture)
 
 from lambda_cdm_tpu_torch.analysis import halo_finder
-from lambda_cdm_tpu_torch.ops import fast_treepm, fof_hook, pm_rods, \
-    short_range
+from lambda_cdm_tpu_torch.ops import direct, fast_treepm, fof_hook, \
+    pm_rods, short_range
 from lambda_cdm_tpu_torch.ops.bucketed_pm import live_counts
 from lambda_cdm_tpu_torch.physics.cosmology import CosmologyParams
 
@@ -183,3 +184,84 @@ def test_stepper_on_card_matches_cpu(cuda_device):
     assert _rel(g.bvel.cpu(), c.bvel) < 1e-4
     assert int(g.dropped) == int(c.dropped)
     assert int(g.overflow) == int(c.overflow)
+
+
+# K4/K4s against their plain versions on the card: the same arithmetic,
+# sums in another order and with FMAs; 1e-5 of the largest |a| for every
+# variant, the JAX package's bar for its kernel (read at 100k on the H100:
+# at most 1.5e-6)
+DIRECT_TOL = 1e-5
+
+
+@pytest.mark.parametrize("variant", direct.VARIANTS)
+@pytest.mark.parametrize("n", [200, 333, 5000])
+def test_direct_kernel(cuda_device, n, variant):
+    """Two and three K4 tiles with a ragged edge, and 5000 particles
+    (K4s: 21 tiles, the wrap), periodic and not."""
+    box = 20.0
+    pos, m = uniform_particles(n, box, n)
+    p, mm = tt(pos).to(cuda_device), tt(m).to(cuda_device)
+    for periodic in (True, False):
+        key = "direct_sym" if variant.startswith("sym") else "direct"
+        before = direct.launches[key]
+        got = direct.pairwise_accelerations(p, mm, box, 0.05, 2.0,
+                                            periodic=periodic,
+                                            variant=variant)
+        assert direct.launches[key] == before + 1
+        ref = direct.pairwise_accelerations_plain(p, mm, box, 0.05, 2.0,
+                                                  periodic=periodic,
+                                                  variant=variant)
+        torch.cuda.synchronize()
+        assert _rel(got, ref) < DIRECT_TOL
+
+
+@pytest.mark.parametrize("variant", ["v1", "sym"])
+def test_direct_kernel_half_box_image(cuda_device, variant):
+    """Pairs one ulp past half a box apart: K4 and K4s take the image of
+    the true quotient d / box, as the plain version and the CPU solver
+    do."""
+    box = 50.0
+    pos, m, flips = half_box_lattice(box, seed=3)
+    assert flips > 0
+    got = direct.pairwise_accelerations(tt(pos).to(cuda_device),
+                                        tt(m).to(cuda_device), box, 0.1,
+                                        variant=variant)
+    ref = direct.pairwise_accelerations_plain(tt(pos), tt(m), box, 0.1,
+                                              variant=variant)
+    assert _rel(got.cpu(), ref) < DIRECT_TOL
+
+
+def test_direct_solver_on_card(cuda_device):
+    """The `direct` solver on a CUDA state launches K4 once and agrees
+    with the CPU path; softening 0 raises on the card too."""
+    from lambda_cdm_tpu_torch.core.config import SimulationConfig
+    from lambda_cdm_tpu_torch.core.state import make_state
+    from lambda_cdm_tpu_torch.forces import create_force_computer
+    cfg = SimulationConfig.from_dict(
+        {"particles": {"num_particles": 3000, "box_size": 30.0},
+         "forces": {"type": "direct", "softening_length": 0.1}})
+    pos, m = uniform_particles(3000, 30.0, 8)
+    fn = create_force_computer(cfg)
+    before = direct.launches["direct"]
+    got = fn(make_state(pos, np.zeros_like(pos), m, device=cuda_device))
+    assert direct.launches["direct"] == before + 1
+    ref = fn(make_state(pos, np.zeros_like(pos), m))
+    assert _rel(got.cpu(), ref) < 1e-5
+    with pytest.raises(ValueError, match="softening"):
+        direct.pairwise_accelerations(tt(pos).to(cuda_device),
+                                      tt(m).to(cuda_device), 30.0, 0.0)
+
+
+def test_glass_relax_on_card(cuda_device):
+    """Glass relaxation on the card goes through K4, one launch an
+    iteration, and lands where the CPU's row-blocked sum does: 1e-5 of
+    the box after 5 iterations."""
+    from lambda_cdm_tpu_torch.physics.initial_conditions import glass_relax
+    box = 20.0
+    start = tt(np.random.default_rng(17).uniform(0.0, box, (343, 3)))
+    before = direct.launches["direct"]
+    got = glass_relax(start.to(cuda_device), box, iterations=5)
+    assert direct.launches["direct"] == before + 5
+    ref = glass_relax(start, box, iterations=5)
+    d = torch.remainder(got.cpu() - ref + box / 2, box) - box / 2
+    assert float(d.abs().max()) < 1e-5 * box

@@ -1,0 +1,196 @@
+"""The direct O(N^2) sums of the PyTorch port against the JAX package: the
+broadcast and row-blocked accelerations (the CPU path and the oracle of
+the `direct` solver), and the plain versions of the K4/K4s kernels
+(variants v1, v2, sym, sym2) against pallas_direct_accelerations run in
+interpret mode, as the JAX package's own tests run it."""
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import half_box_lattice, max_rel, tt, uniform_particles
+
+import jax
+import jax.numpy as jnp
+
+from lambda_cdm_tpu.forces import direct as jdirect
+from lambda_cdm_tpu.ops.pallas_direct import pallas_direct_accelerations
+from lambda_cdm_tpu_torch.forces import direct as tdirect
+from lambda_cdm_tpu_torch.ops import direct as tops
+
+# float32 sums over N pairs taken in another order: measured <= 3.4e-7 of
+# the largest |a|; 1e-5 is the JAX package's own bar for the Pallas kernel
+# against its jnp oracle (tests/test_solvers.py)
+TOL = 1e-5
+
+
+def _jx(*arrs):
+    return [jnp.asarray(a) for a in arrs]
+
+
+@pytest.mark.parametrize("n", [300, 777])
+@pytest.mark.parametrize("mg", [0.0, 0.3])
+def test_direct_accelerations(n, mg):
+    box, soft, g = 20.0, 0.05, 43.0071
+    pos, m = uniform_particles(n, box, seed=n)
+    ref = jdirect.direct_accelerations(*_jx(pos, m), box, soft, g, mg)
+    got = tdirect.direct_accelerations(tt(pos), tt(m), box, soft, g, mg)
+    assert got.shape == (n, 3) and got.dtype == torch.float32
+    assert max_rel(got, ref) < TOL
+
+
+@pytest.mark.parametrize("n,chunk", [(777, 256), (1000, 300)])
+def test_direct_accelerations_chunked(n, chunk):
+    """A chunk that divides N and one that does not, with modified
+    gravity."""
+    box, soft = 20.0, 0.05
+    pos, m = uniform_particles(n, box, seed=3)
+    ref = jdirect.direct_accelerations_chunked(*_jx(pos, m), box, soft, 1.0,
+                                               0.2, chunk_size=chunk)
+    got = tdirect.direct_accelerations_chunked(tt(pos), tt(m), box, soft,
+                                               1.0, 0.2, chunk_size=chunk)
+    assert max_rel(got, ref) < TOL
+    full = tdirect.direct_accelerations(tt(pos), tt(m), box, soft, 1.0, 0.2)
+    assert max_rel(got, full) < TOL
+
+
+def test_direct_bfloat16_precision():
+    """forces.precision "bfloat16": the contraction's operands in bf16,
+    float32 accumulation. Against the JAX package's float32 oracle (the
+    CPU computes its einsum at float32 whatever the precision): a few
+    parts in a thousand, as the JAX package documents (~0.4%); against
+    the port's own float32 result the same, and never bit-equal."""
+    box, soft = 20.0, 0.05
+    pos, m = uniform_particles(300, box, seed=5)
+    ref = jdirect.direct_accelerations(
+        *_jx(pos, m), box, soft, 1.0, precision=jax.lax.Precision.HIGHEST)
+    got = tdirect.direct_accelerations(tt(pos), tt(m), box, soft, 1.0,
+                                       precision="bfloat16")
+    err = max_rel(got, ref)
+    assert 1e-5 < err < 1e-2
+    chunked = tdirect.direct_accelerations_chunked(
+        tt(pos), tt(m), box, soft, 1.0, chunk_size=128,
+        precision="bfloat16")
+    assert max_rel(chunked, got) < TOL
+
+
+def test_pair_accel():
+    """The single-pair term: G m_j (|d|^2 + eps^2)^(-3/2) d for a batch of
+    displacements, the zero displacement included."""
+    rng = np.random.default_rng(4)
+    dx = rng.normal(size=(50, 3)).astype(np.float32)
+    dx[0] = 0.0
+    mj = rng.uniform(0.5, 2.0, 50).astype(np.float32)
+    ref = jdirect._pair_accel(*_jx(dx, mj), 0.01, 2.0)
+    got = tdirect._pair_accel(tt(dx), tt(mj), 0.01, 2.0)
+    assert max_rel(got, ref) < 1e-6
+    assert torch.all(got[0] == 0)
+
+
+VARIANT_CASES = [(100, "v1"), (100, "sym"), (777, "v1"), (777, "v2"),
+                 (777, "sym"), (777, "sym2"), (1100, "sym"), (1100, "sym2")]
+
+
+@pytest.mark.parametrize("n,variant", VARIANT_CASES)
+def test_kernel_plain_matches_pallas(n, variant):
+    """N = 100 (sym: one tile), 777 (a ragged tile) and 1100 (sym: three
+    TPU tiles and five K4s tiles, the half-matrix wrap); unit and random
+    masses. The box-unit variants (v2, sym2) are held to the same bar:
+    both packages round the same box-unit intermediates."""
+    box, soft = 20.0, 0.05
+    pos, m = uniform_particles(n, box, seed=n + 1)
+    if n == 100:
+        m = np.ones(n, np.float32)
+    ref = pallas_direct_accelerations(*_jx(pos, m), box, soft, 2.0,
+                                      interpret=True, variant=variant)
+    got = tops.pairwise_accelerations(tt(pos), tt(m), box, soft, 2.0,
+                                      variant=variant)
+    assert got.shape == (n, 3)
+    assert max_rel(got, ref) < TOL
+    # every variant computes the one function
+    oracle = tdirect.direct_accelerations(tt(pos), tt(m), box, soft, 2.0)
+    assert max_rel(got, oracle) < (TOL if variant in ("v1", "sym")
+                                   else 1e-3)
+
+
+@pytest.mark.parametrize("variant", ["v1", "sym"])
+def test_kernel_plain_nonperiodic(variant):
+    pos, m = uniform_particles(300, 10.0, seed=7)
+    ref = pallas_direct_accelerations(*_jx(pos, m), 10.0, 0.05,
+                                      periodic=False, interpret=True,
+                                      variant=variant)
+    got = tops.pairwise_accelerations(tt(pos), tt(m), 10.0, 0.05,
+                                      periodic=False, variant=variant)
+    assert max_rel(got, ref) < TOL
+    far = tdirect.direct_accelerations(tt(pos), tt(m), 1e9, 0.05)
+    assert max_rel(got, far) < TOL
+
+
+@pytest.mark.parametrize("variant", ["v1", "sym"])
+def test_kernel_plain_half_box_image(variant):
+    """Pairs one ulp past half a box apart: the plain versions take the
+    image of the true quotient d / box, as the solver's min_image does,
+    and agree with direct_accelerations; the TPU kernel's d * (1/box)
+    picks the other image there, so it lands beyond the bar."""
+    box = 50.0
+    pos, m, flips = half_box_lattice(box, seed=3)
+    assert flips > 0
+    oracle = tdirect.direct_accelerations(tt(pos), tt(m), box, 0.1)
+    got = tops.pairwise_accelerations(tt(pos), tt(m), box, 0.1,
+                                      variant=variant)
+    assert max_rel(got, oracle) < TOL
+    tpu = pallas_direct_accelerations(*_jx(pos, m), box, 0.1,
+                                      interpret=True, variant=variant)
+    assert max_rel(tpu, oracle) > 100 * TOL
+
+
+def test_kernel_g_const_and_zero_mass():
+    """G scales the result; a zero-mass particle feels no force in sym (its
+    force is divided by its mass: 0, not NaN) and exerts none."""
+    box = 20.0
+    pos, m = uniform_particles(200, box, seed=9)
+    a1 = tops.pairwise_accelerations(tt(pos), tt(m), box, 0.05, 1.0)
+    a2 = tops.pairwise_accelerations(tt(pos), tt(m), box, 0.05, 43.0071)
+    assert max_rel(a2, 43.0071 * a1) < 1e-6
+    m[5] = 0.0
+    sym = tops.pairwise_accelerations(tt(pos), tt(m), box, 0.05,
+                                      variant="sym")
+    assert torch.all(sym[5] == 0)
+    v1 = tops.pairwise_accelerations(tt(pos), tt(m), box, 0.05)
+    keep = np.arange(200) != 5
+    assert max_rel(sym[keep], v1[keep]) < TOL
+    ref = pallas_direct_accelerations(*_jx(pos, m), box, 0.05,
+                                      interpret=True, variant="sym")
+    assert max_rel(sym, ref) < TOL
+
+
+def test_zero_softening_rejected():
+    pos, m = uniform_particles(64, 10.0, seed=1)
+    with pytest.raises(ValueError):
+        pallas_direct_accelerations(*_jx(pos, m), 10.0, 0.0, interpret=True)
+    for variant in tops.VARIANTS:
+        with pytest.raises(ValueError, match="softening"):
+            tops.pairwise_accelerations(tt(pos), tt(m), 10.0, 0.0,
+                                        variant=variant)
+    with pytest.raises(ValueError, match="variant"):
+        tops.pairwise_accelerations(tt(pos), tt(m), 10.0, 0.1,
+                                    variant="v3")
+
+
+def test_sym_tiles_odd():
+    assert [tops.sym_tiles(n) for n in (1, 256, 257, 600, 1100)] == \
+        [1, 1, 3, 3, 5]
+
+
+@pytest.mark.parametrize("variant", ["v1", "sym"])
+def test_kernel_wrapper_never_falls_back(variant):
+    """A tensor neither on the CPU nor on a card raises (the plain version
+    is taken only for CPU tensors); CPU calls count no launch."""
+    before = dict(tops.launches)
+    meta = torch.zeros((64, 3), device="meta")
+    with pytest.raises(ValueError, match="cuda"):
+        tops.pairwise_accelerations(meta, torch.ones(64, device="meta"),
+                                    10.0, 0.1, variant=variant)
+    pos, m = uniform_particles(64, 10.0, seed=2)
+    tops.pairwise_accelerations(tt(pos), tt(m), 10.0, 0.1, variant=variant)
+    assert tops.launches == before

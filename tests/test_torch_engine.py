@@ -173,19 +173,35 @@ def test_drops_halve_the_cadence_alike():
 
 
 def test_builder_device_and_refusals(tmp_path):
+    """The builder defaults to the card; the stateless solvers initialize
+    and step on the CPU (their parity with the JAX engine is
+    test_stateless_run_matches); pm_fast, warmup, orbax and the mesh
+    still raise."""
     cfg = tlc.SimulationConfig()
     cfg.forces.type = "treepm_fast"
     b = tlc.SimulationBuilder()
     assert b._device == "cuda"
     eng = tlc.SimulationEngine(cfg, device="cpu")
     assert eng.device == torch.device("cpu")
-    for kind in ("direct", "pm", "treepm"):
-        c = tlc.SimulationConfig()
-        c.forces.type = kind
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlc.SimulationEngine(c, device="cpu").initialize()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="not initialized"):
         eng.validate_force_accuracy()
+    for kind in ("direct", "pm", "treepm"):
+        c = tlc.SimulationConfig.from_dict(
+            {"particles": {"num_particles": 512, "box_size": 64.0},
+             "forces": {"type": kind, "pm_grid_size": 16}})
+        c.particles.initial_conditions.grid_size = 8
+        e = tlc.SimulationEngine(c, device="cpu")
+        e.initialize()
+        assert e.accel_fn is not None and e._fstate is None
+        e.step(2)
+        assert int(e.state.step) == 2 and e._acc.shape == (512, 3)
+        assert e.validate_force_accuracy(n_sample=16)["n_sample"] == 16
+    c = tlc.SimulationConfig()
+    c.forces.type = "pm_fast"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tlc.SimulationEngine(c, device="cpu").initialize()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.warmup()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.load_checkpoint(str(tmp_path))              # orbax directories
     with pytest.raises(RuntimeError, match="not initialized"):
@@ -216,3 +232,55 @@ def test_observers_fire():
     assert eng.lifecycle == tlc.LifecycleState.FINISHED
     assert eng.statistics.total_steps == 8
     assert "run.chunk" in eng.profiler.summary()
+
+
+def _stateless_dict(kind, adaptive=False):
+    d = {"particles": {"num_particles": 512, "box_size": 64.0},
+         "forces": {"type": kind, "pm_grid_size": 32,
+                    "softening_length": 0.2},
+         "cosmology": {"initial_redshift": 9.0},
+         "time": {"initial_timestep": 2e-4},
+         "simulation": {"output_frequency": 5, "checkpoint_frequency": 0},
+         "profiling": {"output_file": ""},
+         "logging": {"performance_logging": False}}
+    if adaptive:
+        d["integration"] = {"adaptive_timestep": True, "max_dloga": 0.01}
+    return d
+
+
+@pytest.mark.parametrize("kind,adaptive", [
+    ("direct", False), ("direct", True), ("pm", False), ("treepm", False)])
+def test_stateless_run_matches(kind, adaptive):
+    """A 2LPT start at z=9 (512 particles, 64 Mpc/h), 20 fused KDK steps
+    in chunks of 5 through run(): positions to 1e-5 of the box, velocities
+    to 1e-4 of the largest, the scale factor and (adaptive) dt to 1e-6.
+    treepm runs on 5^3 cells of a 32^3 mesh."""
+    d = _stateless_dict(kind, adaptive)
+
+    def ics(cfg):
+        ic = cfg.particles.initial_conditions
+        ic.type, ic.grid_size, ic.random_seed = "2lpt", 16, 31
+
+    cfg = jlc.SimulationConfig.from_dict(d)
+    ics(cfg)
+    jstate = generate_state(cfg)
+    jeng, teng = _engines(d, jstate, ics)
+    jeng.run(num_steps=20)
+    teng.run(num_steps=20)
+    j, t = _public(jeng), _public(teng)
+    box = d["particles"]["box_size"]
+    dpos = (t["positions"] - j["positions"] + box / 2) % box - box / 2
+    assert np.abs(dpos).max() < 1e-5 * box
+    vscale = np.abs(j["velocities"]).max()
+    assert np.abs(t["velocities"] - j["velocities"]).max() / vscale < 1e-4
+    assert t["scale_factor"] == pytest.approx(j["scale_factor"], rel=1e-6)
+    assert t["time"] == pytest.approx(j["time"], rel=1e-6)
+    assert int(t["step"]) == int(j["step"]) == 20
+    assert teng.statistics.total_steps == jeng.statistics.total_steps == 20
+    assert float(teng._dt) == pytest.approx(float(jeng._dt), rel=1e-6)
+    if adaptive:
+        assert float(teng._dt) < 2e-4
+    # the cached acceleration is the solver's at the final positions
+    acc = teng.accel_fn(teng.state)
+    assert float((acc - teng._acc).abs().max()) <= 1e-6 * float(
+        acc.abs().max())

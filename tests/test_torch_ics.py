@@ -154,9 +154,21 @@ def test_generate_state_kinds(kind):
 
 
 def test_generate_state_refuses():
-    _, tc = _configs("glass")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tic.generate_state(tc, device="cpu")
+    """Non-cubic LPT loads and unknown kinds raise; glass, refused before
+    the direct solver was ported, now generates: a relaxed load in the
+    box, reproducible by seed, with the JAX package's masses and scale
+    factor (the relaxation itself is held against the JAX package in
+    tests/test_torch_solvers.py)."""
+    jc, tc = _configs("glass", n=216)
+    ts = tic.generate_state(tc, device="cpu")
+    js = jic.generate_state(jc)
+    assert torch.equal(ts.positions,
+                       tic.generate_state(tc, device="cpu").positions)
+    assert ts.positions.shape == (216, 3)
+    assert bool(torch.all((ts.positions >= 0) & (ts.positions < BOX)))
+    assert bool(torch.all(ts.velocities == 0))
+    np.testing.assert_array_equal(nn(ts.masses), np.asarray(js.masses))
+    assert float(ts.scale_factor) == float(js.scale_factor)
     _, tc = _configs("2lpt", n=500)
     with pytest.raises(ValueError, match="cubic"):
         tic.generate_state(tc, device="cpu")

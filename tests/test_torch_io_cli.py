@@ -134,7 +134,7 @@ def test_engine_diagnostics_and_checkpoints(tmp_path):
     assert seen == [pt] and pt.endswith(".npz")
     pj = jeng.save_checkpoint(str(tmp_path / "ck_jax"))
     st_j, cfg_j, stats_j = jckpt.load_checkpoint(pt)
-    st_t, cfg_t, stats_t = tckpt.load_checkpoint(pj)
+    st_t, cfg_t, stats_t = tckpt.load_checkpoint(pj, device="cpu")
     assert stats_j["total_steps"] == 7
     assert cfg_j["particles"]["num_particles"] == 4096
     for f in ("positions", "velocities", "masses", "scale_factor", "time",
@@ -151,7 +151,7 @@ def test_engine_diagnostics_and_checkpoints(tmp_path):
     assert fresh.statistics.total_steps == 7
     assert torch.equal(fresh.state.positions, teng.state.positions)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tckpt.load_checkpoint(str(tmp_path))          # orbax directories
+        tckpt.load_checkpoint(str(tmp_path), device="cpu")  # orbax dirs
 
 
 def test_snapshots_match(tmp_path):
@@ -167,7 +167,7 @@ def test_snapshots_match(tmp_path):
     np.testing.assert_array_equal(np.asarray(sj.velocities), 0.0)
     assert meta["config"]["particles"]["box_size"] == cfg.particles.box_size
     pj = jckpt.save_snapshot(str(tmp_path / "j.npz"), js)
-    st, _ = tckpt.load_snapshot(pj)
+    st, _ = tckpt.load_snapshot(pj, device="cpu")
     for f in ("positions", "velocities", "masses", "scale_factor", "step"):
         np.testing.assert_array_equal(nn(getattr(st, f)),
                                       np.asarray(getattr(js, f)))
@@ -270,7 +270,7 @@ def test_cli_run_resume_validate_info(tmp_path, capsys):
                      device="cpu") == 0
     assert "resumed from step 8" in capsys.readouterr().out
     assert "checkpoint_000016.npz" not in os.listdir(outdir)
-    st, _, stats = tckpt.load_checkpoint(ckpt)
+    st, _, stats = tckpt.load_checkpoint(ckpt, device="cpu")
     assert int(st.step) == 8 and stats["total_steps"] == 8
 
     cfg_1m = os.path.join(CONFIGS, "treepm_1m.json")

@@ -152,8 +152,8 @@ def test_kernel_build_needs_the_cuda_toolkit(monkeypatch):
     assert path.startswith(cuda_build.BUILD_DIR)
     assert path == cuda_build.library_path()
     srcs = [os.path.basename(s) for s in cuda_build._sources()]
-    assert srcs == ["cic_deposit.cu", "fd4_gather.cu", "fof_hook.cu",
-                    "short_range.cu"]
+    assert srcs == ["cic_deposit.cu", "direct.cu", "fd4_gather.cu",
+                    "fof_hook.cu", "short_range.cu"]
     monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(cuda_build, "NVCC_DEFAULT",
                         os.path.join(ROOT, "no-such-dir", "nvcc"))
