@@ -18,41 +18,56 @@ fatal on failure and each printing its seconds:
   3. stepper path: reset the launch counters, build the engine from
      treepm_1m.json through SimulationBuilder (2LPT ICs from a seeded
      torch.Generator) and run 32 steps; K1-K3 must have launched,
-     positions must be finite and the live mass must equal N * m;
-  4. K5 phase: a 1M-particle clustered box (clumps, two periodic chains,
+     positions must be finite and the live mass must equal N * m; a
+     LensingObserver fires at step 32;
+  4. lensing phase, on paths each driven with the launch counts reset
+     just before and read just after: bench.py's lensing geometry (16
+     planes, 65,536 rays, 256^2 with the Jacobian off and on, 512^2)
+     through lens_plane_fields and trace_rays with auto_sample_window's
+     window, rays/s and one sampler launch a plane; bench.py's accuracy
+     geometry, the card's windowed trace against the CPU trace at 1e-3,
+     and a planted half-cell sampler fault that must fail that check;
+     tests/test_lensing_limber.py's traced C_ell against Limber at its
+     bars; raytraced_maps_from_state on the 1M state after the stepper
+     path and on a uniform 4096-particle box (weak-field checks), the E/B
+     null test on the 1M state's Born map's shear,
+     and the LensingObserver's time; then K6 and K7 against their plain
+     version at path 2's shapes, a ragged R with edge points and an
+     unwrapped bundle, timed as CUDA graphs beside grid_sample;
+  5. K5 phase: a 1M-particle clustered box (clumps, two periodic chains,
      uniform rest): fof_plan on the card, one FoF hook sweep of K5 against
      its plain version on sampled rows (exactly equal labels), fof_labels
      on a 131,072-particle subset against a scipy cKDTree + connected-
      components oracle (exactly equal labels), fof_labels and find_halos
      at 1M (converged before max_rounds);
-  5. CLI phase: treepm_1m.json through the CLI's _build_engine ->
+  6. CLI phase: treepm_1m.json through the CLI's _build_engine ->
      initialize -> run for 40 steps with every observer the config asks
      for (P(k) every 20 steps, FoF halos, snapshot and checkpoint at 40;
      energy off: its O(N^2) pair sum); K1-K5 must have launched, K5
      through the halo-finder observer; then `resume` from the checkpoint
      and `analyze` of the snapshot through cli.main;
-  6. reference check: a small run with every observer on (energy too) on
+  7. reference check: a small run with every observer on (energy too) on
      the card against the same run on the CPU (the kernels' plain
      versions) from one initial state;
-  7. energy timing: one potential_energy at 131,072 particles, and its
+  8. energy timing: one potential_energy at 131,072 particles, and its
      N^2 extrapolation to 1M;
-  8. K4 phase: 100,000 particles uniform in a 100 Mpc/h box (unit
+  9. K4 phase: 100,000 particles uniform in a 100 Mpc/h box (unit
      masses, softening 0.05: the JAX package's bench.py direct figure),
      K4 (v1, v2) and K4s (sym, sym2) against their plain versions and
      timed; K4 also at two and three ragged tiles and without the
      minimum image (no path of the port runs K4s: its launches are read
      from the direct_10k run, and are 0);
-  9. direct_10k phase: examples/configs/direct_10k.json at full size
+ 10. direct_10k phase: examples/configs/direct_10k.json at full size
      (10,648 particles, direct solver) through the CLI's engine for its
      500 steps with its energy and momentum observers; K4 must have
      launched once at the start, once a step and twice for the
      force-fraction timing; then validate_force_accuracy on the final
      state;
- 10. stateless pm/treepm phase (plain PyTorch, no TPU kernel on their
+ 11. stateless pm/treepm phase (plain PyTorch, no TPU kernel on their
      path): pm_128_256.json (2,097,152 particles, 256^3) and
      basic_lambda_cdm.json (262,144 particles, treepm on 128^3) at full
      size for 10 steps each, with validate_force_accuracy;
- 11. stateless reference check: a 4096-particle direct run of 8 steps on
+ 12. stateless reference check: a 4096-particle direct run of 8 steps on
      the card (K4) against the CPU (the solver's row-blocked sum) from
      three seeds' 2LPT states, the same card run with two planted K4
      faults (which the check must see), and pm and treepm accelerations
@@ -184,17 +199,18 @@ def stencil_pairs(counts, ncell: int) -> float:
 
 
 def reset_counts() -> None:
-    from lambda_cdm_tpu_torch.ops import direct, fof_hook, pm_rods, \
-        short_range
-    for mod in (pm_rods, short_range, fof_hook, direct):
+    from lambda_cdm_tpu_torch.ops import direct, fof_hook, lens_sample, \
+        pm_rods, short_range
+    for mod in (pm_rods, short_range, fof_hook, direct, lens_sample):
         mod.reset_launch_counts()
 
 
 def read_counts() -> dict:
-    from lambda_cdm_tpu_torch.ops import direct, fof_hook, pm_rods, \
-        short_range
+    from lambda_cdm_tpu_torch.ops import direct, fof_hook, lens_sample, \
+        pm_rods, short_range
     return dict(pm_rods.launches, **short_range.launches,
-                **fof_hook.launches, **direct.launches)
+                **fof_hook.launches, **direct.launches,
+                **lens_sample.launches)
 
 
 def timed(name: str, fn, *args):
@@ -379,12 +395,15 @@ def clustered_state(kw, device, n=1_000_000, n_clump=10_000):
 
 
 def main_path(cfg, device, card):
-    """The user's path: SimulationBuilder -> build -> run(32 steps)."""
+    """The user's path: SimulationBuilder -> build -> run(32 steps), with a
+    LensingObserver (the JAX package's defaults) that fires at step 32.
+    Returns (launches, the engine)."""
     import torch
-    from lambda_cdm_tpu_torch import SimulationBuilder
+    from lambda_cdm_tpu_torch import LensingObserver, SimulationBuilder
     reset_counts()
     t0 = time.perf_counter()
-    eng = SimulationBuilder(device=device).with_config(cfg).build()
+    eng = SimulationBuilder(device=device).with_config(cfg).with_observer(
+        LensingObserver(frequency=N_STEPS)).build()
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     eng.run(num_steps=N_STEPS)
@@ -416,7 +435,7 @@ def main_path(cfg, device, card):
     total = float(st.masses.double().sum())
     check("main path", live_n == n and abs(total - n * m0) <= 1e-6 * n * m0,
           f"mass not conserved: {live_n} live of {n}, total {total}")
-    return launches
+    return launches, eng
 
 
 def fof_state(n: int, seed: int, box: float = 100.0, n_clumps: int = 1000,
@@ -1128,6 +1147,502 @@ def stateless_reference_check(device):
           "pm/treepm card and CPU accelerations disagree")
 
 
+# the lensing phase. K6/K7 against their plain version, relative to the
+# plain result's largest |value| (the kernel combines the weights in the
+# plain version's order without FMAs, so it reads 0 where both round
+# alike); the card's windowed trace against the CPU's at the BASELINE
+# lensing bar (`acc_lens`, 1e-3 of the largest |kappa|)
+LENS_TOL = 1e-5
+LENS_MAPS_TOL = 1e-3
+# float operations counted from csrc/lens_sample.cu: per ray (two shifts,
+# two floors, four weight differences), per ray and channel (8 products,
+# 3 sums)
+LENS_FLOPS = (8, 11)
+LENS_BOX = 100.0
+
+
+def graph_ms(fn, reps: int = 50) -> float:
+    """Device milliseconds per call of fn(), from one CUDA graph of `reps`
+    calls replayed (no host launch gaps: these calls take microseconds,
+    less than PyTorch's eager launch path)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def lens_counts() -> dict:
+    from lambda_cdm_tpu_torch.ops import lens_sample
+    return dict(lens_sample.launches)
+
+
+def lens_bench_geometry(ng: int, n_planes: int, n_side: int, chis, a_l,
+                        seed: int, device):
+    """bench.py's lensing geometry: planes of 0.2 unit normals (numpy from
+    `seed`), plane distances and scale factors, and a grid-ordered bundle
+    of n_side^2 rays over box / 2000 radians."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    planes = torch.from_numpy((0.2 * rng.standard_normal(
+        (n_planes, ng, ng))).astype(np.float32)).to(device)
+    ang = ((np.arange(n_side) + 0.5) * (LENS_BOX / 2000.0) / n_side) \
+        .astype(np.float32)
+    theta0 = np.stack(np.meshgrid(ang, ang, indexing="ij"),
+                      -1).reshape(-1, 2)
+    return (planes, torch.tensor(np.asarray(chis, np.float32), device=device),
+            torch.tensor(np.asarray(a_l, np.float32), device=device),
+            torch.from_numpy(theta0).to(device))
+
+
+def grid_sample_inputs(fields, xy, extent):
+    """The library yardstick's inputs: the stack padded by one wrapped row
+    and column [1, F, ng+1, ng+1], and the points' wrapped cell-centred
+    coordinates mapped to grid_sample's align_corners=False frame (x of
+    grid_sample runs along the last, y axis of field[ix, iy])."""
+    import torch
+    ng = fields.shape[-1]
+    pad = torch.cat([fields, fields[:, :1]], dim=1)
+    pad = torch.cat([pad, pad[:, :, :1]], dim=2)[None].contiguous()
+    ext = torch.tensor(float(extent), device=xy.device)
+    v = torch.remainder(xy / ext * ng - 0.5, ng)
+    norm = (2.0 * v + 1.0) / (ng + 1) - 1.0
+    grid = torch.stack([norm[:, 1], norm[:, 0]], -1)[None, None].contiguous()
+    return pad, grid
+
+
+def lens_kernel_phase(fields_by_shape, device, card):
+    """K6 and K7 against their plain version at the bench's shapes (R =
+    65,536 grid-ordered rays at F = 3 and 6 on 256^2, F = 3 on 512^2), a
+    ragged R of 700 with points on the periodic edges, and an unwrapped
+    coherent bundle through the windowed entry; each timed as one CUDA
+    graph of calls, with grid_sample beside it."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from lambda_cdm_tpu_torch.ops import cuda_build
+    from lambda_cdm_tpu_torch.ops import lens_sample as ls
+    ext = torch.tensor(LENS_BOX, device=device)
+    failures = []
+    err = {"lens_sample": 0.0, "lens_sample_xwin": 0.0}
+    rec = {}
+    rng = np.random.default_rng(51)
+    for (ng, n_f), (fields, xy) in fields_by_shape.items():
+        n_rays = xy.shape[0]
+        cases = [("lens_sample", torch.remainder(xy, LENS_BOX),
+                  lambda f, p: ls.bilinear_sample_fields(f, p, ext)),
+                 ("lens_sample_xwin", xy,
+                  lambda f, p: ls.bilinear_sample_fields_xwin(
+                      f, p, ext, window=ng // 2))]
+        for name, pts, fn in cases:
+            got = fn(fields, pts)
+            ref = ls.bilinear_sample_fields_plain(fields, pts, ext)
+            e, rel = rel_err(got, ref)
+            err[name] = max(err[name], e)
+            check(name, rel <= LENS_TOL, f"{ng}^2 F={n_f}: rel err {rel}",
+                  failures)
+            ms = graph_ms(lambda: fn(fields, pts))
+            pms = graph_ms(lambda: ls.bilinear_sample_fields_plain(
+                fields, pts, ext), reps=10)
+            pad, grid = grid_sample_inputs(fields, pts, LENS_BOX)
+            lib = F.grid_sample(pad, grid, mode="bilinear",
+                                padding_mode="border",
+                                align_corners=False)[0, :, 0]
+            _, lib_rel = rel_err(lib, ref)
+            lms = graph_ms(lambda: F.grid_sample(
+                pad, grid, mode="bilinear", padding_mode="border",
+                align_corners=False))
+            eager = cuda_ms(lambda: fn(fields, pts), 50)
+            # the kernel alone, without the wrapper's two scaling ops
+            g = ls.grid_coords(pts, ext, ng).contiguous()
+            out = torch.empty((n_f, n_rays), device=device)
+            bare = graph_ms(lambda: cuda_build.launch(
+                "lcdm_lens_sample", fields.data_ptr(), g.data_ptr(),
+                out.data_ptr(), n_f, ng, n_rays,
+                int(name == "lens_sample_xwin")))
+            b_ms, b_by = bound(n_rays * (8 + 4 * n_f) + 4 * n_f * ng * ng,
+                               n_rays * (LENS_FLOPS[0] + LENS_FLOPS[1]
+                                         * n_f))
+            print(f"{name} ({ng}^2, F={n_f}, R={n_rays}): max_abs_err "
+                  f"{e:.3e} (rel {rel:.3e}, tol {LENS_TOL:g}); kernel "
+                  f"{ms:.5f} ms a call (graph; eager {eager:.5f}; the "
+                  f"launch alone {bare:.5f}), plain "
+                  f"{pms:.5f}, grid_sample {lms:.5f} (rel {lib_rel:.1e} "
+                  f"off), bound {b_ms:.5f} ms ({b_by}) on {card}")
+            if (ng, n_f) == (256, 3):
+                rec[name] = dict(ms=ms, plain_ms=pms, library_ms=lms,
+                                 bound_ms=b_ms, bound_by=b_by)
+    # a ragged R with points on the periodic edges (K6), and a coherent
+    # bundle whose x runs unwrapped from -0.25 to 1.1 box (K7)
+    fields = fields_by_shape[(256, 3)][0]
+    edge = np.array([[0.0, 0.0], [LENS_BOX - 1e-3, LENS_BOX - 1e-3],
+                     [0.01, LENS_BOX - 0.01], [LENS_BOX / 2, 0.0],
+                     [LENS_BOX, LENS_BOX / 3]])
+    pts = np.concatenate([edge, rng.uniform(0, LENS_BOX, (695, 2))])
+    n = 40_000
+    x = (-0.25 + 1.35 * np.arange(n) / n) * LENS_BOX \
+        + rng.uniform(0, 0.01 * LENS_BOX, n)
+    coh = np.stack([x, rng.uniform(0, LENS_BOX, n)], 1)
+    for name, p, fn in (
+            ("lens_sample", pts, ls.bilinear_sample_fields),
+            ("lens_sample_xwin", coh, lambda f, q, e: (
+                ls.bilinear_sample_fields_xwin(f, q, e, window=96)))):
+        p = torch.from_numpy(p.astype(np.float32)).to(device)
+        e, rel = rel_err(fn(fields, p, ext),
+                         ls.bilinear_sample_fields_plain(fields, p, ext))
+        err[name] = max(err[name], e)
+        print(f"{name} (256^2, F=3, R={p.shape[0]}, "
+              f"{'edge points' if name == 'lens_sample' else 'x unwrapped'}"
+              f"): max_abs_err {e:.3e} (rel {rel:.3e})")
+        check(name, rel <= LENS_TOL, f"R={p.shape[0]}: rel err {rel}",
+              failures)
+    if failures:
+        raise AssertionError("lens kernel phase: " + "; ".join(failures))
+    for name in rec:
+        rec[name]["max_abs_err"] = err[name]
+    return rec
+
+
+def lens_bench_phase(params, device, card):
+    """bench.py section_lensing: lens_plane_fields then trace_rays at 16
+    planes and 65,536 rays, 256^2 with the Jacobian off and on, and 512^2,
+    with auto_sample_window's window; rays/s on the host clock, and one
+    sampler launch a plane. Returns (the launches of one trace of each,
+    each configuration's last plane and its impact positions: the K6/K7
+    inputs of the kernel phase)."""
+    import torch
+    from lambda_cdm_tpu_torch.ops import lens_sample
+    from lambda_cdm_tpu_torch.raytracing import lensing
+    n_planes = 16
+    total = dict.fromkeys(lens_sample.launches, 0)
+    kernel_inputs = {}
+    for ng, jac in ((256, False), (256, True), (512, False)):
+        planes, chis, a_l, theta0 = lens_bench_geometry(
+            ng, n_planes, 256, torch.linspace(400.0, 1900.0, n_planes),
+            torch.linspace(0.9, 0.55, n_planes), 2, device)
+        fl = lensing.lens_plane_fields(params, planes, chis, a_l, 100.0,
+                                       LENS_BOX, 2500.0, ng=ng, jacobian=jac)
+        w = lensing.auto_sample_window(fl, chis, theta0, LENS_BOX, ng=ng)
+
+        def trace():
+            return lensing.trace_rays(params, planes, chis, a_l, 100.0,
+                                      LENS_BOX, theta0, 2500.0, ng=ng,
+                                      jacobian=jac, window=w, fields_l=fl)
+        b = trace()
+        torch.cuda.synchronize()
+        lens_sample.reset_launch_counts()
+        trace()
+        torch.cuda.synchronize()
+        counts = lens_counts()
+        for k in total:
+            total[k] += counts[k]
+        t0 = time.perf_counter()
+        for _ in range(10):
+            trace()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 10
+        n_rays = theta0.shape[0]
+        name = "lens_sample_xwin" if w > 0 else "lens_sample"
+        print(f"lensing bench {ng}^2 jacobian={jac} ({n_rays} rays x "
+              f"{n_planes} planes, window {w}): {1e3 * dt:.3f} ms a trace "
+              f"= {n_rays / dt:.4e} rays/s on {card}; launches "
+              f"{json.dumps(counts)}")
+        check("lensing bench", counts[name] == n_planes
+              and sum(counts.values()) == n_planes,
+              "not one sampler launch a plane")
+        check("lensing bench", bool(torch.all(torch.isfinite(b.kappa))),
+              "non-finite kappa")
+        kernel_inputs[(ng, fl.shape[1])] = (fl[-1], theta0 * chis[-1])
+    return total, kernel_inputs
+
+
+def _lens_accuracy_inputs(device):
+    """bench.py's accuracy geometry (8 planes of 0.2 normals, 256^2, 128^2
+    rays, chis 400 -> 1100)."""
+    import torch
+    return lens_bench_geometry(256, 8, 128, torch.linspace(400.0, 1100.0, 8),
+                               torch.linspace(0.9, 0.7, 8), 3, device)
+
+
+def lens_accuracy_phase(params, device):
+    """The card's windowed trace against the port's CPU trace from the same
+    arrays, at the BASELINE bar; then the same card trace with a planted
+    sampler fault (half a cell in x) that the check must see. Returns the
+    sound trace's launches."""
+    import torch
+    from lambda_cdm_tpu_torch.ops import lens_sample
+    from lambda_cdm_tpu_torch.raytracing import lensing
+    planes, chis, a_l, theta0 = _lens_accuracy_inputs(device)
+    ng = planes.shape[-1]
+    lens_sample.reset_launch_counts()
+    fl = lensing.lens_plane_fields(params, planes, chis, a_l, 100.0,
+                                   LENS_BOX, 2500.0, ng=ng)
+    w = lensing.auto_sample_window(fl, chis, theta0, LENS_BOX, ng=ng)
+
+    def card_kappa():
+        return lensing.trace_rays(params, planes, chis, a_l, 100.0, LENS_BOX,
+                                  theta0, 2500.0, ng=ng, window=w,
+                                  fields_l=fl).kappa.cpu()
+    kap = card_kappa()
+    counts = lens_counts()
+    ref = lensing.trace_rays(params, planes.cpu(), chis.cpu(), a_l.cpu(),
+                             100.0, LENS_BOX, theta0.cpu(), 2500.0,
+                             ng=ng).kappa
+    _, err = rel_err(kap, ref)
+
+    sound = lens_sample.bilinear_sample_fields_xwin
+    shift = torch.tensor([0.5 * LENS_BOX / ng, 0.0], device=device)
+
+    def half_cell(fields, xy, extent, **kw):
+        return sound(fields, xy + shift, extent, **kw)
+    lens_sample.bilinear_sample_fields_xwin = half_cell
+    try:
+        _, fault = rel_err(card_kappa(), ref)
+    finally:
+        lens_sample.bilinear_sample_fields_xwin = sound
+    print(f"lensing accuracy (8 planes, 256^2, 128^2 rays, window {w}): "
+          f"card kappa vs the CPU trace {err:.3e} of max |kappa| (tol "
+          f"{LENS_MAPS_TOL:g}); planted fault (sampler half a cell off in "
+          f"x): {fault:.3e}; launches {json.dumps(counts)}")
+    check("lensing accuracy", w > 0, "no window: the windowed route was "
+          "not taken")
+    check("lensing accuracy", err <= LENS_MAPS_TOL,
+          "card and CPU traces disagree")
+    check("lensing accuracy", fault > LENS_MAPS_TOL,
+          "the planted sampler fault passes the check")
+    return counts
+
+
+def lens_limber_phase(params, device, card):
+    """tests/test_lensing_limber.py::test_traced_cl_matches_limber on the
+    card: 8 planes (ng 256, 300 Mpc/h) drawn from the linear P(k) with
+    numpy white noise, traced on 128^2 rays, three realisations, against
+    the discretized Limber sum and the continuous Limber C_ell, at that
+    test's bars. Returns the traces' launches."""
+    import numpy as np
+    import torch
+    from lambda_cdm_tpu_torch.analysis.power_spectrum import \
+        angular_power_spectrum
+    from lambda_cdm_tpu_torch.ops import lens_sample
+    from lambda_cdm_tpu_torch.physics.cosmology import scale_factor_at_chi
+    from lambda_cdm_tpu_torch.physics.power_spectra import linear_power
+    from lambda_cdm_tpu_torch.raytracing import lensing
+    ng, box, n_planes, n_side, n_real = 256, 300.0, 8, 128, 3
+    chis = torch.linspace(600.0, 2000.0, n_planes, device=device)
+    d_chi = float(chis[1] - chis[0])
+    a_l = scale_factor_at_chi(params, chis / params.h)
+    z_l = 1.0 / a_l - 1.0
+    chi_s, fov = 2330.0, 0.15
+    ang = (torch.arange(n_side, dtype=torch.float32, device=device)
+           + 0.5) * fov / n_side
+    theta0 = torch.stack(torch.meshgrid(ang, ang, indexing="ij"),
+                         -1).reshape(-1, 2)
+    q_nyq = math.pi * ng / box
+    ell_max = 0.25 * q_nyq * float(chis[0])
+    ell_min = 3.0 * 2.0 * math.pi / fov
+    kw = dict(num_bins=4, ell_min=ell_min, ell_max=ell_max)
+    qx = 2.0 * math.pi * torch.fft.fftfreq(ng, d=box / ng, device=device)
+    qy = 2.0 * math.pi * torch.fft.rfftfreq(ng, d=box / ng, device=device)
+    q = torch.sqrt(qx[:, None] ** 2 + qy[None, :] ** 2)
+    lens_sample.reset_launch_counts()
+    cl_sum = 0.0
+    for r in range(n_real):
+        rng = np.random.default_rng(100 + r)
+        planes = []
+        for li in range(n_planes):
+            p2d = linear_power(params, torch.clamp(q, min=1e-8),
+                               z=float(z_l[li])) / d_chi
+            amp = torch.where(q > 0, torch.sqrt(p2d), 0.0)
+            white = torch.from_numpy(rng.standard_normal((ng, ng)).astype(
+                np.float32)).to(device)
+            planes.append(torch.fft.irfftn(torch.fft.rfftn(white) * amp
+                                           * (ng / box), s=(ng, ng)))
+        b = lensing.trace_rays(params, torch.stack(planes), chis, a_l, d_chi,
+                               box, theta0, chi_s, ng=ng)
+        ell, cl, counts = angular_power_spectrum(
+            b.kappa.reshape(n_side, n_side), fov, **kw)
+        cl_sum = cl_sum + cl.double()
+    launches = lens_counts()
+    cl_meas = (cl_sum / n_real).cpu().numpy()
+    counts = counts.cpu().numpy()
+    w = lensing.lensing_efficiency(params, chis, chi_s, a_l)
+    k_grid = (ell[:, None] + 0.5) / chis[None, :]
+    p = linear_power(params, k_grid, z=z_l[None, :])
+    cl_theory = (torch.sum((w / chis)[None, :] ** 2 * p, dim=1)
+                 * d_chi).cpu().numpy()
+    ratio = cl_meas / cl_theory
+    sig = np.sqrt(2.0 / np.maximum(counts * n_real, 1.0))
+    band = float(np.exp(np.mean(np.log(ratio))))
+    cl_cont = lensing.limber_convergence_cl(params, ell, 1.0).cpu().numpy()
+    r2 = cl_cont / cl_theory
+    print(f"lensing Limber (ng {ng}, {n_planes} planes, {n_side}^2 rays, "
+          f"{n_real} realisations) on {card}: ell "
+          f"{np.array2string(ell.cpu().numpy(), precision=1)}, measured / "
+          f"discrete Limber {np.array2string(ratio, precision=3)} (bars "
+          f"max(5 sigma, 0.35): {np.array2string(np.maximum(5 * sig, 0.35), precision=3)}), "
+          f"band ratio {band:.4f} (bar 0.15), continuous / discrete "
+          f"{np.array2string(r2, precision=3)} (0.6-1.6); launches "
+          f"{json.dumps(launches)}")
+    check("lensing Limber", bool(np.all(np.abs(ratio - 1.0)
+                                        < np.maximum(5.0 * sig, 0.35))),
+          "a bin off the Limber C_ell")
+    check("lensing Limber", abs(band - 1.0) < 0.15, f"band ratio {band}")
+    check("lensing Limber", bool(np.all((r2 > 0.6) & (r2 < 1.6))),
+          "continuous and discrete Limber C_ell disagree")
+    return launches
+
+
+def weak_field(maps) -> dict:
+    """The weak-field readings of tests/test_lensing.py on ray-traced maps:
+    kappa's rms `ks`, the bar 0.05 ks + 1e-7, |kappa_jac - kappa|,
+    |omega| (its bar 0.1 ks), and |mu - mu_n| with mu = 1 / det(A) to
+    first order (1 + 2k) and to second order (+ 3k^2 + |gamma|^2 -
+    omega^2) in kappa_jac, gamma and omega."""
+    import torch
+    kap, kj = maps["kappa"], maps["kappa_jac"]
+    ks = float(torch.std(kap, correction=0)) + 1e-12
+    mu1 = 1.0 + 2.0 * kj
+    mu2 = mu1 + 3.0 * kj * kj + maps["gamma1"] ** 2 + maps["gamma2"] ** 2 \
+        - maps["omega"] ** 2
+    return {"ks": ks, "bar": 0.05 * ks + 1e-7,
+            "kmax": float(kap.abs().max()),
+            "jac": float((kj - kap).abs().max()),
+            "omega": float(maps["omega"].abs().max()),
+            "mu1": float((maps["mu"] - mu1).abs().max()),
+            "mu2": float((maps["mu"] - mu2).abs().max())}
+
+
+def lens_user_phase(eng, device, card):
+    """The user's path at full size on the treepm_1m state after the
+    stepper path's 32 steps: raytraced_maps_from_state at its defaults
+    with the weak-field checks of tests/test_lensing.py (mu held to
+    second order: on this state kappa peaks at ~7 rms, where 3 kappa^2
+    exceeds the first-order bar; the first-order checks are held on that
+    test's own uniform box), the E/B null test on the shear of the Born
+    map (tests/test_angular_power.py's bars), and the LensingObserver
+    that fired inside the stepper run. Returns the traces' launches."""
+    import numpy as np
+    import torch
+    from lambda_cdm_tpu_torch.analysis.power_spectrum import (
+        angular_power_spectrum, shear_eb_spectra)
+    from lambda_cdm_tpu_torch.core.analysis_observers import LensingObserver
+    from lambda_cdm_tpu_torch.core.state import make_state
+    from lambda_cdm_tpu_torch.ops import lens_sample
+    from lambda_cdm_tpu_torch.physics.cosmology import comoving_distance
+    from lambda_cdm_tpu_torch.raytracing import lensing
+    st, params = eng.state, eng.config.cosmology_params()
+    box = eng.config.particles.box_size
+    lens_sample.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    maps = lensing.raytraced_maps_from_state(st, params, box)
+    torch.cuda.synchronize()
+    t_maps = time.perf_counter() - t0
+    # tests/test_lensing.py::test_maps_from_state's uniform box on the card
+    rng = np.random.default_rng(61)
+    small = make_state(rng.uniform(0, box, (4096, 3)).astype(np.float32),
+                       np.zeros((4096, 3), np.float32),
+                       np.ones(4096, np.float32), device=device)
+    small_maps = lensing.raytraced_maps_from_state(
+        small, params, box, ng=32, n_planes=4, n_rays_side=16)
+    launches = lens_counts()
+    n = maps["kappa"].shape[0]
+    finite = all(bool(torch.all(torch.isfinite(v))) for v in
+                 list(maps.values()) + list(small_maps.values()))
+    wf, ws = weak_field(maps), weak_field(small_maps)
+    for label, w in ((f"the treepm_1m state (N={st.num_particles}, a "
+                      f"{float(st.scale_factor):.5f}; ng 256, 8 planes, "
+                      f"{n}^2 rays, z_s 1; {t_maps:.3f} s)", wf),
+                     ("the uniform 4096-particle box (ng 32, 4 planes, "
+                      "16^2 rays)", ws)):
+        print(f"lensing user path on {label}: kappa rms {w['ks']:.4e}, max "
+              f"|kappa| {w['kmax']:.4e}; |kappa_jac - kappa| {w['jac']:.3e} "
+              f"(bar {w['bar']:.3e}), |omega| {w['omega']:.3e} (bar "
+              f"{0.1 * w['ks']:.3e}), |mu - (1 + 2 kappa_jac)| "
+              f"{w['mu1']:.3e}, to second order {w['mu2']:.3e} (bar "
+              f"{w['bar']:.3e}) on {card}")
+    print(f"lensing user path: launches {json.dumps(launches)}")
+    check("lensing user path", finite and all(
+        v.shape == (n, n) for v in maps.values()), "maps not finite")
+    check("lensing user path", all(
+        w["jac"] < w["bar"] and w["omega"] < 0.1 * w["ks"]
+        and w["mu2"] < w["bar"] for w in (wf, ws)) and ws["mu1"] < ws["bar"],
+        "weak-field checks fail")
+
+    # the E/B null test on the Born map's shear, below the axis Nyquist;
+    # the map spans the angle the box subtends at its centre, chi_s / 2
+    ng = 256
+    kappa = lensing.convergence_map_from_state(st, params, box, ng=ng)
+    fov = box / (0.5 * float(comoving_distance(params, 1.0)) * params.h)
+    g = lensing.shear_from_kappa(kappa, fov, ng=ng)
+    lmax = 0.95 * math.pi * ng / fov
+    ell, cee, cbb, ceb, counts = shear_eb_spectra(g[0], g[1], fov,
+                                                  num_bins=12, ell_max=lmax)
+    _, ckk, _ = angular_power_spectrum(kappa, fov, num_bins=12, ell_max=lmax)
+    ok = counts > 0
+    ee_err = float(((cee - ckk).abs() / ckk.abs())[ok].max())
+    bb = float((cbb / cee)[ok].max())
+    eb = float((ceb.abs() / cee)[ok].max())
+    print(f"lensing E/B on the Born map's shear ({ng}^2, fov {fov:.5f} rad, "
+          f"ell_max {lmax:.1f}): C_EE vs C_kappa {ee_err:.3e} (rtol 1e-4), "
+          f"max C_BB/C_EE {bb:.3e} (< 1e-8), max |C_EB|/C_EE {eb:.3e} "
+          f"(< 1e-4)")
+    check("lensing E/B", ee_err <= 1e-4 and bb < 1e-8 and eb < 1e-4,
+          "E/B null test fails")
+
+    obs = [o for o in eng.observers if isinstance(o, LensingObserver)]
+    t = eng.profiler.summary().get("analysis.lensing", {})
+    check("LensingObserver", len(obs) == 1 and len(obs[0].maps) >= 1
+          and t.get("count", 0) >= 1, "the observer did not fire")
+    rec = obs[0].maps[-1]
+    print(f"LensingObserver in the stepper run: {len(obs[0].maps)} map(s), "
+          f"step {rec['step']}, {rec['kappa'].shape[0]}^2, kappa_rms "
+          f"{rec['kappa_rms']:.4e}; analysis.lensing {t['count']} x "
+          f"{1e3 * t['mean_s']:.2f} ms on {card}")
+    check("LensingObserver", math.isfinite(rec["kappa_rms"])
+          and rec["kappa_rms"] > 0, "bad kappa_rms")
+    return launches
+
+
+def lensing_phase(eng, device, card):
+    """Paths 2-5 of the lensing phase (each with the launch counts reset
+    just before it and read just after), then K6/K7 against their plain
+    version at the shapes of path 2. Returns (kernel records, launches
+    summed over the paths)."""
+    params = eng.config.cosmology_params()
+    total, inputs = timed("lensing bench", lens_bench_phase, params, device,
+                          card)
+    for counts in (timed("lensing accuracy", lens_accuracy_phase, params,
+                         device),
+                   timed("lensing Limber", lens_limber_phase, params, device,
+                         card),
+                   timed("lensing user path", lens_user_phase, eng, device,
+                         card)):
+        for k in total:
+            total[k] += counts[k]
+    print(f"lensing launches on paths 2-5: {json.dumps(total)}")
+    check("lensing", all(v > 0 for v in total.values()),
+          "K6 or K7 was not launched on the lensing paths")
+    rec = timed("lensing kernels K6/K7", lens_kernel_phase, inputs, device,
+                card)
+    return rec, total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1161,7 +1676,10 @@ def main() -> int:
     fs, kw = timed("main-path state", main_path_state, cfg, device)
     rec = timed("kernel phase K1-K3", kernel_phase, fs, kw, device, card)
     del fs
-    timed("stepper path", main_path, cfg, device, card)
+    _, eng = timed("stepper path", main_path, cfg, device, card)
+    lens, lens_launches = timed("lensing phase", lensing_phase, eng, device,
+                                card)
+    del eng
     k5 = timed("K5 phase", fof_phase, device, card)
     launches = timed("CLI phase", cli_phase, device, card)
     timed("reference check", reference_check, device)
@@ -1175,6 +1693,9 @@ def main() -> int:
                        k5["bound_ms"], k5["bound_by"])
     rec["direct"] = k4["v1"]
     rec["direct_sym"] = k4["sym"]
+    for name, r in lens.items():
+        rec[name] = (r["max_abs_err"], 0.0, r["ms"], r["plain_ms"],
+                     r["bound_ms"], r["bound_by"])
     sources = {"cic_deposit": ("csrc/cic_deposit.cu",
                                "lambda_cdm_tpu/ops/pallas_pm_rods.py:550"),
                "fd4_gather": ("csrc/fd4_gather.cu",
@@ -1186,20 +1707,27 @@ def main() -> int:
                "direct": ("csrc/direct.cu",
                           "lambda_cdm_tpu/ops/pallas_direct.py:253"),
                "direct_sym": ("csrc/direct.cu",
-                              "lambda_cdm_tpu/ops/pallas_direct.py:47")}
+                              "lambda_cdm_tpu/ops/pallas_direct.py:47"),
+               "lens_sample": ("csrc/lens_sample.cu",
+                               "lambda_cdm_tpu/ops/pallas_lens_sample.py:84"),
+               "lens_sample_xwin": (
+                   "csrc/lens_sample.cu",
+                   "lambda_cdm_tpu/ops/pallas_lens_sample.py:165")}
     # launches: K1-K3 and K5 on the CLI run of treepm_1m, K4 and K4s on
     # the direct_10k run (0 for K4s: no path of the port runs it; the JAX
     # package drives its kernel only from bench.py); K4 and K4s report
-    # their v1 and sym variants. No single PyTorch call computes any of
-    # these kernels' functions, so library_ms is null
+    # their v1 and sym variants; K6/K7 summed over the lensing paths 2-5.
+    # No single PyTorch call computes K1-K5's functions (library_ms null);
+    # K6/K7's yardstick is grid_sample on the wrapped, padded stack
     launches = dict(launches, direct=k4_launches["direct"],
-                    direct_sym=k4_launches["direct_sym"])
+                    direct_sym=k4_launches["direct_sym"], **lens_launches)
     kernels = [{"name": name, "route": "cuda",
                 "source": f"lambda_cdm_tpu_torch/{src}", "replaces": rep,
                 "launches": launches[name], "max_abs_err": rec[name][0],
                 "ms": rec[name][2], "plain_ms": rec[name][3],
                 "bound_ms": rec[name][4], "bound_by": rec[name][5],
-                "library_ms": None}
+                "library_ms": lens[name]["library_ms"] if name in lens
+                else None}
                for name, (src, rep) in sources.items()]
     print(f"direct_sym (K4s): {launches['direct_sym']} launches in the "
           f"direct_10k run: no path of the port runs it; its times and error "

@@ -10,8 +10,11 @@ CLI run with its analysis: P(k), the FoF + SO halo finder with its
 kernel (K5 FoF hook sweep) and the config-driven observers -- and the
 stateless solvers (direct with its kernels K4/K4s, pm, treepm) behind the
 force-computer registry, with the engine's fused KDK loop, the
-force-accuracy harness, EnergyMonitor and glass initial conditions. The
-kernels' plain PyTorch versions run for CPU tensors. This package never
+force-accuracy harness, EnergyMonitor and glass initial conditions --
+and the lensing raytracer: lens planes, Born maps, multi-plane ray tracing
+with Jacobians through its sampler kernel (K6/K7), the angular spectra
+and LensingObserver. The kernels' plain PyTorch versions run for CPU
+tensors. This package never
 imports JAX; the tests hold it against lambda_cdm_tpu.
 """
 
@@ -21,7 +24,7 @@ from .analysis.halo_finder import HaloCatalog, find_halos
 from .analysis.power_spectrum import (PowerSpectrumData,
                                       measure_power_spectrum)
 from .core.analysis_observers import (ConservationObserver,
-                                      HaloFinderObserver,
+                                      HaloFinderObserver, LensingObserver,
                                       ParticleStatisticsObserver,
                                       PowerSpectrumObserver,
                                       SnapshotObserver,
@@ -40,7 +43,7 @@ __all__ = [
     "SimulationStatistics", "LifecycleState",
     "Observer", "ProgressObserver", "EnergyMonitor", "MetricsRecorder",
     "SnapshotObserver", "PowerSpectrumObserver", "HaloFinderObserver",
-    "ConservationObserver", "ParticleStatisticsObserver",
+    "ConservationObserver", "ParticleStatisticsObserver", "LensingObserver",
     "build_observers_from_config",
     "SimState", "make_state",
     "CosmologyParams", "PLANCK",

@@ -2,11 +2,11 @@
 lambda_cdm_tpu/analysis/power_spectrum.py): NGP/CIC/TSC mass assignment
 with periodic wrap, torch.fft.rfftn, window deconvolution, spherical
 binning with Hermitian multiplicity, shot noise, multipoles, cross
-spectra and sigma8 from a measured P(k).
+spectra and sigma8 from a measured P(k), and the flat-sky angular spectra
+of lensing maps (C_ell, and the E/B spectra of a shear map).
 
 The deposits are scatter-adds (index_add_), as the JAX package's are, and
-the binned sums are segment sums in float64. The angular spectra of
-lensing maps wait for the lensing port (ROADMAP, M13).
+the binned sums are segment sums in float64.
 """
 
 from __future__ import annotations
@@ -123,15 +123,16 @@ def density_contrast(grid):
     return grid / torch.clamp(torch.mean(grid), min=1e-30) - 1.0
 
 
-def _hermitian_multiplicity(ng: int, device=None):
-    """rfftn keeps only kz >= 0: every mode with 0 < kz < ng/2 stands for
-    itself and its conjugate -> [ng, ng, ng//2+1] weights."""
+def _hermitian_multiplicity(ng: int, device=None, dims: int = 3):
+    """An rfft keeps only the last axis' k >= 0: every mode with
+    0 < k < ng/2 there stands for itself and its conjugate ->
+    [ng, ..., ng//2+1] weights over `dims` axes."""
     nz = ng // 2 + 1
     mult = torch.full((nz,), 2.0, device=device)
     mult[0] = 1.0
     if ng % 2 == 0:
         mult[nz - 1] = 1.0
-    return mult[None, None, :].expand(ng, ng, nz)
+    return mult.expand((ng,) * (dims - 1) + (nz,))
 
 
 def _bin_reduce(rows, bin_idx, num_bins: int):
@@ -165,14 +166,15 @@ def _bin_index(kmag_flat, k_lo, k_hi, num_bins: int, log_bins: bool = True):
 
 def _binned(kmag, channels, k_lo, k_hi, num_bins: int, ng: int,
             log_bins: bool = True):
-    """Hermitian-weighted bin sums of each [ng, ng, nz] channel, then of
-    |k| and of the weights -> (sums..., ksum, counts)."""
+    """Hermitian-weighted bin sums of each [ng, ..., nz] channel (the
+    shape of kmag: a 3D or a 2D rfft), then of |k| and of the weights ->
+    (sums..., ksum, counts)."""
     flat_k = kmag.reshape(-1)
     bin_idx = _bin_index(flat_k, k_lo, k_hi, num_bins, log_bins=log_bins)
     valid = (bin_idx >= 0) & (bin_idx < num_bins) & (flat_k > 0)
     bin_idx = torch.where(valid, bin_idx, num_bins)
     wts = torch.where(valid, _hermitian_multiplicity(
-        ng, kmag.device).reshape(-1), 0.0)
+        ng, kmag.device, kmag.dim()).reshape(-1), 0.0)
     rows = torch.stack([wts * c.reshape(-1) for c in channels]
                        + [wts * flat_k, wts])
     return _bin_reduce(rows, bin_idx, num_bins)
@@ -251,6 +253,89 @@ def cross_power_spectrum(positions_a, positions_b, box_size, ng: int = 128,
                                  num_bins, ng)
     safe = torch.clamp(counts, min=1e-30)
     return ksum / safe, psum / safe, counts
+
+
+def _angular_modes(n: int, fov, device):
+    """(lx [n, 1], ly [1, nz], fov, pix, default l_lo, default l_hi) of
+    the 2D rfft of an [n, n] map over a fov x fov field (float32 0-d
+    tensors: fov is taken as float32, as under the JAX jit)."""
+    fov = torch.as_tensor(fov, dtype=torch.float32, device=device)
+    pix = fov / n
+    idx = torch.arange(n, device=device)
+    lx = 2.0 * math.pi * torch.where(idx <= (n - 1) // 2, idx, idx - n) \
+        / (n * pix)
+    ly = 2.0 * math.pi * torch.arange(n // 2 + 1, device=device) / (n * pix)
+    l_lo = torch.tensor(2.0 * math.pi, device=device) / fov
+    # the default reach includes the corner modes (|l| up to sqrt 2 Nyq)
+    l_hi = (torch.sqrt(torch.tensor(2.0, device=device)) * math.pi * n
+            / fov) * (1 + 1e-6)
+    return lx[:, None], ly[None, :], fov, pix, l_lo, l_hi
+
+
+def angular_power_spectrum(map_a, fov, map_b=None, *, num_bins: int = 24,
+                           ell_min=None, ell_max=None,
+                           log_bins: bool = True):
+    """Flat-sky angular (cross-)power spectrum C_ell of a square map.
+
+    `map_a` (and optional `map_b` for a cross-spectrum) is [n, n] over a
+    `fov` x `fov` (radians) field; returns (ell, C_ell, counts) with ell
+    the bin-averaged multipole. Estimator: C_ell = |kappa_hat|^2 / Omega
+    with kappa_hat = pix^2 DFT(map), Omega = fov^2; modes binned by |l|
+    (log bins from 2 pi / fov to past the corner modes by default), the
+    rfft half plane weighted by Hermitian multiplicity.
+    """
+    n = map_a.shape[-1]
+    lx, ly, fov, pix, l_lo, l_hi = _angular_modes(n, fov, map_a.device)
+    fa = torch.fft.rfft2(map_a)
+    fb = fa if map_b is None else torch.fft.rfft2(map_b)
+    p2 = pix * pix
+    spec = (fa.real * fb.real + fa.imag * fb.imag) * (p2 * p2 / (fov * fov))
+    lmag = torch.sqrt(lx ** 2 + ly ** 2)
+    csum, lsum, counts = _binned(
+        lmag, [spec], l_lo if ell_min is None else ell_min,
+        l_hi if ell_max is None else ell_max, num_bins, n, log_bins)
+    safe = torch.clamp(counts, min=1e-30)
+    return lsum / safe, csum / safe, counts
+
+
+def shear_eb_spectra(gamma1, gamma2, fov, *, num_bins: int = 24,
+                     ell_min=None, ell_max=None, log_bins: bool = True):
+    """Flat-sky E/B decomposition of a shear map -> (ell, C_EE, C_BB,
+    C_EB, counts).
+
+    E(l) = cos(2 phi_l) g1(l) + sin(2 phi_l) g2(l),
+    B(l) = -sin(2 phi_l) g1(l) + cos(2 phi_l) g2(l), phi_l the mode angle.
+    For shear derived from a scalar lensing potential C_EE = C_kappakappa
+    and C_BB = 0. Same normalization and binning as
+    angular_power_spectrum. Modes on the axis-Nyquist rows (|l_i| =
+    pi n / fov, even n) have sign-ambiguous angles under the real FFT and
+    leak ~0.4% of E into B in their bins: pass ell_max < pi n / fov for a
+    clean null test.
+    """
+    n = gamma1.shape[-1]
+    lx, ly, fov, pix, l_lo, l_hi = _angular_modes(n, fov, gamma1.device)
+    g1 = torch.fft.rfft2(gamma1)
+    g2 = torch.fft.rfft2(gamma2)
+    lxg = lx.expand(n, n // 2 + 1)
+    lyg = ly.expand(n, n // 2 + 1)
+    l2 = torch.clamp(lxg ** 2 + lyg ** 2, min=1e-30)
+    c2 = (lxg ** 2 - lyg ** 2) / l2          # cos(2 phi_l)
+    s2 = 2.0 * lxg * lyg / l2                # sin(2 phi_l)
+    e_re = c2 * g1.real + s2 * g2.real
+    e_im = c2 * g1.imag + s2 * g2.imag
+    b_re = -s2 * g1.real + c2 * g2.real
+    b_im = -s2 * g1.imag + c2 * g2.imag
+    p2 = pix * pix
+    norm = p2 * p2 / (fov * fov)
+    see = (e_re ** 2 + e_im ** 2) * norm
+    sbb = (b_re ** 2 + b_im ** 2) * norm
+    seb = (e_re * b_re + e_im * b_im) * norm
+    lmag = torch.sqrt(lxg ** 2 + lyg ** 2)
+    esum, bsum, xsum, lsum, counts = _binned(
+        lmag, [see, sbb, seb], l_lo if ell_min is None else ell_min,
+        l_hi if ell_max is None else ell_max, num_bins, n, log_bins)
+    safe = torch.clamp(counts, min=1e-30)
+    return lsum / safe, esum / safe, bsum / safe, xsum / safe, counts
 
 
 def redshift_space_positions(positions, velocities, box_size, *,

@@ -1,13 +1,13 @@
 """Config-driven analysis observers (counterpart of
 lambda_cdm_tpu/core/analysis_observers.py): snapshots, P(k), FoF + SO
-halo catalogues, conservation diagnostics and particle statistics, each
-at its configured cadence, with results pulled to the host only when an
-observer fires. Their timers (`analysis.*`, `diagnostics.*` in the
-engine's profiler) wait for the device, so they time finished work.
+halo catalogues, conservation diagnostics, particle statistics and Born
+convergence maps, each at its cadence, with results pulled to the host
+only when an observer fires. Their timers (`analysis.*`, `diagnostics.*`
+in the engine's profiler) wait for the device, so they time finished work.
 
 `build_observers_from_config` assembles the set from the io.snapshots /
-io.analysis / io.diagnostics blocks. LensingObserver waits for the
-lensing port (ROADMAP, M13).
+io.analysis / io.diagnostics blocks (no config block asks for lensing: a
+LensingObserver is added by hand, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -209,12 +209,62 @@ class ParticleStatisticsObserver(Observer):
 
 
 class LensingObserver(Observer):
-    """Born convergence maps: not ported yet."""
+    """Born convergence maps at its cadence (kappa and its population rms).
+    With `render_dir` set, each map is also rendered to a PNG there (None
+    in the record where matplotlib is missing)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "LensingObserver is not ported to lambda_cdm_tpu_torch yet; "
-            "see ROADMAP.md (the JAX package lambda_cdm_tpu has it)")
+    def __init__(self, frequency: int = 50, grid_size: int = 128,
+                 n_planes: int = 8, z_source: float = 1.0,
+                 render_dir: str = ""):
+        self.frequency = max(1, frequency)
+        self.grid_size = grid_size
+        self.n_planes = n_planes
+        self.z_source = z_source
+        self.render_dir = render_dir
+        self.maps: list[dict] = []
+
+    def on_step_end(self, engine, step):
+        if step % self.frequency:
+            return
+        from ..raytracing.lensing import convergence_map_from_state
+        st = engine.state
+        with engine.profiler.timer("analysis.lensing",
+                                   sync_on=st.positions):
+            kap = convergence_map_from_state(
+                st, engine.config.cosmology_params(),
+                engine.config.particles.box_size,
+                ng=self.grid_size, n_planes=self.n_planes,
+                z_source=self.z_source)
+        rec = {"step": int(step), "kappa": _host(kap),
+               "kappa_rms": float(torch.std(kap, correction=0))}
+        if self.render_dir:
+            rec["png"] = self._render(rec["kappa"], int(step),
+                                      float(st.redshift))
+        self.maps.append(rec)
+
+    def _render(self, kappa, step, redshift) -> str | None:
+        try:
+            import matplotlib
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except ImportError:
+            return None
+        import numpy as np
+        os.makedirs(self.render_dir, exist_ok=True)
+        path = os.path.join(self.render_dir,
+                            f"kappa_{step:06d}_z{redshift:.2f}.png")
+        fig, ax = plt.subplots(figsize=(5, 4), dpi=120)
+        vmax = float(np.percentile(np.abs(kappa), 99.5)) or 1e-9
+        im = ax.imshow(kappa, origin="lower", cmap="inferno",
+                       vmin=-vmax, vmax=vmax)
+        ax.set_title(f"Born convergence  step {step}  z={redshift:.2f}")
+        ax.set_xlabel("x [pix]")
+        ax.set_ylabel("y [pix]")
+        fig.colorbar(im, ax=ax, label=r"$\kappa$")
+        fig.tight_layout()
+        fig.savefig(path)
+        plt.close(fig)
+        return path
 
 
 def build_observers_from_config(config) -> list[Observer]:

@@ -21,6 +21,7 @@ from .analysis.power_spectrum import PowerSpectrumData
 from .core.state import SimState, host_scalar
 from .ops.fast_treepm import FastState
 from .physics.cosmology import CosmologyParams
+from .raytracing.lensing import RayBundle
 
 _SCALARS = {"scale_factor": torch.float32, "time": torch.float32,
             "step": torch.int32}
@@ -90,3 +91,11 @@ def power_spectrum_to_arrays(data: PowerSpectrumData) -> dict:
     """PowerSpectrumData -> {field: numpy array}."""
     return {f.name: _to_numpy(getattr(data, f.name))
             for f in dataclasses.fields(data)}
+
+
+def ray_bundle_to_arrays(b: RayBundle) -> dict:
+    """RayBundle -> {field: numpy array, or None for a Jacobian field of a
+    trace without one} (the JAX RayBundle's fields)."""
+    return {f.name: None if getattr(b, f.name) is None
+            else _to_numpy(getattr(b, f.name))
+            for f in dataclasses.fields(b)}

@@ -48,6 +48,7 @@ _SIGNATURES = {
                       _P],
     "lcdm_direct": [_P, _P, _I, _I, _I, _F, _F, _F, _P],
     "lcdm_direct_sym": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
+    "lcdm_lens_sample": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,10 +1,11 @@
 """Lambda-CDM background cosmology in PyTorch (counterpart of
-lambda_cdm_tpu/physics/cosmology.py, the parts the treepm_fast path uses).
+lambda_cdm_tpu/physics/cosmology.py): expansion, growth, and the
+distances and times the lensing path needs.
 
-Every function takes a scale factor as a Python float or a tensor and
-returns a float32 tensor on the scale factor's device, evaluated in the
-same operation order as the JAX reference so the two agree to float32
-round-off.
+Every function takes a scale factor (or redshift, or distance) as a
+Python float or a tensor and returns a float32 tensor on that tensor's
+device, evaluated in the same operation order as the JAX reference so the
+two agree to float32 round-off.
 """
 
 from __future__ import annotations
@@ -15,6 +16,10 @@ import torch
 
 # Newton's constant in (Mpc/h) (km/s)^2 / (1e10 Msun/h)
 G_GADGET_MPC = 43.0071057317063
+# speed of light in km/s
+C_KM_S = 299792.458
+# 1/H0 in Gyr for H0 = 1 km/s/Mpc: Mpc in km over a Julian Gyr in s
+_H_INV_TO_GYR = 3.0856775814913673e19 / 3.1556952e16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,3 +133,120 @@ def _gauss_legendre(n: int):
 
 
 _GL_X, _GL_W = _gauss_legendre(128)
+
+
+def _integrate(fn, lo, hi):
+    """∫_lo^hi fn(x) dx with 128-point Gauss-Legendre, for each of the
+    (broadcast) bounds: lo and hi are float32 tensors of one shape S, fn
+    maps [*S, 128] nodes to values -> [*S]."""
+    mid = 0.5 * (hi + lo)
+    half = 0.5 * (hi - lo)
+    gx, gw = _GL_X.to(mid.device), _GL_W.to(mid.device)
+    return half * torch.sum(gw * fn(mid[..., None] + half[..., None] * gx),
+                            dim=-1)
+
+
+def _interp(x, xp, fp):
+    """jnp.interp(x, xp, fp) for sorted 1-D xp: the right-side
+    searchsorted bracket, a lerp, and fp[0] / fp[-1] beyond the ends."""
+    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, xp.numel() - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    eps = torch.finfo(xp.dtype).eps
+    dx0 = torch.abs(dx) <= eps * eps          # np.spacing(eps) of the dtype
+    f = torch.where(dx0, fp[i - 1],
+                    fp[i - 1] + (delta / torch.where(dx0, 1.0, dx)) * df)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+def comoving_distance(params: CosmologyParams, z):
+    """Line-of-sight comoving distance D_C(z) in Mpc, vectorized over z; a
+    0-d result for a scalar (or one-element) z, as in the JAX package."""
+    z = torch.atleast_1d(as_f32(z))
+    d_h = C_KM_S / params.h0
+    out = d_h * _integrate(
+        lambda zp: 1.0 / e_function(params, 1.0 / (1.0 + zp)),
+        torch.zeros_like(z), z)
+    return out if out.shape != (1,) else out[0]
+
+
+def scale_factor_at_chi(params: CosmologyParams, chi, *,
+                        z_max: float = 20.0, n_grid: int = 256):
+    """Inverse of the comoving distance: a(chi) with chi in Mpc, from
+    chi(z) tabulated on n_grid redshifts in [0, z_max] and interpolated;
+    chi beyond chi(z_max) clamps to a(z_max)."""
+    chi = as_f32(chi)
+    z_grid = torch.linspace(0.0, z_max, n_grid, device=chi.device)
+    chi_grid = comoving_distance(params, z_grid)
+    return 1.0 / (1.0 + _interp(chi, chi_grid, z_grid))
+
+
+def transverse_comoving_distance(params: CosmologyParams, z):
+    """D_M(z): the comoving distance corrected for curvature (open, flat
+    or closed)."""
+    d_c = comoving_distance(params, z)
+    d_h = C_KM_S / params.h0
+    sqrt_ok = torch.sqrt(torch.tensor(abs(params.omega_k) + 1e-30,
+                                      device=d_c.device))
+    x = sqrt_ok * d_c / d_h
+    if params.omega_k > 1e-8:
+        return d_h / sqrt_ok * torch.sinh(x)
+    if params.omega_k < -1e-8:
+        return d_h / sqrt_ok * torch.sin(x)
+    return d_c
+
+
+def angular_diameter_distance(params: CosmologyParams, z):
+    """D_A(z) = D_M / (1 + z)."""
+    return transverse_comoving_distance(params, z) / (1.0 + as_f32(z))
+
+
+def luminosity_distance(params: CosmologyParams, z):
+    """D_L(z) = (1 + z) D_M."""
+    return (1.0 + as_f32(z)) * transverse_comoving_distance(params, z)
+
+
+def _log_a_integral(integrand, a):
+    """∫ over x = ln a' from ln 1e-8 to ln a of integrand(x)."""
+    hi = torch.log(as_f32(a))
+    return _integrate(integrand, torch.log(torch.full_like(hi, 1e-8)), hi)
+
+
+def conformal_time(params: CosmologyParams, a):
+    """Conformal time eta(a) = ∫_0^a da' / (a'^2 H(a')), in Mpc."""
+    d_h = C_KM_S / params.h0
+
+    def integrand(x):
+        aa = torch.exp(x)
+        return 1.0 / (aa * e_function(params, aa))
+
+    return d_h * _log_a_integral(integrand, a)
+
+
+def cosmic_time(params: CosmologyParams, a):
+    """Cosmic time t(a) = (1/H0) ∫_0^a da' / (a' E(a')), in Gyr."""
+    h0_inv_gyr = _H_INV_TO_GYR / params.h0
+    return h0_inv_gyr * _log_a_integral(
+        lambda x: 1.0 / e_function(params, torch.exp(x)), a)
+
+
+def age_of_universe(params: CosmologyParams):
+    """t(a = 1) in Gyr."""
+    return cosmic_time(params, 1.0)
+
+
+def lookback_time(params: CosmologyParams, z):
+    """t(1) - t(1 / (1 + z)) in Gyr."""
+    return age_of_universe(params).to(as_f32(z).device) - cosmic_time(
+        params, 1.0 / (1.0 + as_f32(z)))
+
+
+def scale_factor_to_redshift(a):
+    """z = 1/a - 1."""
+    return 1.0 / as_f32(a) - 1.0
+
+
+def redshift_to_scale_factor(z):
+    return 1.0 / (1.0 + as_f32(z))

@@ -46,6 +46,35 @@ def max_rel(got, ref, mask=None) -> float:
     return float(diff.max() / max(np.abs(ref).max(), 1e-300))
 
 
+def assert_binned_match(counts_t, counts_j, power_t, power_j, k_t=None,
+                        k_j=None, tol=1e-4, run_tol=1e-3):
+    """The assignment-invariant comparison of two binned spectra (the port
+    first): bins with equal mode counts agree in power within `tol`
+    (relative to the larger of |P| and 1% of the largest bin's); over each
+    run of adjacent bins whose counts differ, the count is conserved and
+    the count-weighted power agrees within `run_tol`."""
+    ct, cj = np.asarray(nn(counts_t), np.float64), np.asarray(counts_j,
+                                                              np.float64)
+    pt, pj = np.asarray(nn(power_t), np.float64), np.asarray(power_j,
+                                                             np.float64)
+    same = ct == cj
+    scale = np.abs(pj).max()
+    good = same & (cj > 0)
+    assert good.sum() >= 0.8 * (cj > 0).sum()
+    assert np.all(np.abs(pt - pj)[good] <= tol * np.maximum(np.abs(pj[good]),
+                                                            1e-2 * scale))
+    if k_t is not None:
+        assert max_rel(np.asarray(nn(k_t))[good], np.asarray(k_j)[good]) \
+            <= tol
+    idx = np.nonzero(~same)[0]
+    if idx.size:
+        for run in np.split(idx, np.nonzero(np.diff(idx) > 1)[0] + 1):
+            assert ct[run].sum() == cj[run].sum()
+            w = np.sum(cj[run] * np.abs(pj[run])) + 1e-30
+            assert abs(np.sum(ct[run] * pt[run])
+                       - np.sum(cj[run] * pj[run])) / w <= run_tol
+
+
 def uniform_particles(n, box, seed, mass_range=(0.5, 2.0)):
     """(positions [n, 3] in [0, box), masses [n]) as float32 numpy."""
     rng = np.random.default_rng(seed)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
 (K1 CIC deposit, K2 fd4 gather, K3 short-range pairs, K4/K4s direct sums,
-K5 FoF hook), and the treepm_fast stepper, fof_labels and the `direct`
-solver on the card against the same runs on the CPU. These need a CUDA
+K5 FoF hook, K6/K7 lens samplers), and the treepm_fast stepper,
+fof_labels, the `direct` solver and the lensing trace on the card against
+the same runs on the CPU. These need a CUDA
 card and nvcc; elsewhere they skip:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -18,7 +19,7 @@ from _torch_parity import clustered_particles, cuda_device, \
 
 from lambda_cdm_tpu_torch.analysis import halo_finder
 from lambda_cdm_tpu_torch.ops import direct, fast_treepm, fof_hook, \
-    pm_rods, short_range
+    lens_sample, pm_rods, short_range
 from lambda_cdm_tpu_torch.ops.bucketed_pm import live_counts
 from lambda_cdm_tpu_torch.physics.cosmology import CosmologyParams
 
@@ -265,3 +266,75 @@ def test_glass_relax_on_card(cuda_device):
     ref = glass_relax(start, box, iterations=5)
     d = torch.remainder(got.cpu() - ref + box / 2, box) - box / 2
     assert float(d.abs().max()) < 1e-5 * box
+
+
+@pytest.mark.parametrize("n_fields,ng,n_rays", [(3, 256, 65536),
+                                                (6, 256, 4096),
+                                                (3, 100, 700)])
+def test_lens_sample_kernel(cuda_device, n_fields, ng, n_rays):
+    """K6 equals its plain version bit for bit (the kernel combines the
+    weights in the plain version's order without FMAs); points on the
+    periodic edges and, at ng 100, a grid that is no power of two."""
+    rng = np.random.default_rng(ng + n_fields)
+    ext = 37.5
+    fields = tt(rng.standard_normal((n_fields, ng, ng))).to(cuda_device)
+    xy = rng.uniform(0, ext, (n_rays, 2))
+    xy[:4] = [[0.0, 0.0], [ext, ext], [ext - 1e-4, 0.0], [ext / 2, ext]]
+    xy = tt(xy).to(cuda_device)
+    before = lens_sample.launches["lens_sample"]
+    got = lens_sample.bilinear_sample_fields(fields, xy, ext)
+    assert lens_sample.launches["lens_sample"] == before + 1
+    ref = lens_sample.bilinear_sample_fields_plain(fields, xy, ext)
+    torch.cuda.synchronize()
+    assert got.shape == (n_fields, n_rays)
+    assert torch.equal(got, ref)
+
+
+def test_lens_sample_xwin_kernel(cuda_device):
+    """K7: x unwrapped (negative and past the box), y past the box too;
+    equal to the plain version on the same unwrapped input, and within
+    float32 round-off of K6 on the wrapped input."""
+    rng = np.random.default_rng(3)
+    ng, ext, n = 256, 100.0, 3000
+    fields = tt(rng.standard_normal((3, ng, ng))).to(cuda_device)
+    x = (-0.3 + 1.5 * np.arange(n) / n) * ext
+    xy = tt(np.stack([x, rng.uniform(-0.1, 1.1, n) * ext], 1)) \
+        .to(cuda_device)
+    before = lens_sample.launches["lens_sample_xwin"]
+    got = lens_sample.bilinear_sample_fields_xwin(fields, xy, ext,
+                                                  window=64)
+    assert lens_sample.launches["lens_sample_xwin"] == before + 1
+    assert torch.equal(got, lens_sample.bilinear_sample_fields_plain(
+        fields, xy, ext))
+    wrapped = lens_sample.bilinear_sample_fields(
+        fields, torch.remainder(xy, ext), ext)
+    assert _rel(got, wrapped) < 1e-4
+    with pytest.raises(ValueError, match="window"):
+        lens_sample.bilinear_sample_fields_xwin(fields, xy, ext, window=250)
+
+
+@pytest.mark.parametrize("window", [0, 40])
+def test_trace_rays_on_card_matches_cpu(cuda_device, window):
+    """The bench accuracy geometry cut to 4 planes and 64^2 rays: the
+    card's trace (K6, or K7 with a window) against the CPU's, kappa within
+    1e-3 of its largest value (the maps bar); one launch a plane."""
+    from lambda_cdm_tpu_torch.raytracing import lensing
+    rng = np.random.default_rng(4)
+    ng, box, L = 256, 100.0, 4
+    planes = tt(0.2 * rng.standard_normal((L, ng, ng)))
+    chis = tt(np.linspace(400.0, 1100.0, L))
+    a_l = tt(np.linspace(0.9, 0.7, L))
+    ang = (np.arange(64) + 0.5) * (box / 2000.0) / 64
+    theta0 = tt(np.stack(np.meshgrid(ang, ang, indexing="ij"),
+                         -1).reshape(-1, 2))
+    p = CosmologyParams()
+    ref = lensing.trace_rays(p, planes, chis, a_l, 100.0, box, theta0,
+                             2500.0, ng=ng, jacobian=True)
+    name = "lens_sample_xwin" if window else "lens_sample"
+    before = lens_sample.launches[name]
+    got = lensing.trace_rays(p, planes.to(cuda_device), chis, a_l, 100.0,
+                             box, theta0.to(cuda_device), 2500.0, ng=ng,
+                             jacobian=True, window=window)
+    assert lens_sample.launches[name] == before + L
+    assert _rel(got.kappa.cpu(), ref.kappa) < 1e-3
+    assert _rel(got.kappa_jac.cpu(), ref.kappa_jac) < 1e-3

@@ -166,3 +166,71 @@ def test_kdk_steps(fused, cosmological):
     assert float(ts.time) == pytest.approx(float(js.time), rel=1e-6)
     if fused:
         assert max_rel(ta, ja) < 1e-5
+
+
+Z_GRID = np.concatenate([[0.0], np.geomspace(1e-3, 20.0, 63)]) \
+    .astype(np.float32)
+
+
+@pytest.mark.parametrize("kw", PARAMS + [dict(omega_m=0.3, omega_lambda=0.6,
+                                              omega_k=0.1),
+                                         dict(omega_m=0.3, omega_lambda=0.8,
+                                              omega_k=-0.1)])
+@pytest.mark.parametrize("fn", ["comoving_distance",
+                                "transverse_comoving_distance",
+                                "angular_diameter_distance",
+                                "luminosity_distance"])
+def test_distances(fn, kw):
+    """The 128-point Gauss-Legendre distance integrals, vectorized over z
+    (open and closed geometries too): the quadrature is summed in another
+    order (measured <= 3e-7), the RTOL of the background functions."""
+    jp, tp = _pair(kw)
+    ref = getattr(jcos, fn)(jp, jnp.asarray(Z_GRID))
+    got = getattr(tcos, fn)(tp, tt(Z_GRID))
+    assert got.dtype == torch.float32 and got.shape == Z_GRID.shape
+    np.testing.assert_allclose(nn(got), nn(ref), rtol=RTOL)
+
+
+def test_distance_scalars_and_times():
+    """Scalar z gives a 0-d result, as in the JAX package; the times are
+    integrals over ln a of one scale factor (the JAX functions take no
+    arrays there)."""
+    jp, tp = _pair({})
+    for z in (0.5, [1.0], np.float32(3.0)):
+        got = tcos.comoving_distance(tp, z)
+        ref = jcos.comoving_distance(jp, jnp.asarray(z, jnp.float32))
+        assert got.shape == np.shape(ref) == ()
+        np.testing.assert_allclose(float(got), float(ref), rtol=RTOL)
+    for a in (0.02, 0.3, 1.0):
+        for fn in ("conformal_time", "cosmic_time"):
+            np.testing.assert_allclose(float(getattr(tcos, fn)(tp, a)),
+                                       float(getattr(jcos, fn)(jp, a)),
+                                       rtol=RTOL)
+    np.testing.assert_allclose(float(tcos.age_of_universe(tp)),
+                               float(jcos.age_of_universe(jp)), rtol=RTOL)
+    for z in (0.0, 0.7, 9.0):
+        np.testing.assert_allclose(float(tcos.lookback_time(tp, z)),
+                                   float(jcos.lookback_time(jp, z)),
+                                   rtol=RTOL, atol=1e-6)
+    np.testing.assert_allclose(
+        nn(tcos.scale_factor_to_redshift(tt(A_GRID))),
+        nn(jcos.scale_factor_to_redshift(jnp.asarray(A_GRID))), rtol=1e-7)
+    np.testing.assert_allclose(
+        nn(tcos.redshift_to_scale_factor(tt(Z_GRID))),
+        nn(jcos.redshift_to_scale_factor(jnp.asarray(Z_GRID))), rtol=1e-7)
+
+
+@pytest.mark.parametrize("kw", PARAMS)
+def test_scale_factor_at_chi(kw):
+    """a(chi) through the port's interp (searchsorted and a lerp, clamped
+    at both ends as jnp.interp clamps), on chi inside, at the ends of and
+    beyond the table."""
+    jp, tp = _pair(kw)
+    chi_max = float(jcos.comoving_distance(jp, 20.0))
+    chi = np.concatenate([np.linspace(0.0, chi_max, 301),
+                          [-5.0, chi_max * 1.5, 1e-3]]).astype(np.float32)
+    ref = jcos.scale_factor_at_chi(jp, jnp.asarray(chi))
+    got = tcos.scale_factor_at_chi(tp, tt(chi))
+    np.testing.assert_allclose(nn(got), nn(ref), rtol=RTOL)
+    assert float(got[-3]) == 1.0 and float(got[-2]) == pytest.approx(
+        1.0 / 21.0, rel=1e-6)

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import max_rel, nn, tt
+from _torch_parity import assert_binned_match, max_rel, nn, tt
 
 import jax.numpy as jnp
 
@@ -40,31 +40,6 @@ def _particles(n=20000, seed=1):
     m = rng.uniform(0.5, 1.5, n)
     return (pos.astype(np.float32), vel.astype(np.float32),
             m.astype(np.float32))
-
-
-def assert_binned_match(counts_t, counts_j, power_t, power_j, k_t=None,
-                        k_j=None, tol=1e-4, run_tol=1e-3):
-    """The assignment-invariant comparison of two binned spectra."""
-    ct, cj = np.asarray(nn(counts_t), np.float64), np.asarray(counts_j,
-                                                              np.float64)
-    pt, pj = np.asarray(nn(power_t), np.float64), np.asarray(power_j,
-                                                             np.float64)
-    same = ct == cj
-    scale = np.abs(pj).max()
-    good = same & (cj > 0)
-    assert good.sum() >= 0.8 * (cj > 0).sum()
-    assert np.all(np.abs(pt - pj)[good] <= tol * np.maximum(np.abs(pj[good]),
-                                                            1e-2 * scale))
-    if k_t is not None:
-        assert max_rel(np.asarray(nn(k_t))[good], np.asarray(k_j)[good]) \
-            <= tol
-    idx = np.nonzero(~same)[0]
-    if idx.size:
-        for run in np.split(idx, np.nonzero(np.diff(idx) > 1)[0] + 1):
-            assert ct[run].sum() == cj[run].sum()
-            w = np.sum(cj[run] * np.abs(pj[run])) + 1e-30
-            assert abs(np.sum(ct[run] * pt[run])
-                       - np.sum(cj[run] * pj[run])) / w <= run_tol
 
 
 @pytest.mark.parametrize("kind", ["ngp", "cic", "tsc"])

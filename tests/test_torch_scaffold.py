@@ -15,7 +15,8 @@ import _torch_parity  # noqa: F401  (one intra-op thread per worker)
 
 import lambda_cdm_tpu.core.config as jconfig
 from lambda_cdm_tpu_torch.core import config as tconfig
-from lambda_cdm_tpu_torch.ops import cuda_build, pm_rods, short_range
+from lambda_cdm_tpu_torch.ops import cuda_build, lens_sample, pm_rods, \
+    short_range
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "lambda_cdm_tpu_torch")
@@ -106,7 +107,8 @@ def test_wrappers_never_fall_back_off_cpu():
     the plain version is taken only because the tensor lies on the CPU."""
     bpos, bmass, counts, ncell, cap = _bucket_args("meta")
     geo = dict(ncell=ncell, ng=6, box_size=3.0)
-    before = dict(pm_rods.launches, **short_range.launches)
+    before = dict(pm_rods.launches, **short_range.launches,
+                  **lens_sample.launches)
     with pytest.raises(ValueError, match="cuda"):
         pm_rods.cic_deposit(bpos, bmass, counts, **geo)
     phi = torch.zeros((6, 6, 6), device="meta")
@@ -116,7 +118,14 @@ def test_wrappers_never_fall_back_off_cpu():
         short_range.short_range(bpos, bmass, counts, ncell=ncell,
                                 capacity=cap, box_size=3.0, rs=0.1,
                                 softening=0.01)
-    assert dict(pm_rods.launches, **short_range.launches) == before
+    fields, xy = torch.zeros((3, 16, 16), device="meta"), torch.zeros(
+        (5, 2), device="meta")
+    with pytest.raises(ValueError, match="cuda"):
+        lens_sample.bilinear_sample_fields(fields, xy, 3.0)
+    with pytest.raises(ValueError, match="cuda"):
+        lens_sample.bilinear_sample_fields_xwin(fields, xy, 3.0, window=2)
+    assert dict(pm_rods.launches, **short_range.launches,
+                **lens_sample.launches) == before
 
 
 def test_cpu_tensors_take_plain_version_without_counting():
@@ -153,7 +162,7 @@ def test_kernel_build_needs_the_cuda_toolkit(monkeypatch):
     assert path == cuda_build.library_path()
     srcs = [os.path.basename(s) for s in cuda_build._sources()]
     assert srcs == ["cic_deposit.cu", "direct.cu", "fd4_gather.cu",
-                    "fof_hook.cu", "short_range.cu"]
+                    "fof_hook.cu", "lens_sample.cu", "short_range.cu"]
     monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(cuda_build, "NVCC_DEFAULT",
                         os.path.join(ROOT, "no-such-dir", "nvcc"))
