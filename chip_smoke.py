@@ -73,6 +73,37 @@ fatal on failure and each printing its seconds:
      faults (which the check must see), and pm and treepm accelerations
      of one state on both.
 
+Then the fast stepper's other options:
+
+ 13. row-7 kernel phase: K3 in the vpu, vpu2 and mxu split forms on the
+     live-first counts of the main-path state of phase 2, each against
+     its plain version on sampled rows (2e-5: under the 3.7e-5 between two
+     split forms), without counts (equal bit for bit) and on a shuffled
+     (not live-first) copy of the buckets, vpu2 against vpu3 and vpu
+     against mxu on live slots, timed with CUDA events;
+ 14. row-7 path: fast_run from that state for 16 steps (a rebucket after
+     8) in each of vpu3, vpu, vpu2 and mxu: launches, finite positions,
+     conserved mass, no overflow or drops, positions against vpu3's;
+ 18. rebucket forms (run after phase 14, on its state): the treepm_1m
+     particles moved 0.2 cell rms, bucketed at capacity 64, 128, 256 and
+     512 (the capacities grow-and-retry gives), the gather and compact
+     forms of the rebucket timed on each layout, their states equal;
+ 15. row-13 phase: benchmarks/bench_short_range_rd.py's geometry (1M
+     particles uniform in 100 Mpc/h from numpy, ncell 24, rs 1.25 x
+     100/192, window 4.5 rs, softening 0.01, k_rod 3072): rd_pack and
+     rd_window_tables on the card, then K8 (short_range_rd) against its
+     plain version on sampled rows, K8 and K3 vpu3 (cell buckets of
+     capacity 128) against the exact-erfc sum over all N at 256
+     particles, and the times;
+ 16. pm_fast phase: pm_128_256.json with --forces.type=pm_fast through the
+     CLI's engine for 10 steps, beside the stateless pm run of phase 11:
+     validate_force_accuracy, pm_fast's own force against the oracle at
+     1.25x the pm run's errors, and pm_fast's force against the stateless
+     pm force on a clustered box of the same geometry, where a planted
+     fault (split_scale = rs) must fail;
+ 17. gradient phase: treepm_1m.json with forces.gradient = spectral and
+     interp for 8 steps each, and each against the CPU on one small state.
+
 The CLI phase also validates the treepm_1m state's forces through the
 stateless treepm solver.
 
@@ -110,7 +141,12 @@ PEAK_BYTES = 3.35e12
 # FMA counts 2): per live particle for K1 and K2, per pair test for K3
 # (rsqrt as 1) and K5
 FLOPS = {"cic_deposit": 47, "fd4_gather": 175, "short_range": 44,
-         "fof_hook": 8}
+         "fof_hook": 8,
+         # K3's other split forms: the x-space Horner costs what the even
+         # one does, the factored form one more degree and its (1 - t)
+         # factor; K8 is the even split
+         "short_range_vpu": 44, "short_range_vpu2": 48,
+         "short_range_mxu": 44, "short_range_rd": 44}
 
 # K4/K4s against their plain versions (relative to the plain result's
 # largest |a|): every variant holds the JAX package's bar for its kernel
@@ -198,19 +234,23 @@ def stencil_pairs(counts, ncell: int) -> float:
     return float((c3 * nbr).sum())
 
 
-def reset_counts() -> None:
+def _counted():
     from lambda_cdm_tpu_torch.ops import direct, fof_hook, lens_sample, \
-        pm_rods, short_range
-    for mod in (pm_rods, short_range, fof_hook, direct, lens_sample):
+        pm_rods, short_range, short_range_rd
+    return (pm_rods, short_range, fof_hook, direct, lens_sample,
+            short_range_rd)
+
+
+def reset_counts() -> None:
+    for mod in _counted():
         mod.reset_launch_counts()
 
 
 def read_counts() -> dict:
-    from lambda_cdm_tpu_torch.ops import direct, fof_hook, lens_sample, \
-        pm_rods, short_range
-    return dict(pm_rods.launches, **short_range.launches,
-                **fof_hook.launches, **direct.launches,
-                **lens_sample.launches)
+    out = {}
+    for mod in _counted():
+        out.update(mod.launches)
+    return out
 
 
 def timed(name: str, fn, *args):
@@ -993,12 +1033,14 @@ def direct_phase(device, card):
 def stateless_phase(device, card):
     """pm_128_256.json and basic_lambda_cdm.json at full size, 10 steps
     each, through SimulationBuilder; plain PyTorch (no TPU kernel on
-    these paths), with validate_force_accuracy and peak memory."""
+    these paths), with validate_force_accuracy and peak memory. Returns
+    (ms/step, the validation's result) by config path."""
     import torch
     from lambda_cdm_tpu_torch import SimulationBuilder
     from lambda_cdm_tpu_torch.core.config import SimulationConfig
     from lambda_cdm_tpu_torch.forces import auto_pm_grid
     from lambda_cdm_tpu_torch.forces.treepm import treepm_plan
+    out = {}
     for path in (PM_CONFIG, TREEPM_CONFIG):
         cfg = SimulationConfig.from_file(path)
         cfg.profiling.output_file = ""
@@ -1036,7 +1078,9 @@ def stateless_phase(device, card):
               "non-finite positions")
         check(path, res["n_sample"] == 1024 and math.isfinite(
             res["max_err"]), "force validation failed")
+        out[path] = (ms_step, res)
         del eng
+    return out
 
 
 # the stateless reference check: the card's 8-step direct run against the
@@ -1643,6 +1687,589 @@ def lensing_phase(eng, device, card):
     return rec, total
 
 
+# the fast stepper's other options (phases 13-18). Row 7: K3 in the
+# factored-r (vpu2) and x-space (vpu, mxu) split forms on the stepper's
+# live-first counts. Against their plain version the kernels read 3.3e-6
+# and 3.4e-6 of the max on this state (H100), while two split forms differ
+# by 3.7e-5 or more (vpu2 against vpu3), so the 2e-5 bar fails a launch of
+# the wrong form. vpu2 against vpu3 holds the JAX package's bar between
+# those kernels (tests/test_fast_treepm.py); vpu against mxu is one
+# function on two TPU routes, so the port computes it once. Given no
+# counts (the TPU kernels' contract: mass 0 dead, any slot order) the same
+# buckets give the same result bit for bit, and a shuffled, non-live-first
+# copy gives each particle the same result up to its pair sum's order.
+ROW7 = ("vpu", "vpu2", "mxu")
+ROW7_TOL = {"plain": 2e-5, "vpu2_vs_vpu3": 5e-4, "vpu_vs_mxu": 1e-5,
+            "shuffled": 1e-5}
+# the row-7 path: 16 steps from the treepm_1m initial state with a rebucket
+# after 8, in each variant against vpu3. The bar on the largest position
+# difference (by persistent id, relative to the box) was set from a CPU
+# rehearsal at a cut size (16^3 particles in a 16 Mpc/h box on a 32^3
+# mesh, the same steps: 3.6e-7 of the box for vpu and mxu, 6.0e-8 for
+# vpu2) and the tests' parity bar between two split fits (1e-5 of the box,
+# tests/test_torch_fast_options.py)
+ROW7_STEPS, ROW7_REBUCKET, ROW7_POS_TOL = 16, 8, 1e-5
+# row 13 at benchmarks/bench_short_range_rd.py's geometry
+RD_N, RD_NCELL, RD_BOX, RD_PM, RD_SOFT = 1_000_000, 24, 100.0, 192, 0.01
+RD_ORACLE_ROWS, RD_ORACLE_TOL = 256, 1e-3
+
+
+def _shuffled(bpos, bmass, seed):
+    """A copy of the buckets with each cell's slots permuted (live slots
+    among the dead ones) and the permutation."""
+    import torch
+    gen = torch.Generator(device=bmass.device).manual_seed(seed)
+    perm = torch.argsort(torch.rand(bmass.shape, generator=gen,
+                                    device=bmass.device), dim=1)
+    p3 = perm[None].expand(3, -1, -1)
+    return (torch.gather(bpos, 2, p3).contiguous(),
+            torch.gather(bmass, 1, perm).contiguous(), p3)
+
+
+def row7_kernel_phase(fs, kw, device, card):
+    """Phase 13: K3 in each row-7 split form at the main-path state
+    against its plain version on sampled rows, vpu2 against vpu3, vpu
+    against mxu, a shuffled copy, and the times."""
+    import torch
+    from lambda_cdm_tpu_torch.ops import short_range
+    from lambda_cdm_tpu_torch.ops.bucketed_pm import live_counts
+    sr = dict(ncell=kw["ncell"], capacity=kw["capacity"],
+              box_size=kw["box_size"], rs=kw["rs"], softening=kw["softening"])
+    counts = live_counts(fs.bmass)
+    live = (fs.bmass > 0)[None]
+    pairs = stencil_pairs(counts, kw["ncell"])
+    n_live = float(counts.sum())
+    out = {v: short_range.short_range(fs.bpos, fs.bmass, counts, variant=v,
+                                      **sr) for v in ("vpu3",) + ROW7}
+    sb, sm, p3 = _shuffled(fs.bpos, fs.bmass, seed=7)
+    rec, failures = {}, []
+    rows = sample_rows(counts, kw["capacity"], 4096, seed=8)
+    for v in ROW7:
+        name = f"short_range_{v}"
+        ref = short_range.short_range_plain(fs.bpos, fs.bmass, counts,
+                                            variant=v, rows=rows, **sr)
+        err, rel = rel_err(out[v].reshape(3, -1)[:, rows], ref)
+        same = torch.equal(short_range.short_range(
+            fs.bpos, fs.bmass, None, variant=v, **sr), out[v])
+        shuffled = short_range.short_range(sb, sm, None, variant=v, **sr)
+        back = torch.empty_like(shuffled).scatter_(2, p3, shuffled)
+        _, srel = rel_err(back, out[v], live)
+        dead = float(torch.where(live, 0.0, out[v]).abs().max())
+        ms = cuda_ms(lambda: short_range.short_range(
+            fs.bpos, fs.bmass, counts, variant=v, **sr), 20)
+        pms = cuda_ms(lambda: short_range.short_range_plain(
+            fs.bpos, fs.bmass, counts, variant=v, **sr), 1)
+        # as K3: live slots read and written once, the counts read once
+        b_ms, b_by = bound(28.0 * n_live + 4.0 * counts.numel(),
+                           FLOPS[name] * pairs)
+        rec[name] = (err, rel, ms, pms, b_ms, b_by)
+        print(f"K3 {v} (main-path state, 4096 rows): max_abs_err {err:.3e} "
+              f"(rel {rel:.3e}, tol {ROW7_TOL['plain']:g}); no counts "
+              f"{'equal' if same else 'DIFFERENT'}; shuffled layout "
+              f"{srel:.3e} (tol {ROW7_TOL['shuffled']:g}); dead-slot max "
+              f"{dead:g}; kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}, {pairs:.4e} live pair tests) on "
+              f"{card}")
+        check(f"K3 {v}", rel <= ROW7_TOL["plain"], f"rel err {rel} > tol",
+              failures)
+        check(f"K3 {v}", same, "no counts differs from counts", failures)
+        check(f"K3 {v}", srel <= ROW7_TOL["shuffled"],
+              f"shuffled layout differs by {srel}", failures)
+        check(f"K3 {v}", dead == 0.0, "dead slots not zero", failures)
+    _, r23 = rel_err(out["vpu2"], out["vpu3"], live)
+    _, rvm = rel_err(out["vpu"], out["mxu"], live)
+    print(f"K3 vpu2 vs vpu3 on live slots: {r23:.3e} (tol "
+          f"{ROW7_TOL['vpu2_vs_vpu3']:g}); vpu vs mxu: {rvm:.3e} (tol "
+          f"{ROW7_TOL['vpu_vs_mxu']:g})")
+    check("K3 vpu2", r23 <= ROW7_TOL["vpu2_vs_vpu3"], "vpu2 vs vpu3",
+          failures)
+    check("K3 mxu", rvm <= ROW7_TOL["vpu_vs_mxu"], "vpu vs mxu", failures)
+    if failures:
+        raise AssertionError("row-7 kernel phase: " + "; ".join(failures))
+    return rec
+
+
+def _by_id(fs, n: int, x=None):
+    """[n, 3] float64 of a FastState's SoA field `x` (default its
+    positions) in persistent-id order."""
+    import torch
+    x = fs.bpos if x is None else x
+    ids = fs.ids.reshape(-1)
+    live = ids >= 0
+    out = torch.zeros((n, 3), dtype=torch.float64, device=ids.device)
+    out[ids[live].long()] = x.reshape(3, -1).T[live].double()
+    return out
+
+
+def row7_path_phase(fs0, kw, params, dt, device, card):
+    """Phase 14: fast_run from the treepm_1m initial state in each row-7
+    variant and in vpu3, 16 steps with a rebucket after 8, the counts
+    reset just before each run and read just after. Returns the row-7
+    kernels' launches."""
+    import torch
+    from lambda_cdm_tpu_torch.ops import short_range
+    from lambda_cdm_tpu_torch.ops.fast_treepm import fast_run
+    n = int((fs0.ids >= 0).sum())
+    m_total = float(fs0.bmass.double().sum())
+    box = kw["box_size"]
+    ref = None
+    launches = {}
+    for v in ("vpu3",) + ROW7:
+        reset_counts()
+        t0 = time.perf_counter()
+        fs = fast_run(fs0, params, dt, n_steps=ROW7_STEPS,
+                      rebucket_every=ROW7_REBUCKET, **dict(kw, variant=v))
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        counts = read_counts()
+        key = short_range.counter(v)
+        pos = _by_id(fs, n)
+        mass = float(fs.bmass.double().sum())
+        finite = bool(torch.all(torch.isfinite(fs.bpos)))
+        msg = ""
+        if ref is None:
+            ref = pos
+        else:
+            d = torch.remainder(pos - ref + box / 2, box) - box / 2
+            diff = float(d.abs().max()) / box
+            msg = (f"; max position difference against vpu3 {diff:.3e} of "
+                   f"the box (tol {ROW7_POS_TOL:g})")
+            check(f"row-7 path {v}", diff <= ROW7_POS_TOL,
+                  "positions differ from vpu3")
+            launches[key] = counts[key]
+        print(f"row-7 path {v}: {ROW7_STEPS} steps in {t:.3f} s "
+              f"({1e3 * t / ROW7_STEPS:.3f} ms/step with one rebucket) on "
+              f"{card}; K3 {key} launches {counts[key]}, K1 "
+              f"{counts['cic_deposit']}, K2 {counts['fd4_gather']}; overflow "
+              f"{int(fs.overflow)} dropped {int(fs.dropped)}; live mass "
+              f"{mass:.6e} (start {m_total:.6e}){msg}")
+        check(f"row-7 path {v}", counts[key] == ROW7_STEPS
+              and counts["cic_deposit"] == ROW7_STEPS,
+              "the variant's kernel was not launched once a step")
+        check(f"row-7 path {v}", finite and int(fs.overflow) == 0
+              and int(fs.dropped) == 0, "non-finite, overflow or drops")
+        check(f"row-7 path {v}", abs(mass - m_total) <= 1e-9 * m_total,
+              "live mass not conserved")
+    return launches
+
+
+# phase 18: fast_treepm._rebucket's two forms on the treepm_1m particles,
+# bucketed at the capacities grow-and-retry gives (doubling from the
+# plan's) and moved by 0.2 of a cell (rms): the gather form sorts and
+# gathers all C*K slots, the compact form (chosen where C*K > 4 n_rows)
+# compacts the live slots to n_rows first. Both are timed on each layout
+# and must give the same state.
+REBUCKET_CAPS = (64, 128, 256, 512)
+
+
+def rebucket_phase(fs, kw, device, card):
+    """Phase 18: the gather and compact rebucket forms timed on the same
+    layouts, and the states they give compared field by field."""
+    import torch
+    from lambda_cdm_tpu_torch.ops.fast_treepm import (
+        _rebucket, _rebucket_compact, build_fast_state)
+    ids = fs.ids.reshape(-1)
+    live = ids >= 0
+    n = int(live.sum())
+    ncell, box = kw["ncell"], kw["box_size"]
+    gen = torch.Generator(device=device).manual_seed(12)
+    pos = fs.bpos.reshape(3, -1).T[live]
+    pos = pos + (0.2 * box / ncell) * torch.randn(
+        pos.shape, generator=gen, device=device)
+    vel = fs.bvel.reshape(3, -1).T[live].contiguous()
+    mass = fs.bmass.reshape(-1)[live].contiguous()
+    acc = fs.acc.reshape(3, -1)[:, live]
+    fields = ("bpos", "bvel", "acc", "bmass", "ids", "overflow")
+    for cap in REBUCKET_CAPS:
+        # bucketed where the particles were, then moved: a rebucket's input
+        g = build_fast_state(fs.bpos.reshape(3, -1).T[live].contiguous(),
+                             vel, mass, fs.scale_factor, box_size=box,
+                             plan={"ncell": ncell, "capacity": cap},
+                             ids=ids[live])
+        slot_live = g.ids.reshape(-1) >= 0
+        order = g.ids.reshape(-1)[slot_live].long()
+        bpos = g.bpos.reshape(3, -1).clone()
+        bpos[:, slot_live] = pos[order].T
+        bacc = g.acc.reshape(3, -1).clone()
+        bacc[:, slot_live] = acc[:, order]
+        g = g.replace(bpos=bpos.reshape(g.bpos.shape),
+                      acc=bacc.reshape(g.acc.shape))
+        rb = dict(box_size=box, ncell=ncell, capacity=cap)
+        gather_ms = cuda_ms(lambda: _rebucket(g, **rb), 5)
+        compact_ms = cuda_ms(lambda: _rebucket_compact(g, n_rows=n, **rb), 5)
+        a = _rebucket(g, **rb)
+        b = _rebucket_compact(g, n_rows=n, **rb)
+        same = all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
+        s = ncell ** 3 * cap
+        print(f"rebucket at capacity {cap} ({s} slots, n_rows {n}, chosen "
+              f"form {'compact' if s > 4 * n else 'gather'}): gather "
+              f"{gather_ms:.4f} ms, compact {compact_ms:.4f} ms; overflow "
+              f"{int(a.overflow)}; states {'equal' if same else 'DIFFER'} "
+              f"on {card}")
+        check(f"rebucket at capacity {cap}", same,
+              "the compact form's state differs from the gather form's")
+        del g, a, b
+
+
+def rd_oracle(pos, mass, targets, box, rs, soft):
+    """The exact-erfc short-range sum over all N particles (minimum image,
+    float64) at the target rows -> [T, 3]."""
+    import torch
+    p = pos.double()
+    m = mass.double()
+    out = []
+    for t in targets.split(16):
+        d = p[None, :, :] - p[t][:, None, :]
+        d = d - box * torch.round(d / box)
+        r2 = (d * d).sum(-1) + soft * soft
+        r = torch.sqrt(r2)
+        x = r / (2 * rs)
+        s = torch.special.erfc(x) + (r / (rs * math.sqrt(math.pi))) \
+            * torch.exp(-x * x)
+        w = m[None] * s / (r2 * r)
+        w[torch.arange(t.numel()), t] = 0.0
+        out.append((w[..., None] * d).sum(1))
+    return torch.cat(out)
+
+
+def rd_phase(device, card):
+    """Phase 15: row 13 at bench_short_range_rd.py's geometry: rd_pack and
+    rd_window_tables on the card, then the path short_range_rd (counts
+    reset just before, read just after); K8 against its plain version on
+    sampled rows, K8 and K3 vpu3 (on the cell buckets of the same
+    particles) against the exact-erfc sum over all N, and the times.
+    Returns (record, launches)."""
+    import numpy as np
+    import torch
+    from lambda_cdm_tpu_torch.ops import short_range, short_range_rd as rd
+    from lambda_cdm_tpu_torch.ops.bucketed_pm import live_counts
+    from lambda_cdm_tpu_torch.ops.fast_treepm import build_fast_state
+    n, ncell, box = RD_N, RD_NCELL, RD_BOX
+    rs = 1.25 * box / RD_PM
+    r_cut = 4.5 * rs
+    rng = np.random.default_rng(0)
+    pos = torch.from_numpy(rng.uniform(0.0, box, (n, 3)).astype(
+        np.float32)).to(device)
+    mass = torch.ones(n, device=device)
+    k_rod = rd.rd_geometry(n, ncell)
+    geo = dict(ncell=ncell, k_rod=k_rod, box_size=box, rs=rs,
+               softening=RD_SOFT)
+    pack_ms = cuda_ms(lambda: rd.rd_pack(pos, mass, box, ncell=ncell,
+                                         k_rod=k_rod), 5)
+    rpos, rmass, counts, rzq, ovf, src = rd.rd_pack(pos, mass, box,
+                                                    ncell=ncell, k_rod=k_rod)
+    tab_ms = cuda_ms(lambda: rd.rd_window_tables(
+        rzq, counts, ncell=ncell, k_rod=k_rod, box_size=box,
+        window=r_cut), 5)
+    tables = rd.rd_window_tables(rzq, counts, ncell=ncell, k_rod=k_rod,
+                                 box_size=box, window=r_cut)
+    check("K8", int(ovf) == 0, "rod overflow")
+    reset_counts()
+    acc = rd.short_range_rd(rpos, rmass, counts, tables, **geo)
+    torch.cuda.synchronize()
+    launches = {"short_range_rd": read_counts()["short_range_rd"]}
+    check("K8", launches["short_range_rd"] == 1, "K8 was not launched")
+
+    rows = sample_rows(counts, k_rod, 4096, seed=9)
+    ref = rd.short_range_rd_plain(rpos, rmass, counts, tables, rows=rows,
+                                  **geo)
+    err, rel = rel_err(acc.reshape(-1, 3)[rows], ref)
+    # the pair tests this data needs: each live row against the slots its
+    # chunk's 27 entries cover
+    zsel, nt, _ = rd._decode(tables)
+    live_rows = torch.clamp(counts[:, None] - rd.CH * torch.arange(
+        k_rod // rd.CH, device=device)[None], 0, rd.CH)
+    pairs = float((live_rows.double() * nt.sum(-1).double() * 128).sum())
+    b_ms, b_by = bound(28.0 * rmass.numel() + 4.0 * tables.numel(),
+                       FLOPS["short_range_rd"] * pairs)
+    ms = cuda_ms(lambda: rd.short_range_rd(rpos, rmass, counts, tables,
+                                           **geo), 10)
+    pms = cuda_ms(lambda: rd.short_range_rd_plain(
+        rpos, rmass, counts, tables, chunk=512, **geo), 1, warmup=0)
+
+    # the cell-bucket layout of the same particles, capacity as the bench
+    # script builds it, and K3 vpu3 there
+    cap = max(128, int(np.ceil(1.75 * n / ncell ** 3 / 128)) * 128)
+    plan = {"ncell": ncell, "capacity": cap, "margin": 1, "rs": rs}
+    fs = build_fast_state(pos, torch.zeros_like(pos), mass, 1.0,
+                          box_size=box, plan=plan)
+    check("K8", int(fs.overflow) == 0, "cell buckets overflow")
+    bcounts = live_counts(fs.bmass)
+    sr = dict(ncell=ncell, capacity=cap, box_size=box, rs=rs,
+              softening=RD_SOFT)
+    k3 = short_range.short_range(fs.bpos, fs.bmass, bcounts, **sr)
+    k3_ms = cuda_ms(lambda: short_range.short_range(fs.bpos, fs.bmass,
+                                                    bcounts, **sr), 10)
+    k3_pairs = stencil_pairs(bcounts, ncell)
+
+    # 256 live particles (through src) against the exact sum over all N
+    gen = torch.Generator(device=device).manual_seed(10)
+    slots = rows[torch.randperm(rows.numel(), generator=gen,
+                                device=device)[:RD_ORACLE_ROWS]]
+    targets = src[slots]
+    exact = rd_oracle(pos, mass, targets, box, rs, RD_SOFT)
+    scale = float(exact.abs().max())
+    k8_err = float((acc.reshape(-1, 3)[slots].double() - exact).abs().max()
+                   ) / scale
+    slot_of = torch.full((n,), -1, dtype=torch.long, device=device)
+    ids = fs.ids.reshape(-1)
+    slot_of[ids[ids >= 0].long()] = torch.nonzero(ids >= 0)[:, 0]
+    k3_at = k3.reshape(3, -1)[:, slot_of[targets]].T.double()
+    k3_err = float((k3_at - exact).abs().max()) / scale
+    k8_k3 = float((acc.reshape(-1, 3)[slots].double() - k3_at).abs().max()
+                  ) / scale
+    print(f"row 13 (bench_short_range_rd.py geometry: N={n}, box {box}, "
+          f"ncell {ncell}, rods {ncell * ncell}, k_rod {k_rod}, rs {rs:.4f}, "
+          f"window r_cut {r_cut:.4f}): rd_pack {pack_ms:.3f} ms, "
+          f"rd_window_tables {tab_ms:.3f} ms on {card}")
+    print(f"K8 short_range_rd (4096 rows): max_abs_err {err:.3e} (rel "
+          f"{rel:.3e}, tol {TOL['short_range']:g}); kernel {ms:.4f} ms, "
+          f"plain {pms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {pairs:.4e} "
+          f"pair tests, {pairs / n:.0f} a particle); K3 vpu3 at capacity "
+          f"{cap}: {k3_ms:.4f} ms ({k3_pairs:.4e} pair tests)")
+    print(f"K8 vs the exact-erfc sum over all N at {RD_ORACLE_ROWS} "
+          f"particles: {k8_err:.3e} of the max (tol {RD_ORACLE_TOL:g}); K3 "
+          f"vpu3 {k3_err:.3e} (tol {RD_ORACLE_TOL:g}); K8 vs K3 {k8_k3:.3e} "
+          f"(they take different pairs between r_cut and 6 rs)")
+    failures = []
+    check("K8", rel <= TOL["short_range"], f"rel err {rel} > tol", failures)
+    check("K8", k8_err <= RD_ORACLE_TOL, f"oracle error {k8_err}", failures)
+    check("K3 vpu3", k3_err <= RD_ORACLE_TOL, f"oracle error {k3_err}",
+          failures)
+    if failures:
+        raise AssertionError("row-13 phase: " + "; ".join(failures))
+    return (err, rel, ms, pms, b_ms, b_by), launches
+
+
+def fast_force_errors(eng, n_sample: int, seed: int = 0) -> dict:
+    """The fast stepper's own accelerations (its FastState's acc, by
+    persistent id) against the min-image direct sum at the targets that
+    validate_force_accuracy draws, normalised as it normalises them:
+    {"avg_err", "max_err"} of |a - a_direct| over the rms |a_direct|."""
+    import numpy as np
+    import torch
+    from lambda_cdm_tpu_torch.forces.direct import \
+        direct_accelerations_chunked
+    cfg, st, fs = eng.config, eng.state, eng._fstate
+    acc = _by_id(fs, st.num_particles, fs.acc).float()
+    idx_all = np.nonzero((st.masses > 0).cpu().numpy())[0]
+    rng = np.random.default_rng(seed)
+    idx = torch.as_tensor(rng.choice(idx_all, size=min(n_sample,
+                                                       idx_all.size),
+                                     replace=False),
+                          device=st.positions.device)
+    a_ref = direct_accelerations_chunked(
+        st.positions, st.masses, float(cfg.particles.box_size),
+        float(cfg.forces.softening_length), float(cfg.units.G), 0.0,
+        chunk_size=64, targets=idx)
+    diff = torch.linalg.norm(acc[idx] - a_ref, dim=-1)
+    scale = torch.sqrt(torch.mean(torch.linalg.norm(a_ref, dim=-1) ** 2))
+    return {"avg_err": float(torch.mean(diff) / scale),
+            "max_err": float(torch.max(diff) / scale)}
+
+
+# pm_fast's own force error against the stateless pm's (phase 11, the same
+# config and steps): both are the unsplit PM on one 256^3 mesh, so each of
+# avg_err and max_err may exceed pm's by at most this factor. The oracle is
+# blunt on this near-uniform z = 49 state (the H100 read avg 1.6 for pm; a
+# CPU rehearsal at 32^3 particles on a 64^3 mesh 0.75 for pm_fast and 0.81
+# with the planted fault below), so pm_fast's force is also held against
+# the stateless pm force on a clustered box of the same geometry (clumps of
+# 1000 particles, 3 mesh cells rms), by the rms-normalised mean |difference|:
+# CPU rehearsals at 64^3 and 128^3 read 0.085-0.088 (fd4 against spectral
+# gradient), and 0.26-0.28 for a planted fault, the long-range force of
+# split_scale = rs, which this bar must fail.
+PM_FAST_ERR_FACTOR = 1.25
+PM_FAST_VS_PM_TOL = 0.15
+PM_FAST_CLUMP = (1000, 3.0)
+
+
+def pm_fast_clustered(box: float, ng: int, n: int, device):
+    """pm_fast's force (initialize_fast(pm_only=True)) on a clustered box
+    against the stateless pm force on the same particles, and the same for
+    the planted fault -> (mean |a - a_pm| / rms |a_pm| of each, ncell,
+    capacity)."""
+    import torch
+    from lambda_cdm_tpu_torch.forces.pm import pm_accelerations
+    from lambda_cdm_tpu_torch.ops.bucketed_pm import \
+        pm_accelerations_bucketed
+    from lambda_cdm_tpu_torch.ops.fast_treepm import fast_plan, \
+        initialize_fast
+    per, sigma = PM_FAST_CLUMP
+    gen = torch.Generator(device=device).manual_seed(13)
+    pos = torch.rand((n, 3), generator=gen, device=device) * box
+    ncl = n // per * per
+    centres = torch.rand((ncl // per, 3), generator=gen, device=device) * box
+    pos[:ncl] = centres.repeat_interleave(per, 0) + (sigma * box / ng) \
+        * torch.randn((ncl, 3), generator=gen, device=device)
+    pos = torch.remainder(pos, box)
+    mass = torch.ones(n, device=device)
+    ncell = fast_plan(n, box, ng)["ncell"]
+    cid = torch.clamp((pos / box * ncell).long(), 0, ncell - 1)
+    occ = torch.bincount((cid[:, 0] * ncell + cid[:, 1]) * ncell + cid[:, 2],
+                         minlength=ncell ** 3)
+    cap = 1 << int(occ.max() - 1).bit_length()
+    fs, kw = initialize_fast(pos, torch.zeros_like(pos), mass, 1.0,
+                             box_size=box, pm_grid=ng, softening=0.01,
+                             g_const=1.0, capacity=cap, pm_only=True)
+    check("pm_fast clustered", int(fs.overflow) == 0, "overflow")
+    a_pm = pm_accelerations(pos, mass, ng, box).double()
+    fault, _ = pm_accelerations_bucketed(
+        fs.bpos, fs.bmass, ncell=kw["ncell"], ng=ng, box_size=box,
+        g_const=1.0, split_scale=kw["rs"], margin=kw["margin"],
+        gradient=kw["gradient"])
+    scale = torch.sqrt(torch.mean(torch.sum(a_pm ** 2, dim=-1)))
+    real, planted = (
+        float(torch.mean(torch.linalg.norm(_by_id(fs, n, a) - a_pm, dim=-1))
+              / scale) for a in (fs.acc, fault))
+    return real, planted, kw["ncell"], cap
+
+
+def pm_fast_phase(device, card, pm_ms, pm_res):
+    """Phase 16: pm_128_256.json with forces.type=pm_fast through the
+    CLI's engine for 10 steps, then validate_force_accuracy (through the
+    stateless pm solver) and pm_fast's own force at the same targets,
+    held against the stateless pm run's (phase 11) errors; then pm_fast's
+    force against the stateless pm force on a clustered box, beside a
+    planted fault."""
+    import torch
+    from lambda_cdm_tpu_torch import cli
+    from lambda_cdm_tpu_torch.core.config import SimulationConfig
+    tmp = tempfile.mkdtemp(prefix="lcdm_chip_smoke_pm_fast_")
+    try:
+        cfg = SimulationConfig.from_file(PM_CONFIG)
+        rest = cfg.apply_cli_overrides([
+            "--forces.type=pm_fast", "--time.max_steps=10",
+            "--io.diagnostics.energy_conservation=false",
+            f"--simulation.output_directory={tmp}",
+            f"--profiling.output_file={os.path.join(tmp, 'profile.json')}"])
+        check("pm_fast", not rest, f"overrides not taken: {rest}")
+        cfg.validate()
+        reset_counts()
+        t0 = time.perf_counter()
+        eng = cli._build_engine(cfg, device=device)
+        eng.initialize()
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        eng.run()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        stats = eng.statistics
+        n = eng.state.num_particles
+        ms_step = 1e3 * stats.compute_time_s / max(stats.total_steps, 1)
+        kw = eng._fast_kw
+        res = eng.validate_force_accuracy(n_sample=1024)
+        own = fast_force_errors(eng, n_sample=1024)
+        bar = {k: PM_FAST_ERR_FACTOR * pm_res[k]
+               for k in ("avg_err", "max_err")}
+        vs_pm, fault_vs_pm, cl_ncell, cl_cap = pm_fast_clustered(
+            kw["box_size"], kw["ng"], n, device)
+        print(f"pm_fast (pm_128_256.json, --forces.type=pm_fast): N={n} "
+              f"ng={kw['ng']} ncell {kw['ncell']} capacity "
+              f"{kw['capacity']}; init {t_init:.2f} s; {stats.total_steps} "
+              f"steps {ms_step:.3f} ms/step (stateless pm, phase 11: "
+              f"{pm_ms:.3f} ms/step) on {card}; launches "
+              f"{json.dumps(launches)}; overflow {int(eng._fstate.overflow)} "
+              f"dropped {int(eng._fstate.dropped)}; force validation "
+              f"({res['solver']}, 1024 targets): avg {res['avg_err']:.4e} "
+              f"max {res['max_err']:.4e}; pm_fast's own force: avg "
+              f"{own['avg_err']:.4e} max {own['max_err']:.4e} (bar "
+              f"{PM_FAST_ERR_FACTOR:g} x the stateless pm run's avg "
+              f"{pm_res['avg_err']:.4e} max {pm_res['max_err']:.4e}); "
+              f"against the stateless pm force on a clustered box (clumps "
+              f"of {PM_FAST_CLUMP[0]}, {PM_FAST_CLUMP[1]:g} cells rms; ncell "
+              f"{cl_ncell}, capacity {cl_cap}) {vs_pm:.4e}, the planted "
+              f"fault (split_scale = rs) {fault_vs_pm:.4e} (tol "
+              f"{PM_FAST_VS_PM_TOL:g})")
+        check("pm_fast", stats.total_steps == 10, "steps not taken")
+        check("pm_fast", kw["pm_only"] and launches["short_range"] == 0
+              and launches["cic_deposit"] >= 10
+              and launches["fd4_gather"] >= 10, "kernel launches")
+        check("pm_fast", bool(torch.all(torch.isfinite(eng.state.positions)))
+              and int(eng._fstate.overflow) == 0, "non-finite or overflow")
+        check("pm_fast", res["solver"] == "pm" and math.isfinite(
+            res["max_err"]), "force validation failed")
+        check("pm_fast", all(own[k] <= bar[k] for k in bar),
+              f"pm_fast's force error {own} above {bar}")
+        check("pm_fast", vs_pm <= PM_FAST_VS_PM_TOL < fault_vs_pm,
+              f"pm_fast against pm {vs_pm}, the planted fault "
+              f"{fault_vs_pm} (tol {PM_FAST_VS_PM_TOL})")
+        return ms_step
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# phase 17: card runs against CPU runs of one small state, each gradient
+GRAD_REF_TOL = {"pos": 1e-5, "vel": 1e-4}
+
+
+def gradient_phase(cfg, device, card):
+    """Phase 17: treepm_1m with forces.gradient = spectral and interp for
+    8 steps each (plain PyTorch gathers in place of K2), then the card
+    against the CPU on one small state for each."""
+    import copy
+    import torch
+    from lambda_cdm_tpu_torch import SimulationBuilder
+    from lambda_cdm_tpu_torch.core.config import SimulationConfig
+    from lambda_cdm_tpu_torch.physics.initial_conditions import \
+        generate_state
+    out = {}
+    for grad in ("spectral", "interp"):
+        c = copy.deepcopy(cfg)
+        c.forces.gradient = grad
+        reset_counts()
+        eng = SimulationBuilder(device=device).with_config(c).build()
+        eng.run(num_steps=8)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        stats = eng.statistics
+        ms_step = 1e3 * stats.compute_time_s / max(stats.total_steps, 1)
+        st = eng.state
+        n = st.num_particles
+        ok = (bool(torch.all(torch.isfinite(st.positions)))
+              and int(torch.sum(st.masses > 0)) == n
+              and int(eng._fstate.overflow) == 0
+              and int(eng._fstate.dropped) == 0)
+        del eng
+        small = SimulationConfig.from_dict({
+            "forces": {"type": "treepm_fast", "pm_grid_size": 32,
+                       "softening_length": 0.1, "rebucket_every": 4,
+                       "gradient": grad},
+            "particles": {"num_particles": 4096, "box_size": 50.0},
+            "cosmology": {"initial_redshift": 9.0},
+            "time": {"initial_timestep": 2e-5},
+            "simulation": {"output_frequency": 4, "checkpoint_frequency": 0},
+            "profiling": {"output_file": ""},
+            "logging": {"performance_logging": False}})
+        ic = small.particles.initial_conditions
+        ic.type, ic.grid_size, ic.random_seed = "2lpt", 16, 5
+        st0 = generate_state(small, device="cpu")
+        runs = {}
+        for dev in (device, "cpu"):
+            e = (SimulationBuilder(device=dev).with_config(small)
+                 .with_initial_state(st0).build())
+            s = e.run(num_steps=8)
+            runs[dev] = (s.positions.cpu(), s.velocities.cpu())
+        (gp, gv), (cp, cv) = runs[device], runs["cpu"]
+        d = torch.remainder(gp - cp + 25.0, 50.0) - 25.0
+        pos_err = float(d.abs().max()) / 50.0
+        vel_err = float((gv - cv).abs().max() / cv.abs().max())
+        print(f"treepm_1m gradient={grad}: 8 steps {ms_step:.3f} ms/step on "
+              f"{card}; launches {json.dumps(launches)}; card vs CPU (4096 "
+              f"particles, 8 steps): positions {pos_err:.3e} of the box, "
+              f"velocities {vel_err:.3e} of max |v| (tol "
+              f"{GRAD_REF_TOL['pos']:g} / {GRAD_REF_TOL['vel']:g})")
+        check(f"gradient {grad}", ok and stats.total_steps == 8,
+              "run failed: steps, finiteness, mass, overflow or drops")
+        check(f"gradient {grad}", launches["fd4_gather"] == 0
+              and launches["cic_deposit"] > 0 and launches["short_range"] > 0,
+              "kernel launches")
+        check(f"gradient {grad}", pos_err <= GRAD_REF_TOL["pos"]
+              and vel_err <= GRAD_REF_TOL["vel"], "card and CPU disagree")
+        out[grad] = ms_step
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1675,6 +2302,12 @@ def main() -> int:
     cfg.profiling.output_file = ""
     fs, kw = timed("main-path state", main_path_state, cfg, device)
     rec = timed("kernel phase K1-K3", kernel_phase, fs, kw, device, card)
+    rec.update(timed("row-7 kernel phase", row7_kernel_phase, fs, kw, device,
+                     card))
+    row7_launches = timed("row-7 path", row7_path_phase, fs, kw,
+                          cfg.cosmology_params(),
+                          float(cfg.time.initial_timestep), device, card)
+    timed("rebucket phase", rebucket_phase, fs, kw, device, card)
     del fs
     _, eng = timed("stepper path", main_path, cfg, device, card)
     lens, lens_launches = timed("lensing phase", lensing_phase, eng, device,
@@ -1686,8 +2319,14 @@ def main() -> int:
     timed("energy timing", energy_timing, device, card)
     k4 = timed("K4 phase", k4_phase, device, card)
     k4_launches = timed("direct_10k phase", direct_phase, device, card)
-    timed("stateless pm/treepm phase", stateless_phase, device, card)
+    stateless_ms = timed("stateless pm/treepm phase", stateless_phase, device,
+                         card)
     timed("stateless reference check", stateless_reference_check, device)
+    rec["short_range_rd"], rd_launches = timed("row-13 phase", rd_phase,
+                                               device, card)
+    timed("pm_fast phase", pm_fast_phase, device, card,
+          *stateless_ms[PM_CONFIG])
+    timed("gradient phase", gradient_phase, cfg, device, card)
 
     rec["fof_hook"] = (k5["max_abs_err"], 0.0, k5["ms"], k5["plain_ms"],
                        k5["bound_ms"], k5["bound_by"])
@@ -1712,15 +2351,30 @@ def main() -> int:
                                "lambda_cdm_tpu/ops/pallas_lens_sample.py:84"),
                "lens_sample_xwin": (
                    "csrc/lens_sample.cu",
-                   "lambda_cdm_tpu/ops/pallas_lens_sample.py:165")}
+                   "lambda_cdm_tpu/ops/pallas_lens_sample.py:165"),
+               "short_range_vpu": (
+                   "csrc/short_range.cu",
+                   "lambda_cdm_tpu/ops/pallas_short_range.py:944"),
+               "short_range_vpu2": (
+                   "csrc/short_range.cu",
+                   "lambda_cdm_tpu/ops/pallas_short_range.py:841"),
+               "short_range_mxu": (
+                   "csrc/short_range.cu",
+                   "lambda_cdm_tpu/ops/pallas_short_range.py:500"),
+               "short_range_rd": (
+                   "csrc/short_range_rd.cu",
+                   "lambda_cdm_tpu/ops/pallas_short_range_rd.py:238")}
     # launches: K1-K3 and K5 on the CLI run of treepm_1m, K4 and K4s on
     # the direct_10k run (0 for K4s: no path of the port runs it; the JAX
     # package drives its kernel only from bench.py); K4 and K4s report
-    # their v1 and sym variants; K6/K7 summed over the lensing paths 2-5.
-    # No single PyTorch call computes K1-K5's functions (library_ms null);
-    # K6/K7's yardstick is grid_sample on the wrapped, padded stack
+    # their v1 and sym variants; K6/K7 summed over the lensing paths 2-5;
+    # K3's row-7 split forms on the row-7 path (phase 14), K8 on the
+    # row-13 path (phase 15). No single PyTorch call computes K1-K5's or
+    # K8's functions (library_ms null); K6/K7's yardstick is grid_sample
+    # on the wrapped, padded stack
     launches = dict(launches, direct=k4_launches["direct"],
-                    direct_sym=k4_launches["direct_sym"], **lens_launches)
+                    direct_sym=k4_launches["direct_sym"], **lens_launches,
+                    **row7_launches, **rd_launches)
     kernels = [{"name": name, "route": "cuda",
                 "source": f"lambda_cdm_tpu_torch/{src}", "replaces": rep,
                 "launches": launches[name], "max_abs_err": rec[name][0],

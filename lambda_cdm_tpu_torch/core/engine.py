@@ -9,8 +9,9 @@ in output-cadence chunks on one of two branches:
   evaluation a step, the closing force of a step opening the next (the
   JAX engine's jit(scan) chunk); the cached acceleration feeds the
   adaptive timestep;
-* treepm_fast: the state is bucketed into the persistent FastState
-  (ops/fast_treepm) and each chunk applies the proactive drift guard,
+* treepm_fast and pm_fast (the unsplit PM alone): the state is bucketed
+  into the persistent FastState (ops/fast_treepm) and each chunk applies
+  the proactive drift guard,
 carries the rebucket cadence across chunks, grows the bucket capacity
 and retries when a rebucket would overflow, halves the cadence when
 deposits were dropped, and syncs the public SimState (original particle
@@ -23,7 +24,7 @@ simulation.checkpoint_frequency, timed into statistics.io_time_s) and
 resume follow the JAX engine.
 
 Not ported yet (each raises NotImplementedError, see ROADMAP.md): the
-device mesh, pm_fast, warmup (AOT compilation), orbax checkpoints and the
+device mesh, warmup (AOT compilation), orbax checkpoints and the
 profiler trace.
 """
 
@@ -49,6 +50,13 @@ def _not_ported(what: str):
     return NotImplementedError(
         f"{what} is not ported to lambda_cdm_tpu_torch yet; see "
         f"ROADMAP.md (the JAX package lambda_cdm_tpu has it)")
+
+
+def _accel_kw(fast_kw: dict) -> dict:
+    """The keys of initialize_fast's dict that fast_treepm._accel takes."""
+    keys = ("box_size", "ng", "ncell", "capacity", "margin", "rs",
+            "softening", "g_const", "gradient", "pm_only", "variant")
+    return {k: fast_kw[k] for k in keys if k in fast_kw}
 
 
 class LifecycleState(enum.Enum):
@@ -146,11 +154,9 @@ class SimulationEngine:
             cfg.validate()
             if cfg.compute.mesh.enabled:
                 raise _not_ported("compute.mesh (multi-device runs)")
-            if cfg.forces.type == "pm_fast":
-                raise _not_ported("forces.type='pm_fast'")
             if cfg.profiling.enabled and cfg.profiling.trace_dir:
                 raise _not_ported("profiling.trace_dir")
-            use_fast = cfg.forces.type == "treepm_fast"
+            use_fast = cfg.forces.type in ("treepm_fast", "pm_fast")
             if state is None:
                 from ..physics.initial_conditions import generate_state
                 state = generate_state(cfg, device=self.device)
@@ -206,6 +212,7 @@ class SimulationEngine:
             cut_factor=cfg.forces.cut_factor,
             capacity=cfg.forces.bucket_capacity,
             gradient=cfg.forces.gradient,
+            pm_only=(cfg.forces.type == "pm_fast"),
             time=st.time, step=st.step,
             h0_internal=cfg.units.H0_internal,
             kick_mode=(cfg.integration.kick_mode if cosmological
@@ -309,9 +316,13 @@ class SimulationEngine:
             old_cap, new_cap)
         st = st.replace(overflow=fstate.overflow, dropped=fstate.dropped)
         kw["capacity"] = new_cap
-        accel_keys = ("box_size", "ng", "ncell", "capacity", "margin",
-                      "rs", "softening", "g_const", "gradient")
-        acc, dropped = _accel(st, **{k: kw[k] for k in accel_keys})
+        # the JAX engine's variant switch (a grown capacity leaves the
+        # vpu4b pairing; above 128 it plans vpu5): one split function here
+        if new_cap > 128:
+            kw["variant"] = "vpu5"
+        elif kw.get("variant") == "vpu4b" and new_cap != 64:
+            kw["variant"] = "vpu3"
+        acc, dropped = _accel(st, **_accel_kw(kw))
         self._fstate = st.replace(acc=acc, dropped=st.dropped + dropped)
         self.statistics.compile_time_s += time.perf_counter() - t0
 
@@ -393,9 +404,7 @@ class SimulationEngine:
             return
         if self._fstate is not None:
             from ..ops.fast_treepm import _accel
-            keys = ("box_size", "ng", "ncell", "capacity", "margin", "rs",
-                    "softening", "g_const", "gradient")
-            kw = {k: self._fast_kw[k] for k in keys}
+            kw = _accel_kw(self._fast_kw)
 
             def force():
                 return _accel(self._fstate, **kw)[0]

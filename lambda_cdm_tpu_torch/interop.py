@@ -7,6 +7,9 @@ so the tensors never alias read-only JAX buffers.
     fields = {f.name: np.asarray(getattr(jax_obj, f.name))
               for f in dataclasses.fields(jax_obj)}
     st = sim_state_from_arrays(fields, device="cpu")
+
+Like every entry point of the port, the loaders default to the card
+(device="cuda").
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ def _to_numpy(t):
     return t.detach().cpu().numpy()
 
 
-def sim_state_from_arrays(d: dict, device="cpu") -> SimState:
+def sim_state_from_arrays(d: dict, device="cuda") -> SimState:
     """SimState from {positions, velocities, masses, scale_factor, time,
     step} (other keys, such as the JAX rng_key, are ignored)."""
     return SimState(
@@ -50,7 +53,7 @@ def sim_state_to_arrays(st: SimState) -> dict:
             for f in dataclasses.fields(st)}
 
 
-def fast_state_from_arrays(d: dict, device="cpu") -> FastState:
+def fast_state_from_arrays(d: dict, device="cuda") -> FastState:
     """FastState from the JAX FastState's fields (SoA [3, C, K] layout)."""
     def dev(name, dtype):
         return torch.tensor(np.asarray(d[name], dtype), device=device)

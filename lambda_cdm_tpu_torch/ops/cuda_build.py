@@ -42,8 +42,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "lcdm_cic_deposit": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "lcdm_fd4_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
-    "lcdm_short_range": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
-                         _P],
+    "lcdm_short_range": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
+                         _F, _F, _P],
+    "lcdm_short_range_rd": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P],
     "lcdm_fof_hook": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
                       _P],
     "lcdm_direct": [_P, _P, _I, _I, _I, _F, _F, _F, _P],

@@ -5,6 +5,9 @@ KDK steps whose force evaluation is
     K1 deposit -> FFT Poisson -> K2 fd4 gather   (long range)
     + K3 short-range pairs over 27 neighbour cells,
 
+(or the PM alone, unsplit, with pm_only: forces.type="pm_fast"; the
+spectral and interp gradients replace K2 with plain PyTorch gathers)
+
 and a re-bucketing pass every `rebucket_every` steps outside the steps.
 Drift beyond the deposit block margin is counted in `dropped`; bucket
 overflow at a rebucket is counted in `overflow` (or raises, carrying
@@ -62,7 +65,8 @@ def fast_plan(num_particles: int, box_size: float, pm_grid: int, *,
     capacity and the `variant` name follow the JAX cost model (its
     128-slot quantization and the capacity-64 "vpu4b" pairing are TPU
     constraints kept here so both packages plan the same geometry; the
-    CUDA short-range kernel takes any capacity and ignores `variant`)."""
+    CUDA short-range kernel takes any capacity, and `variant` selects
+    only its split function: the planned vpu3/vpu4b/vpu5 share one)."""
     rs = split_factor * box_size / pm_grid
     r_cut = cut_factor * rs
 
@@ -158,34 +162,46 @@ def flatten_fast_state(fstate: FastState, with_ids: bool = False):
 
 
 def _accel(fstate: FastState, *, box_size, ng, ncell, capacity, margin,
-           rs, softening, g_const, gradient="fd4"):
+           rs, softening, g_const, gradient="fd4", pm_only=False,
+           variant="vpu3"):
     """One force evaluation -> (acc [3, C, K], dropped 0-d int32): the
-    PM long range (K1, FFT, K2) plus g_const times K3's short range (one
-    kernel for every capacity, where the JAX plan picks a TPU variant)."""
+    PM long range (K1, FFT, K2 or the spectral/interp gradient) plus
+    g_const times K3's short range in the split form of `variant`.
+    pm_only: the unsplit PM alone (split_scale 0, no short range), the
+    persistent-bucket PM solver of forces.type="pm_fast"."""
     counts = live_counts(fstate.bmass)
     acc_long, dropped = pm_accelerations_bucketed(
         fstate.bpos, fstate.bmass, ncell=ncell, ng=ng, box_size=box_size,
-        g_const=g_const, split_scale=rs, margin=margin, gradient=gradient,
-        counts=counts)
+        g_const=g_const, split_scale=0.0 if pm_only else rs, margin=margin,
+        gradient=gradient, counts=counts)
+    if pm_only:
+        return acc_long, dropped
     acc_short = short_range(
         fstate.bpos, fstate.bmass, counts, ncell=ncell, capacity=capacity,
-        box_size=float(box_size), rs=float(rs), softening=float(softening))
+        box_size=float(box_size), rs=float(rs), softening=float(softening),
+        variant=variant)
     return acc_long + g_const * acc_short, dropped
 
 
-def _rebucket(fstate: FastState, *, box_size, ncell, capacity) -> FastState:
+def _rebucket(fstate: FastState, *, box_size, ncell, capacity,
+              n_rows: int = 0) -> FastState:
     """Re-bucketing by one stable sort and row gathers (the gather form of
-    the JAX _rebucket; its compact form gives identical results and is
-    not ported yet). Positions wrap here, where cells are re-derived."""
+    the JAX _rebucket). Positions wrap here, where cells are re-derived.
+
+    With `n_rows` (the particle count) and a sparse layout (C*K > 4
+    n_rows, as grow-and-retry leaves it) the compact form runs instead:
+    the live slots are compacted to n_rows rows first, so the sort and
+    the gathers cost O(n_rows), not O(C*K). Both forms order each cell's
+    particles by their old slot, so they give identical states."""
     bshape = fstate.bmass.shape
     s = bshape[0] * bshape[1]
-    pos3 = torch.where((fstate.bmass > 0)[None],
-                       wrap_positions(fstate.bpos, box_size),
-                       0.0).reshape(3, s)
-    mass = fstate.bmass.reshape(s)
+    if n_rows and s > 4 * n_rows:
+        return _rebucket_compact(fstate, box_size=box_size, ncell=ncell,
+                                 capacity=capacity, n_rows=n_rows)
+    pos3, mass = _wrapped_rows(fstate, box_size)
+    shape = fstate.bpos.shape
     src, _, _, _, overflow = bucket_src_map(
         pos3, mass, box_size, ncell=ncell, capacity=capacity)
-    shape = fstate.bpos.shape
 
     def gather3(x):
         x = x.reshape(3, s)
@@ -197,6 +213,54 @@ def _rebucket(fstate: FastState, *, box_size, ncell, capacity) -> FastState:
         acc=gather3(fstate.acc),
         bmass=bucket_gather(mass, src).reshape(bshape),
         ids=bucket_gather(fstate.ids.reshape(s), src, -1).reshape(bshape),
+        overflow=fstate.overflow + overflow.to(torch.int32))
+
+
+def _wrapped_rows(fstate: FastState, box_size):
+    """(positions [3, S] wrapped into the box, 0 on dead slots; masses
+    [S]) of the flat slots."""
+    s = fstate.bmass.numel()
+    pos3 = torch.where((fstate.bmass > 0)[None],
+                       wrap_positions(fstate.bpos, box_size),
+                       0.0).reshape(3, s)
+    return pos3, fstate.bmass.reshape(s)
+
+
+def _rebucket_compact(fstate: FastState, *, box_size, ncell, capacity,
+                      n_rows: int) -> FastState:
+    """The compact rebucket (JAX fast_treepm._rebucket's sparse branch):
+    the first n_rows live slots (padded with the sentinel S) are bucketed
+    alone, and every array is scattered to its new slot, overflow to a
+    trash row S that is sliced off."""
+    bshape = fstate.bmass.shape
+    s = bshape[0] * bshape[1]
+    pos3, mass = _wrapped_rows(fstate, box_size)
+    live_idx = torch.nonzero(mass > 0)[:n_rows, 0]
+    pad = torch.full((n_rows - live_idx.numel(),), s, dtype=live_idx.dtype,
+                     device=live_idx.device)
+    live_idx = torch.cat([live_idx, pad])
+    cpos3 = torch.stack([bucket_gather(pos3[k], live_idx) for k in range(3)])
+    src, slot, order, ok, overflow = bucket_src_map(
+        cpos3, bucket_gather(mass, live_idx), box_size, ncell=ncell,
+        capacity=capacity)
+    dest = torch.where(ok, slot, s)
+    take = live_idx[order]
+
+    def scat(vals, fill=0.0):
+        out = torch.full((s + 1,), fill, dtype=vals.dtype,
+                         device=vals.device)
+        out[dest] = bucket_gather(vals, take, fill)
+        return out[:s]
+
+    def scat3(x):
+        x = x.reshape(3, s)
+        return torch.stack([scat(x[k]) for k in range(3)]).reshape(
+            fstate.bpos.shape)
+
+    return fstate.replace(
+        bpos=scat3(pos3), bvel=scat3(fstate.bvel), acc=scat3(fstate.acc),
+        bmass=scat(mass).reshape(bshape),
+        ids=scat(fstate.ids.reshape(s), -1).reshape(bshape),
         overflow=fstate.overflow + overflow.to(torch.int32))
 
 
@@ -234,13 +298,18 @@ def fast_run(fstate: FastState, params: CosmologyParams, dt, *,
     `next_rebucket_offset`). on_overflow="raise" aborts before accepting
     a lossy rebucket with a BucketOverflowError carrying the intact
     pre-rebucket state; "drop" counts the overflow and zero-masses the
-    particles that did not fit."""
+    particles that did not fit. `kw` is initialize_fast's dict (either
+    package's): the geometry, the integration knobs, `variant`, `pm_only`
+    and `n_rows` (rows of the compact rebucket, 0 for the gather form)."""
     remaining = n_steps
     since = max(0, int(steps_since_rebucket))
+    kw = dict(kw)                    # callers reuse their kw dict
+    n_rows = kw.pop("n_rows", 0)     # the rebucket's compact-form knob
     while remaining > 0:
         if since >= rebucket_every:
             rb = _rebucket(fstate, box_size=kw["box_size"],
-                           ncell=kw["ncell"], capacity=kw["capacity"])
+                           ncell=kw["ncell"], capacity=kw["capacity"],
+                           n_rows=n_rows)
             if (on_overflow == "raise"
                     and int(rb.overflow) > int(fstate.overflow)):
                 raise BucketOverflowError(fstate, n_steps - remaining)
@@ -258,13 +327,13 @@ def _fast_segment(fstate: FastState, params: CosmologyParams, dt, *,
                   margin: int, rs: float, softening: float, g_const: float,
                   gradient: str = "fd4", h0_internal: float = 100.0,
                   kick_mode: str = "reference", sf_method: str = "rk4",
-                  cosmological: bool = True,
-                  n_steps: int = 1) -> FastState:
+                  cosmological: bool = True, pm_only: bool = False,
+                  variant: str = "vpu3", n_steps: int = 1) -> FastState:
     """Advance `n_steps` KDK steps with one force evaluation each (the
     closing half-kick force of one step opens the next)."""
     kw = dict(box_size=box_size, ng=ng, ncell=ncell, capacity=capacity,
               margin=margin, rs=rs, softening=softening, g_const=g_const,
-              gradient=gradient)
+              gradient=gradient, pm_only=pm_only, variant=variant)
     dt = float(dt)
     fs = fstate
     live = (fs.bmass > 0)[None]
@@ -297,13 +366,15 @@ def initialize_fast(positions, velocities, masses, scale_factor, *,
                     split_factor=1.25, cut_factor=4.5, margin=1,
                     capacity=0, gradient="fd4", time=0.0, step=0,
                     h0_internal=100.0, kick_mode="reference",
-                    sf_method="rk4", cosmological=True):
+                    sf_method="rk4", cosmological=True, pm_only=False):
     """Plan + bucket + prime accelerations. Returns (fstate, kw) ready for
-    `fast_run`."""
+    `fast_run`; kw holds the JAX initialize_fast dict's keys: the plan's
+    `variant`, `pm_only` (the unsplit PM alone, forces.type="pm_fast")
+    and `n_rows` (the particle count, for the compact rebucket)."""
     plan = fast_plan(positions.shape[0], float(box_size), pm_grid,
                      split_factor=split_factor, cut_factor=cut_factor,
                      capacity=capacity, margin=margin)
-    if plan["ncell"] < 3:
+    if plan["ncell"] < 3 and not pm_only:
         raise ValueError("treepm_fast needs a box of at least 3 r_cut "
                          "cells per axis")
     fstate = build_fast_state(positions, velocities, masses, scale_factor,
@@ -313,10 +384,12 @@ def initialize_fast(positions, velocities, masses, scale_factor, *,
                     ncell=plan["ncell"], capacity=plan["capacity"],
                     margin=plan["margin"], rs=float(plan["rs"]),
                     softening=float(softening), g_const=float(g_const),
-                    gradient=gradient)
+                    gradient=gradient, pm_only=bool(pm_only),
+                    variant=plan.get("variant", "vpu3"))
     kw = dict(accel_kw, h0_internal=float(h0_internal),
               kick_mode=str(kick_mode), sf_method=str(sf_method),
-              cosmological=bool(cosmological))
+              cosmological=bool(cosmological),
+              n_rows=int(positions.shape[0]))
     acc, dropped = _accel(fstate, **accel_kw)
     fstate = fstate.replace(acc=acc, dropped=fstate.dropped + dropped)
     return fstate, kw

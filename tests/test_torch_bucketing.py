@@ -130,7 +130,7 @@ def test_build_and_flatten_fast_state():
 def test_interop_fast_state_round_trip():
     js, _ = _fast_states()
     arrays = {k: np.asarray(v) for k, v in vars(js).items()}
-    ts = interop.fast_state_from_arrays(arrays)
+    ts = interop.fast_state_from_arrays(arrays, device="cpu")
     _assert_same_state(ts, js)
 
 
@@ -153,3 +153,35 @@ def test_rebucket_gather_form_exact(cap):
     _assert_same_state(tr, jr)
     if cap == 24:
         assert int(tr.overflow) > 0
+
+
+@pytest.mark.parametrize("ncell,cap,extra", [(4, 128, 0), (4, 128, 40),
+                                             (8, 12, 0)])
+def test_rebucket_compact_form_exact(ncell, cap, extra):
+    """A sparse layout (C*K > 4 n_rows) re-buckets through the compact
+    form: equal to the gather form and to the JAX compact form, field by
+    field. `extra` pads n_rows past the live count (dead rows of the
+    particle set); on 8^3 cells of capacity 12, 40 particles drifted onto
+    one point overflow their cell."""
+    n, box = 1200, 24.0
+    js, ts = _fast_states(n=n, box=box, ncell=ncell, cap=cap)
+    assert int(ts.overflow) == 0
+    rng = np.random.default_rng(9)
+    bpos = np.asarray(js.bpos) + rng.normal(
+        scale=2.0, size=np.asarray(js.bpos).shape)
+    live = np.asarray(js.bmass) > 0
+    if cap == 12:
+        crowd = np.nonzero(live.reshape(-1))[0][:40]
+        bpos.reshape(3, -1)[:, crowd] = 12.0 + rng.uniform(
+            0, 1, (3, crowd.size))
+    bpos = np.where(live[None], bpos, 0.0).astype(np.float32)
+    js, ts = js.replace(bpos=jnp.asarray(bpos)), ts.replace(bpos=tt(bpos))
+    kw = dict(box_size=box, ncell=ncell, capacity=cap)
+    n_rows = n + extra
+    assert ncell ** 3 * cap > 4 * n_rows
+    compact = tft._rebucket(ts, n_rows=n_rows, **kw)
+    _assert_same_state(compact, jft._rebucket(js, n_rows=n_rows, **kw))
+    gather = interop.fast_state_to_arrays(tft._rebucket(ts, **kw))
+    for k, v in interop.fast_state_to_arrays(compact).items():
+        np.testing.assert_array_equal(v, gather[k], err_msg=k)
+    assert (int(compact.overflow) > 0) == (cap == 12)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(K1 CIC deposit, K2 fd4 gather, K3 short-range pairs, K4/K4s direct sums,
-K5 FoF hook, K6/K7 lens samplers), and the treepm_fast stepper,
+(K1 CIC deposit, K2 fd4 gather, K3 short-range pairs in each split form,
+K4/K4s direct sums, K5 FoF hook, K6/K7 lens samplers, K8 rod-dense
+pairs), and the treepm_fast stepper,
 fof_labels, the `direct` solver and the lensing trace on the card against
 the same runs on the CPU. These need a CUDA
 card and nvcc; elsewhere they skip:
@@ -19,7 +20,7 @@ from _torch_parity import clustered_particles, cuda_device, \
 
 from lambda_cdm_tpu_torch.analysis import halo_finder
 from lambda_cdm_tpu_torch.ops import direct, fast_treepm, fof_hook, \
-    lens_sample, pm_rods, short_range
+    lens_sample, pm_rods, short_range, short_range_rd
 from lambda_cdm_tpu_torch.ops.bucketed_pm import live_counts
 from lambda_cdm_tpu_torch.physics.cosmology import CosmologyParams
 
@@ -100,6 +101,75 @@ def test_short_range_kernel(cuda_device, clustered):
     assert _rel(got, ref) < 1e-4
     if clustered:
         assert int(counts.max()) > 2500
+
+
+# K3's split forms against their plain version: the kernels read 3.3e-6
+# and 3.4e-6 of the max on the treepm_1m state (H100), while two split
+# forms differ by 3.7e-5 or more (vpu2 against vpu3 there), so a launch of
+# the wrong form fails this bar
+SPLIT_FORM_TOL = 2e-5
+
+
+@pytest.mark.parametrize("variant", ["vpu", "vpu2", "mxu"])
+def test_short_range_split_forms(cuda_device, variant):
+    """K3 with the factored-r (vpu2) and x-space (vpu, mxu) split on the
+    stepper's live-first counts; given no counts, the same result bit for
+    bit, and each slot's result unchanged when the live slots are
+    scattered among the dead ones."""
+    box, ncell, cap = 40.0, 5, 64
+    pos, m = uniform_particles(4000, box, 4)
+    bpos, bmass, counts = _state(cuda_device, pos, m, box, ncell, cap)
+    kw = dict(ncell=ncell, capacity=cap, box_size=box, rs=1.5,
+              softening=0.1, variant=variant)
+    key = short_range.counter(variant)
+    before = short_range.launches[key]
+    got = short_range.short_range(bpos, bmass, counts, **kw)
+    assert short_range.launches[key] == before + 1
+    ref = short_range.short_range_plain(bpos, bmass, counts, **kw)
+    no_counts = short_range.short_range(bpos, bmass, None, **kw)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) < SPLIT_FORM_TOL
+    assert bool(torch.all(got[:, bmass == 0] == 0))
+    assert torch.equal(no_counts, got)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    perm = torch.argsort(torch.rand(bmass.shape, generator=gen,
+                                    device=cuda_device), dim=1)
+    sb = torch.gather(bpos, 2, perm[None].expand(3, -1, -1)).contiguous()
+    sm = torch.gather(bmass, 1, perm).contiguous()
+    shuffled = short_range.short_range(sb, sm, None, **kw)
+    back = torch.empty_like(shuffled)
+    back.scatter_(2, perm[None].expand(3, -1, -1), shuffled)
+    torch.cuda.synchronize()
+    assert _rel(back, got) < 1e-5
+
+
+@pytest.mark.parametrize("edges", [False, True])
+def test_short_range_rd_kernel(cuda_device, edges):
+    """K8 on 20,000 particles in 4^2 rods of 2048 slots (r_cut 9, rods 16
+    wide); with edges=True half of them in thin z slabs at both faces."""
+    box, ncell, rs, soft = 64.0, 4, 2.0, 0.1
+    pos, m = uniform_particles(20000, box, 6)
+    if edges:
+        z = np.random.default_rng(6).uniform(0.0, 3.0, 10000)
+        pos[:10000, 2] = np.where(np.arange(10000) % 2 == 0, z, box - z)
+    k_rod = short_range_rd.rd_geometry(20000, ncell)
+    rpos, rmass, counts, rzq, ovf, _ = short_range_rd.rd_pack(
+        tt(pos).to(cuda_device), tt(m).to(cuda_device), box, ncell=ncell,
+        k_rod=k_rod)
+    assert int(ovf) == 0
+    tables = short_range_rd.rd_window_tables(rzq, counts, ncell=ncell,
+                                             k_rod=k_rod, box_size=box,
+                                             window=4.5 * rs)
+    kw = dict(ncell=ncell, k_rod=k_rod, box_size=box, rs=rs, softening=soft)
+    before = short_range_rd.launches["short_range_rd"]
+    got = short_range_rd.short_range_rd(rpos, rmass, counts, tables, **kw)
+    assert short_range_rd.launches["short_range_rd"] == before + 1
+    ref = short_range_rd.short_range_rd_plain(rpos, rmass, counts, tables,
+                                              **kw)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) < 1e-4
+    live = torch.arange(k_rod, device=cuda_device)[None] < counts[:, None]
+    assert bool(torch.all(got[~live] == 0))
 
 
 def _fof_inputs(device, ncell, cap, seed=7):
@@ -185,6 +255,41 @@ def test_stepper_on_card_matches_cpu(cuda_device):
     assert _rel(g.bvel.cpu(), c.bvel) < 1e-4
     assert int(g.dropped) == int(c.dropped)
     assert int(g.overflow) == int(c.overflow)
+
+
+def test_compact_rebucket_on_card(cuda_device):
+    """The compact rebucket of a sparse layout (C*K > 4 n_rows, as
+    grow-and-retry leaves it) on the card: field by field equal to the
+    gather form on the card, and to the compact form on the CPU (ids and
+    masses exactly, positions to an ulp of the wrap)."""
+    n, box, ncell, cap = 1200, 24.0, 8, 16
+    pos, m = uniform_particles(n, box, 3)
+    vel = np.random.default_rng(3).normal(size=(n, 3)).astype(np.float32)
+    plan = {"ncell": ncell, "capacity": cap, "margin": 1, "rs": 1.0}
+    kw = dict(box_size=box, ncell=ncell, capacity=cap)
+    assert ncell ** 3 * cap > 4 * n
+    drift = None
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        fs = fast_treepm.build_fast_state(tt(pos).to(dev), tt(vel).to(dev),
+                                          tt(m).to(dev), 0.25, box_size=box,
+                                          plan=plan)
+        if drift is None:
+            drift = np.random.default_rng(9).normal(
+                scale=2.0, size=tuple(fs.bpos.shape)).astype(np.float32)
+        fs = fs.replace(bpos=torch.where((fs.bmass > 0)[None],
+                                         fs.bpos + tt(drift).to(dev), 0.0))
+        out[dev.type] = fast_treepm._rebucket(fs, n_rows=n, **kw)
+        if dev.type == "cuda":
+            gather = fast_treepm._rebucket(fs, **kw)
+    g, c = out["cuda"], out["cpu"]
+    for name in ("bpos", "bvel", "acc", "bmass", "ids", "overflow"):
+        assert torch.equal(getattr(g, name), getattr(gather, name)), name
+    assert torch.equal(g.ids.cpu(), c.ids)
+    assert torch.equal(g.bmass.cpu(), c.bmass)
+    assert torch.equal(g.bvel.cpu(), c.bvel)
+    assert _rel(g.bpos.cpu(), c.bpos) < 1e-6
+    assert int(g.overflow) == int(c.overflow) == 0
 
 
 # K4/K4s against their plain versions on the card: the same arithmetic,

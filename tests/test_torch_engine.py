@@ -30,7 +30,7 @@ def _engines(cfg_dict, jstate, tweak=None):
         builder = lc.SimulationBuilder() if lc is jlc else \
             lc.SimulationBuilder(device="cpu")
         st = jstate if lc is jlc else \
-            interop.sim_state_from_arrays(fields(jstate))
+            interop.sim_state_from_arrays(fields(jstate), device="cpu")
         out.append(builder.with_config(cfg).with_initial_state(st).build())
     return out
 
@@ -111,11 +111,11 @@ def test_grow_and_retry_matches():
                         scale_factor=1.0)
     jeng, teng = _engines(_collapse_dict(n, box, 8), jstate)
     cap0 = jeng._fast_kw["capacity"]
-    assert teng._fast_kw == {k: v for k, v in jeng._fast_kw.items()
-                             if k not in ("pm_only", "variant", "n_rows")}
+    assert teng._fast_kw == jeng._fast_kw
     jeng.run(num_steps=16)
     teng.run(num_steps=16)
     assert teng._fast_kw["capacity"] == jeng._fast_kw["capacity"] > cap0
+    assert teng._fast_kw == jeng._fast_kw         # the variant switch too
     j, t = _public(jeng), _public(teng)
     assert int((t["masses"] > 0).sum()) == n
     np.testing.assert_array_equal(t["masses"], j["masses"])
@@ -175,8 +175,8 @@ def test_drops_halve_the_cadence_alike():
 def test_builder_device_and_refusals(tmp_path):
     """The builder defaults to the card; the stateless solvers initialize
     and step on the CPU (their parity with the JAX engine is
-    test_stateless_run_matches); pm_fast, warmup, orbax and the mesh
-    still raise."""
+    test_stateless_run_matches); pm_fast runs as the JAX engine does
+    (_check_pm_fast_run); warmup, orbax and the mesh still raise."""
     cfg = tlc.SimulationConfig()
     cfg.forces.type = "treepm_fast"
     b = tlc.SimulationBuilder()
@@ -196,10 +196,7 @@ def test_builder_device_and_refusals(tmp_path):
         e.step(2)
         assert int(e.state.step) == 2 and e._acc.shape == (512, 3)
         assert e.validate_force_accuracy(n_sample=16)["n_sample"] == 16
-    c = tlc.SimulationConfig()
-    c.forces.type = "pm_fast"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlc.SimulationEngine(c, device="cpu").initialize()
+    _check_pm_fast_run()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.warmup()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -214,6 +211,44 @@ def test_builder_device_and_refusals(tmp_path):
     c.compute.mesh.enabled = True
     with pytest.raises(NotImplementedError, match="mesh"):
         tlc.SimulationEngine(c, device="cpu").initialize()
+
+
+def _check_pm_fast_run():
+    """forces.type="pm_fast" (the persistent-bucket stepper with the
+    unsplit PM alone) on a 12^3 2LPT start at z=9, 8 steps in chunks of 4
+    with a rebucket every 4, against the JAX engine: positions to 1e-5 of
+    the box, velocities to 1e-4 of the largest (the stateless runs' bars:
+    no short-range split lies between the packages here), then
+    validate_force_accuracy through the stateless pm solver."""
+    box = 37.5
+    d = {"particles": {"num_particles": 12 ** 3, "box_size": box},
+         "forces": {"type": "pm_fast", "pm_grid_size": 24,
+                    "softening_length": 0.05, "rebucket_every": 4},
+         "cosmology": {"initial_redshift": 9.0},
+         "time": {"initial_timestep": 2e-5},
+         "simulation": {"output_frequency": 4, "checkpoint_frequency": 0},
+         "profiling": {"output_file": ""},
+         "logging": {"performance_logging": False}}
+
+    def ics(cfg):
+        ic = cfg.particles.initial_conditions
+        ic.type, ic.grid_size, ic.random_seed = "2lpt", 12, 23
+
+    cfg = jlc.SimulationConfig.from_dict(d)
+    ics(cfg)
+    jeng, teng = _engines(d, generate_state(cfg), ics)
+    assert teng._fast_kw == jeng._fast_kw and teng._fast_kw["pm_only"]
+    jeng.run(num_steps=8)
+    teng.run(num_steps=8)
+    j, t = _public(jeng), _public(teng)
+    dpos = (t["positions"] - j["positions"] + box / 2) % box - box / 2
+    assert np.abs(dpos).max() < 1e-5 * box
+    vscale = np.abs(j["velocities"]).max()
+    assert np.abs(t["velocities"] - j["velocities"]).max() / vscale < 1e-4
+    assert int(t["step"]) == int(j["step"]) == 8
+    assert int(teng._fstate.dropped) == int(jeng._fstate.dropped) == 0
+    res = teng.validate_force_accuracy(n_sample=64)
+    assert res["solver"] == "pm" and res["n_sample"] == 64
 
 
 def test_observers_fire():

@@ -66,10 +66,11 @@ def _by_id(fs, n):
 
 def test_plans_agree(runs):
     jkw, tkw = runs["kw"]
-    # JAX-only: PM-only mode, the TPU kernel, the compact rebucket's size
-    drop = {"pm_only", "variant", "n_rows"}
-    assert {k: v for k, v in jkw.items() if k not in drop} == tkw
-    assert (tkw["ncell"], tkw["capacity"]) == (4, 128)
+    # every key of the JAX dict, pm_only, variant and n_rows included
+    assert jkw == tkw
+    assert (tkw["ncell"], tkw["capacity"], tkw["variant"]) == (4, 128,
+                                                               "vpu3")
+    assert tkw["n_rows"] == runs["n"] and tkw["pm_only"] is False
 
 
 def test_initial_accelerations(runs):

@@ -107,7 +107,7 @@ def _engines(tmp):
         .with_initial_state(st).build()
     teng = tlc.SimulationBuilder(device="cpu").with_config(
         tlc.SimulationConfig.from_dict(d)).with_initial_state(
-        interop.sim_state_from_arrays(fields(st))).build()
+        interop.sim_state_from_arrays(fields(st), device="cpu")).build()
     return jeng, teng
 
 

@@ -406,7 +406,7 @@ def test_lensing_observer_engine_run(tmp_path):
         .with_observer(jobs).build().run()
     teng = tlc.SimulationBuilder(device="cpu").with_config(
         tlc.SimulationConfig.from_dict(d)).with_initial_state(
-        interop.sim_state_from_arrays(fields(st0))).with_observer(
+        interop.sim_state_from_arrays(fields(st0), device="cpu")).with_observer(
         tobs).build()
     teng.run()
     assert [r["step"] for r in tobs.maps] == [r["step"] for r in jobs.maps] \

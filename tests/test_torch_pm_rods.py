@@ -151,8 +151,19 @@ def test_pm_route_fd4_matches_jnp_reference(split, push_frac):
 
 
 def test_pm_route_refuses_unported_gradients():
+    """Every gradient of the JAX package is ported: spectral and interp
+    (which this test once saw refused) run and match the JAX package's
+    XLA path on live slots at GATHER_TOL (the drop-rule and interp cases
+    are tests/test_torch_fast_options.py's); any other name is refused."""
     bpos, bmass, _ = _state(8)
+    live = (bmass > 0)[None]
     for gradient in ("spectral", "interp"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbpm.pm_accelerations_bucketed(tt(bpos), tt(bmass),
-                                           gradient=gradient, **GEO)
+        ref, _ = jbpm.pm_accelerations_bucketed(
+            jnp.asarray(bpos), jnp.asarray(bmass), split_scale=1.0,
+            gradient=gradient, use_pallas=False, **GEO)
+        got, _ = tbpm.pm_accelerations_bucketed(
+            tt(bpos), tt(bmass), split_scale=1.0, gradient=gradient, **GEO)
+        assert max_rel(got, ref, live) < GATHER_TOL
+    with pytest.raises(ValueError, match="gradient"):
+        tbpm.pm_accelerations_bucketed(tt(bpos), tt(bmass),
+                                       gradient="fd2", **GEO)

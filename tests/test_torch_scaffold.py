@@ -3,6 +3,7 @@ example config to the same dict as the JAX package, and its kernel
 wrappers never fall back to the plain version for a non-CPU tensor."""
 
 import glob
+import inspect
 import os
 import subprocess
 import sys
@@ -162,7 +163,8 @@ def test_kernel_build_needs_the_cuda_toolkit(monkeypatch):
     assert path == cuda_build.library_path()
     srcs = [os.path.basename(s) for s in cuda_build._sources()]
     assert srcs == ["cic_deposit.cu", "direct.cu", "fd4_gather.cu",
-                    "fof_hook.cu", "lens_sample.cu", "short_range.cu"]
+                    "fof_hook.cu", "lens_sample.cu", "short_range.cu",
+                    "short_range_rd.cu"]
     monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(cuda_build, "NVCC_DEFAULT",
                         os.path.join(ROOT, "no-such-dir", "nvcc"))
@@ -181,7 +183,10 @@ def test_interop_round_trip():
          "masses": np.ones(5, np.float32), "scale_factor": np.float32(0.1),
          "time": np.float32(0.5), "step": np.int32(3),
          "rng_key": np.zeros(2, np.uint32)}
-    st = interop.sim_state_from_arrays(d)
+    # the loaders default to the card, as every entry point of the port
+    for fn in (interop.sim_state_from_arrays, interop.fast_state_from_arrays):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    st = interop.sim_state_from_arrays(d, device="cpu")
     back = interop.sim_state_to_arrays(st)
     for k in ("positions", "velocities", "masses", "scale_factor", "time",
               "step"):

@@ -1,8 +1,9 @@
 """K3 (short-range pairs over 27 neighbour cells) of the PyTorch port: its
 plain version against the TPU kernel in Pallas interpret mode (vpu3, the
-same even-polynomial split), against the exact-erfc JAX reference, and
-its `rows=` form against the full evaluation -- on a uniform state and on
-a clustered one whose capacity is several hundred."""
+same even-polynomial split, and the vpu, vpu2 and mxu variants with their
+split functions), against the exact-erfc JAX reference, and its `rows=`
+form against the full evaluation -- on a uniform state and on a clustered
+one whose capacity is several hundred."""
 
 import numpy as np
 import pytest
@@ -128,3 +129,92 @@ def test_periodic_shift_from_cell_index():
 def test_poly_even_coeffs_identical():
     for rs in (RS, 0.652, 3.0):
         assert tsr._poly_even_coeffs(rs) == jpsr._poly_even_coeffs(rs)
+
+
+# the variants that also take no counts (any slot order; mass 0 is dead)
+FULL_VARIANTS = ("vpu", "vpu2", "mxu")
+# the TPU mxu kernel sums w x_j - (sum w) x_i in centred coordinates as a
+# GEMM: its float32 cancellation puts it 4.4e-5 of the max from vpu on the
+# uniform state (measured), while the port's mxu is the vpu function, held
+# against the JAX vpu kernel at KERNEL_TOL
+MXU_GEMM_TOL = 1e-4
+
+
+def _interpret(state, variant):
+    box, ncell, cap, (bpos, bmass, _) = state
+    return jpsr.pallas_short_range(jnp.asarray(bpos), jnp.asarray(bmass),
+                                   ncell=ncell, capacity=cap, box_size=box,
+                                   rs=RS, softening=SOFT, interpret=True,
+                                   variant=variant)
+
+
+@pytest.mark.parametrize("variant", FULL_VARIANTS)
+def test_plain_variants_match_interpret(variant):
+    """vpu, vpu2 and mxu on the uniform 3^3 / capacity-64 state (one
+    interpret-mode compile each: about 5 s on one core); given no counts
+    the port gives the same, and dead slots are exactly 0."""
+    state = _uniform()
+    got = _plain(state, variant=variant)
+    live = _live(state)
+    if variant == "mxu":
+        assert max_rel(got, _interpret(state, "vpu"), live[None]) \
+            < KERNEL_TOL
+        assert max_rel(got, _interpret(state, "mxu"), live[None]) \
+            < MXU_GEMM_TOL
+    else:
+        assert max_rel(got, _interpret(state, variant), live[None]) \
+            < KERNEL_TOL
+    assert np.all(nn(got)[:, ~live] == 0.0)
+    box, ncell, cap, (bpos, bmass, _) = state
+    no_counts = tsr.short_range(tt(bpos), tt(bmass), None, ncell=ncell,
+                                capacity=cap, box_size=box, rs=RS,
+                                softening=SOFT, variant=variant)
+    np.testing.assert_array_equal(nn(no_counts), nn(got))
+
+
+@pytest.mark.parametrize("variant", FULL_VARIANTS)
+def test_full_capacity_variants_take_any_slot_order(variant):
+    """The live slots of each cell scattered among its dead ones (not live
+    first): each particle's acceleration is unchanged up to the order of
+    its pair sum."""
+    state = _uniform()
+    box, ncell, cap, (bpos, bmass, counts) = state
+    base = nn(_plain(state, variant=variant))
+    rng = np.random.default_rng(11)
+    perm = np.stack([rng.permutation(cap) for _ in range(ncell ** 3)])
+    sb = np.take_along_axis(bpos, perm[None], axis=2)
+    sm = np.take_along_axis(bmass, perm, axis=1)
+    assert not np.array_equal(sm > 0, bmass > 0)
+    got = nn(tsr.short_range(tt(sb), tt(sm), None, ncell=ncell,
+                             capacity=cap, box_size=box, rs=RS,
+                             softening=SOFT, variant=variant))
+    back = np.empty_like(got)
+    np.put_along_axis(back, perm[None], got, axis=2)
+    assert max_rel(back, base, _live(state)[None]) < 1e-6
+
+
+def test_vpu2_close_to_vpu3():
+    """Two fits of one split function: the JAX package's bar between its
+    vpu2 and vpu3 kernels (tests/test_fast_treepm.py)."""
+    state = _uniform()
+    live = _live(state)
+    assert max_rel(_plain(state, variant="vpu3"),
+                   _plain(state, variant="vpu2"), live[None]) < 5e-4
+
+
+def test_split_coefficients_identical():
+    for rs in (RS, 0.652, 3.0):
+        assert tsr._poly_r_coeffs(rs) == jpsr._poly_r_coeffs(rs)
+    assert tsr._x_coeffs() == jpsr._COEFFS_F
+    assert tsr._X_MAX == jpsr._X_MAX
+
+
+def test_variant_names():
+    state = _uniform()
+    with pytest.raises(ValueError, match="variant"):
+        _plain(state, variant="vpu9")
+    with pytest.raises(ValueError, match="counts"):
+        box, ncell, cap, (bpos, bmass, _) = state
+        tsr.short_range(tt(bpos), tt(bmass), None, ncell=ncell,
+                        capacity=cap, box_size=box, rs=RS, softening=SOFT)
+    assert {tsr.counter(v) for v in tsr.VARIANTS} == set(tsr.launches)

@@ -37,7 +37,7 @@ def _configs(d):
 def _states(pos, m, vel=None):
     vel = np.zeros_like(pos) if vel is None else vel
     js = jmake_state(pos, vel, m, scale_factor=0.5)
-    return js, interop.sim_state_from_arrays(fields(js))
+    return js, interop.sim_state_from_arrays(fields(js), device="cpu")
 
 
 def test_available_force_computers_equal():
