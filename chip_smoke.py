@@ -40,17 +40,20 @@ fatal on failure and each printing its seconds:
      on a 131,072-particle subset against a scipy cKDTree + connected-
      components oracle (exactly equal labels), fof_labels and find_halos
      at 1M (converged before max_rounds);
-  6. CLI phase: treepm_1m.json through the CLI's _build_engine ->
-     initialize -> run for 40 steps with every observer the config asks
-     for (P(k) every 20 steps, FoF halos, snapshot and checkpoint at 40;
-     energy off: its O(N^2) pair sum); K1-K5 must have launched, K5
-     through the halo-finder observer; then `resume` from the checkpoint
-     and `analyze` of the snapshot through cli.main;
+  6. CLI phase: treepm_1m.json as shipped through the CLI's
+     _build_engine -> initialize -> run for 40 steps with every observer
+     the config asks for (P(k) every 20 steps, FoF halos, snapshot and
+     checkpoint at 40, energy conservation on); K1-K5 and K9 must have
+     launched, K5 through the halo-finder observer, K9 once for each
+     compute_energy, each call under 10 s; then `resume` from the
+     checkpoint and `analyze` of the snapshot through cli.main;
   7. reference check: a small run with every observer on (energy too) on
      the card against the same run on the CPU (the kernels' plain
      versions) from one initial state;
-  8. energy timing: one potential_energy at 131,072 particles, and its
-     N^2 extrapolation to 1M;
+  8. K9 phase: pair_potential (the potential energy's pair sum) against
+     its plain version at 131,072 particles, two calls equal bit for bit,
+     timed; K9 alone on 1M uniform particles; the bound counts the
+     n(n-1)/2 unordered pairs the sum needs;
   9. K4 phase: 100,000 particles uniform in a 100 Mpc/h box (unit
      masses, softening 0.05: the JAX package's bench.py direct figure),
      K4 (v1, v2) and K4s (sym, sym2) against their plain versions and
@@ -103,6 +106,24 @@ Then the fast stepper's other options:
      fault (split_scale = rs) must fail;
  17. gradient phase: treepm_1m.json with forces.gradient = spectral and
      interp for 8 steps each, and each against the CPU on one small state.
+
+Then this slice's paths:
+
+ 19. K10 phase: the alias probe's entry point (python -m
+     lambda_cdm_tpu_torch.ops.alias_probe, both modes), then the sequential
+     mode against its plain version (1..8 in column 0) and the blocks
+     mode's column 0 as the card gives it, timed as a CUDA graph;
+ 20. science phase: python -m lambda_cdm_tpu_torch.science_run's main at
+     the 1M geometry (100^3 particles, 100 Mpc/h, 192^3 PM, buckets of
+     capacity 8192 on 16^3 cells) from z = 24 to z = 0: 2LPT ICs, the
+     treepm_fast run with adaptive dt, P(k) at every chunk, the
+     Layzer-Irvine ledger through K9, the final-state step breakdown, the
+     FoF/SO catalogue with the HMF against Sheth-Tormen and the Born map;
+     K1-K3, K5 and K9 must have launched, overflow and drops 0, every
+     check of its certificate must pass; then --analyze-only on the
+     record (certificate and record in chiprun_out/chip_smoke_science/),
+     and K9 against its plain version on the run's final 1M state (the
+     kernels line's K9 numbers).
 
 The CLI phase also validates the treepm_1m state's forces through the
 stateless treepm solver.
@@ -161,13 +182,14 @@ TREEPM_CONFIG = os.path.join(ROOT, "examples", "configs",
                              "basic_lambda_cdm.json")
 
 # the CLI phase: treepm_1m.json cut to 40 steps, every observer at a
-# cadence that fires inside them, energy off (an O(N^2) pair sum at 1M)
+# cadence that fires inside them (energy on, as the file ships it: K9)
 CLI_OVERRIDES = ["--time.max_steps=40",
                  "--io.analysis.power_spectrum.frequency=20",
                  "--io.analysis.halo_finder.frequency=40",
                  "--io.snapshots.frequency=40",
-                 "--simulation.checkpoint_frequency=40",
-                 "--io.diagnostics.energy_conservation=false"]
+                 "--simulation.checkpoint_frequency=40"]
+# the most a compute_energy call may take at 1M on the card (K9)
+CLI_ENERGY_MAX_S = 10.0
 
 
 def card_line() -> str:
@@ -179,18 +201,10 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean milliseconds per call of fn() on the current stream."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    """Mean device milliseconds per call of fn(): the package's timer
+    (lambda_cdm_tpu_torch.ops.cuda_build.cuda_ms)."""
+    from lambda_cdm_tpu_torch.ops.cuda_build import cuda_ms as timer
+    return timer(fn, reps, warmup)
 
 
 def rel_err(got, ref, mask=None) -> tuple[float, float]:
@@ -235,10 +249,10 @@ def stencil_pairs(counts, ncell: int) -> float:
 
 
 def _counted():
-    from lambda_cdm_tpu_torch.ops import direct, fof_hook, lens_sample, \
-        pm_rods, short_range, short_range_rd
+    from lambda_cdm_tpu_torch.ops import alias_probe, direct, fof_hook, \
+        lens_sample, pm_rods, short_range, short_range_rd
     return (pm_rods, short_range, fof_hook, direct, lens_sample,
-            short_range_rd)
+            short_range_rd, alias_probe)
 
 
 def reset_counts() -> None:
@@ -674,7 +688,7 @@ def cli_phase(device, card):
         check("CLI", not rest, f"overrides not taken: {rest}")
         cfg.validate()
         print(f"CLI phase: run {os.path.relpath(CONFIG, ROOT)} "
-              f"{' '.join(CLI_OVERRIDES)} (energy off at 1M: O(N^2))")
+              f"{' '.join(CLI_OVERRIDES)} (energy on: K9)")
         reset_counts()
         t0 = time.perf_counter()
         eng = cli._build_engine(cfg, device=device)
@@ -695,8 +709,19 @@ def cli_phase(device, card):
                 print(f"  {name}: {t['count']} x {1e3 * t['mean_s']:.2f} ms")
         check("CLI", stats.total_steps == 40, "steps not taken")
         check("CLI", all(launches[k] > 0 for k in (
-            "cic_deposit", "fd4_gather", "short_range", "fof_hook")),
-            "a kernel of the path was not launched")
+            "cic_deposit", "fd4_gather", "short_range", "fof_hook",
+            "pair_potential")), "a kernel of the path was not launched")
+        energy = eng.profiler.get("diagnostics.energy")
+        print(f"CLI energy: {energy.count} compute_energy calls at N="
+              f"{eng.state.num_particles} through K9 ({launches['pair_potential']}"
+              f" launches), {energy.min_s:.3f}-{energy.max_s:.3f} s a call "
+              f"(mean {energy.mean_s:.3f} s) on {card}")
+        check("CLI", energy.count >= 1
+              and launches["pair_potential"] == energy.count
+              and energy.max_s < CLI_ENERGY_MAX_S,
+              f"compute_energy: {energy.count} calls, {launches['pair_potential']}"
+              f" K9 launches, max {energy.max_s:.3f} s (limit "
+              f"{CLI_ENERGY_MAX_S} s)")
         halo_obs = [o for o in eng.observers if isinstance(
             o, HaloFinderObserver)]
         check("CLI", len(halo_obs) == 1 and len(halo_obs[0].catalogs) == 1,
@@ -889,24 +914,237 @@ def reference_check(device):
     check("reference", pe_same <= 1e-5, "potential energy differs")
 
 
-def energy_timing(device, card):
-    """One potential_energy (the O(N^2) plain PyTorch pair sum) at
-    131,072 particles on the card, and its N^2 extrapolation to 1M."""
+# K9 against its plain version (relative to |U|): float32 pair terms,
+# float64 sums in another order
+PAIR_POTENTIAL_TOL = 1e-6
+# float operations per pair term of K9, counted from csrc/direct.cu: 3
+# differences, 3 minimum images (a rounded quotient and a multiply-
+# subtract: 3 each), r^2 (3 products, 3 sums), the exclusion compare,
+# one rsqrt, the mass product and the running sum
+PAIR_POTENTIAL_FLOPS = 21
+# (particles, softening): K9 against its plain version at the first, K9
+# alone on uniform particles at the science run's 1M; the science phase
+# holds it against plain on that run's final clustered 1M state
+PAIR_POTENTIAL_SIZES = ((131_072, 0.02), (1_000_000, 0.1))
+
+
+def pair_potential_bound(n: int) -> tuple[float, str]:
+    """K9's bound: each position and mass read once, the per-block
+    partials written once, and the n(n-1)/2 unordered pair terms the
+    symmetric sum needs (the kernel as written evaluates all n(n-1)
+    ordered pairs, twice that)."""
+    from lambda_cdm_tpu_torch.ops import direct
+    return bound(16.0 * n + 8.0 * ((n + direct.THREADS - 1)
+                                   // direct.THREADS),
+                 PAIR_POTENTIAL_FLOPS * float(n) * (n - 1) / 2)
+
+
+def pair_potential_check(pos, mass, box, soft, label, card, reps=1):
+    """K9 on (pos, mass) twice (bit for bit equal), timed, and held
+    against pair_potential_plain (timed once) and potential_energy;
+    prints the numbers and returns (max_abs_err, rel, ms, plain_ms,
+    bound_ms, bound_by)."""
     import torch
+    from lambda_cdm_tpu_torch.ops import direct
     from lambda_cdm_tpu_torch.forces.direct import potential_energy
-    n, box = 131_072, 100.0
+    n = pos.shape[0]
+    u1 = direct.pair_potential(pos, mass, box, soft)
+    u2 = direct.pair_potential(pos, mass, box, soft)
+    same = float(u1) == float(u2)
+    ms = cuda_ms(lambda: direct.pair_potential(pos, mass, box, soft), reps,
+                 warmup=0)
+    pe = float(potential_energy(pos, mass, box, soft))
+    t0 = time.perf_counter()
+    ref = direct.pair_potential_plain(pos, mass, box, soft)
+    torch.cuda.synchronize()
+    pms = 1e3 * (time.perf_counter() - t0)
+    err = abs(float(u1) - float(ref))
+    rel = err / abs(float(ref))
+    b_ms, b_by = pair_potential_bound(n)
+    print(f"K9 pair_potential on {label} (N={n}, softening {soft:g}): U "
+          f"{float(u1):.10e} against plain {float(ref):.10e}: max_abs_err "
+          f"{err:.3e} (rel {rel:.3e}, tol {PAIR_POTENTIAL_TOL:g}), two "
+          f"calls equal {same}; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}, {float(n) * (n - 1) / 2:.4e} "
+          f"unordered pairs; the kernel evaluates {float(n) * (n - 1):.4e}"
+          f" ordered ones) on {card}")
+    check("K9", same, f"two calls on {label} differ: {float(u1)!r} "
+          f"{float(u2)!r}")
+    check("K9", pe < 0 and math.isfinite(pe) and pe == float(
+        u1.to(torch.float32)), f"potential_energy on {label}: {pe}")
+    check("K9", rel <= PAIR_POTENTIAL_TOL, f"rel err {rel} > tol on {label}")
+    return err, rel, ms, pms, b_ms, b_by
+
+
+def pair_potential_phase(device, card):
+    """K9 (pair_potential) against its plain version at 131,072 particles
+    uniform in 100 Mpc/h (softening 0.02), two calls bit for bit equal,
+    timed beside it; K9 alone on 1M uniform particles (softening 0.1,
+    the science run's), with the bound at both."""
+    import torch
+    from lambda_cdm_tpu_torch.ops import direct
+    from lambda_cdm_tpu_torch.forces.direct import potential_energy
+    box = 100.0
     gen = torch.Generator(device=device).manual_seed(31)
+    n, soft = PAIR_POTENTIAL_SIZES[0]
+    pos = torch.rand((n, 3), generator=gen, device=device) * box
+    pair_potential_check(pos, torch.ones(n, device=device), box, soft,
+                         "uniform particles", card, reps=3)
+    n, soft = PAIR_POTENTIAL_SIZES[1]
     pos = torch.rand((n, 3), generator=gen, device=device) * box
     mass = torch.ones(n, device=device)
-    potential_energy(pos[:4096], mass[:4096], box, 0.02)     # warm up
+    u1 = direct.pair_potential(pos, mass, box, soft)
+    u2 = direct.pair_potential(pos, mass, box, soft)
+    same = float(u1) == float(u2)
+    ms = cuda_ms(lambda: direct.pair_potential(pos, mass, box, soft), 1,
+                 warmup=0)
+    pe = float(potential_energy(pos, mass, box, soft))
+    b_ms, b_by = pair_potential_bound(n)
+    print(f"K9 pair_potential on uniform particles (N={n}): kernel "
+          f"{ms:.4f} ms a call (U {float(u1):.10e}, two calls equal "
+          f"{same}), bound {b_ms:.4f} ms ({b_by}) on {card}")
+    check("K9", same, f"two calls at N={n} differ: {float(u1)!r} "
+          f"{float(u2)!r}")
+    check("K9", pe < 0 and math.isfinite(pe) and pe == float(
+        u1.to(torch.float32)), f"potential_energy at N={n}: {pe}")
+
+
+ALIAS_ROWS, ALIAS_COLS = 8, 128
+
+
+def alias_probe_phase(device, card):
+    """K10 on its own path: the entry point python -m
+    lambda_cdm_tpu_torch.ops.alias_probe (both modes, counts reset just
+    before), then each mode against its plain version on an [8, 128] zero
+    buffer: the sequential mode must equal it (1..8 in column 0), the
+    blocks mode's column 0 is what the card gives; timed as a CUDA graph
+    of launches and eagerly."""
+    import torch
+    from lambda_cdm_tpu_torch.ops import alias_probe
+    reset_counts()
+    check("K10", alias_probe.main([]) == 0, "entry point failed")
     torch.cuda.synchronize()
+    launches = {"alias_probe": read_counts()["alias_probe"]}
+    check("K10", launches["alias_probe"] == 2,
+          f"launches {launches['alias_probe']} (expected 2)")
+    n_bytes = 2.0 * 4 * ALIAS_ROWS * ALIAS_COLS
+    b_ms, b_by = bound(n_bytes, ALIAS_ROWS * ALIAS_COLS)
+    rec = {}
+    for mode in alias_probe.MODES:
+        cols = []
+        for _ in range(5):
+            x = alias_probe.alias_probe(
+                torch.zeros((ALIAS_ROWS, ALIAS_COLS), device=device), mode)
+            torch.cuda.synchronize()
+            cols.append(x[:, 0].tolist())
+        ref = alias_probe.alias_probe_plain(
+            torch.zeros((ALIAS_ROWS, ALIAS_COLS)), mode == "sequential")
+        err = float((x.cpu() - ref).abs().max())
+        buf = torch.zeros((ALIAS_ROWS, ALIAS_COLS), device=device)
+        ms = graph_ms(lambda: alias_probe.alias_probe(buf, mode))
+        eager = cuda_ms(lambda: alias_probe.alias_probe(buf, mode), 100)
+        t0 = time.perf_counter()
+        for _ in range(100):
+            alias_probe.alias_probe_plain(
+                torch.zeros((ALIAS_ROWS, ALIAS_COLS), device=device),
+                mode == "sequential")
+        torch.cuda.synchronize()
+        pms = 10.0 * (time.perf_counter() - t0)
+        print(f"K10 alias_probe {mode}: column 0 over 5 launches "
+              f"{cols}; against plain {ref[:, 0].tolist()}: max_abs_err "
+              f"{err:g}; {1e3 * ms:.3f} us a launch (CUDA graph), eager "
+              f"{1e3 * eager:.3f} us, plain {1e3 * pms:.3f} us, bound "
+              f"{1e3 * b_ms:.6f} us ({b_by}) on {card}")
+        if mode == "sequential":
+            check("K10", err == 0.0 and cols[-1] == [float(i) for i in
+                                                     range(1, 9)],
+                  f"sequential mode {cols[-1]}")
+            rec["alias_probe"] = (err, 0.0, ms, pms, b_ms, b_by)
+        else:
+            check("K10", all(c[0] == 1.0 and max(c) <= 8.0 for c in cols),
+                  f"blocks mode {cols}")
+    return rec, launches
+
+
+SCIENCE_OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke_science")
+
+
+def science_phase(device, card):
+    """The port's science run at the 1M geometry (100^3 particles, 100
+    Mpc/h, 192^3 PM, capacity 8192) from z = 24 to z = 0 through
+    python -m lambda_cdm_tpu_torch.science_run's main, with the launch
+    counts reset just before and read just after; then --analyze-only on
+    the record it wrote, and K9 against its plain version on the run's
+    final state. Its certificate and record go to
+    chiprun_out/chip_smoke_science/. Returns the launch counts and K9's
+    numbers on that state."""
+    import torch
+    from lambda_cdm_tpu_torch import science_run
+    shutil.rmtree(SCIENCE_OUT, ignore_errors=True)
+    z_final = float(os.environ.get("LCDM_SCIENCE_ZFINAL", "0.0"))
+    reset_counts()
     t0 = time.perf_counter()
-    pe = float(potential_energy(pos, mass, box, 0.02))
-    t = time.perf_counter() - t0
-    print(f"energy: potential_energy at N={n} {t:.2f} s on {card} "
-          f"(PE {pe:.6e}); N^2 extrapolation to 1M: "
-          f"{t * (1e6 / n) ** 2:.0f} s a call")
-    check("energy", pe < 0 and pe == pe, "bad potential energy")
+    rc = science_run.main(["--out", SCIENCE_OUT])
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = read_counts()
+    with open(os.path.join(SCIENCE_OUT, "SCIENCE.json")) as f:
+        cert = json.load(f)
+    checks = cert["checks"]
+    bd = cert["step_breakdown"]
+    li = cert["layzer_irvine_samples"]
+    print(f"science run (1M, z={science_run.Z_INIT:g} -> {z_final:g}): "
+          f"rc {rc}, {cert['steps']} steps to a={cert['a_final']:.4f} in "
+          f"{t_run:.1f} s (evolve {cert['evolve_s']} s, "
+          f"{cert['ms_per_step_incl_analysis']} ms/step with observers; "
+          f"ICs {cert['ic_s']} s; analysis {cert['analysis_s']} s, FoF "
+          f"{cert['fof_s']} s; ledger {cert['li_wall_s']} s for {len(li)} "
+          f"samples) on {card}; launches {json.dumps(launches)}")
+    print(f"science Layzer-Irvine: " + "; ".join(
+        f"a={s['a']:.4f} T={s['T']:.4e} U={s['U']:.4e} "
+        f"resid={s['residual']:.3e}" for s in li))
+    print(f"science final-state breakdown: {json.dumps(bd)}")
+    print(f"science FoF at the final state: {json.dumps(cert['fof'])}; "
+          f"HMF {json.dumps(cert['hmf'])}")
+    for name, c in checks.items():
+        print(f"science check {name}: {c['value']} "
+              f"({ {True: 'PASS', False: 'FAIL', None: 'recorded'}[c['pass']]}"
+              f"; bar {c['bar']})")
+    for name in ("completed_to_target", "bucket_overflow",
+                 "dropped_deposits", "particles_conserved"):
+        check("science", checks[name]["pass"], f"{name}: {checks[name]}")
+    check("science", cert["config"]["n_particles"] == 1_000_000
+          and cert["config"]["pm_grid"] == 192, "not the 1M geometry")
+    check("science", all(launches[k] > 0 for k in (
+        "cic_deposit", "fd4_gather", "short_range", "fof_hook",
+        "pair_potential")), "a kernel of the path was not launched")
+    check("science", launches["pair_potential"] == len(li),
+          f"{launches['pair_potential']} K9 launches for {len(li)} ledger "
+          f"samples")
+    check("science", bd.get("variant") == "vpu5" and bd.get("ncell") == 16
+          and bd.get("capacity") == 8192, f"plan {bd}")
+    failed = [k for k, c in checks.items() if c["pass"] is False]
+    check("science", rc == 0 and not failed and cert["passed"],
+          f"failed checks {failed}")
+    t0 = time.perf_counter()
+    rc = science_run.main(["--analyze-only", "--out", SCIENCE_OUT])
+    with open(os.path.join(SCIENCE_OUT, "SCIENCE.json")) as f:
+        again = json.load(f)
+    print(f"[science --analyze-only: rc {rc}, "
+          f"{time.perf_counter() - t0:.1f} s]")
+    check("science --analyze-only", rc == 0 and again["passed"] and {
+        k: c["pass"] for k, c in again["checks"].items()} == {
+        k: c["pass"] for k, c in checks.items()}, "re-analysis differs")
+    # K9 against plain at the shape the ledger gives it: the run's final
+    # clustered 1M state (1e6 % THREADS = 64: a partial last tile)
+    final = science_run.load_record(os.path.join(SCIENCE_OUT,
+                                                 "science_record.npz"))
+    g = science_run.geometry(False)
+    k9 = pair_potential_check(
+        torch.from_numpy(final["pos_f"]).to(device),
+        torch.from_numpy(final["masses"]).to(device), g["box"],
+        g["softening"], "the science run's final clustered state", card)
+    return launches, k9
 
 
 def direct_inputs(n: int, box: float, seed: int, device):
@@ -2316,7 +2554,7 @@ def main() -> int:
     k5 = timed("K5 phase", fof_phase, device, card)
     launches = timed("CLI phase", cli_phase, device, card)
     timed("reference check", reference_check, device)
-    timed("energy timing", energy_timing, device, card)
+    timed("K9 phase", pair_potential_phase, device, card)
     k4 = timed("K4 phase", k4_phase, device, card)
     k4_launches = timed("direct_10k phase", direct_phase, device, card)
     stateless_ms = timed("stateless pm/treepm phase", stateless_phase, device,
@@ -2327,6 +2565,11 @@ def main() -> int:
     timed("pm_fast phase", pm_fast_phase, device, card,
           *stateless_ms[PM_CONFIG])
     timed("gradient phase", gradient_phase, cfg, device, card)
+    alias_rec, alias_launches = timed("K10 phase", alias_probe_phase, device,
+                                      card)
+    rec.update(alias_rec)
+    science_launches, rec["pair_potential"] = timed(
+        "science phase", science_phase, device, card)
 
     rec["fof_hook"] = (k5["max_abs_err"], 0.0, k5["ms"], k5["plain_ms"],
                        k5["bound_ms"], k5["bound_by"])
@@ -2363,18 +2606,26 @@ def main() -> int:
                    "lambda_cdm_tpu/ops/pallas_short_range.py:500"),
                "short_range_rd": (
                    "csrc/short_range_rd.cu",
-                   "lambda_cdm_tpu/ops/pallas_short_range_rd.py:238")}
+                   "lambda_cdm_tpu/ops/pallas_short_range_rd.py:238"),
+               # no TPU kernel: K9 replaces the XLA row-block scan of the
+               # JAX package's potential_energy
+               "pair_potential": ("csrc/direct.cu",
+                                  "lambda_cdm_tpu/forces/direct.py:96"),
+               "alias_probe": ("csrc/alias_probe.cu",
+                               "benchmarks/probe_alias.py:26")}
     # launches: K1-K3 and K5 on the CLI run of treepm_1m, K4 and K4s on
     # the direct_10k run (0 for K4s: no path of the port runs it; the JAX
     # package drives its kernel only from bench.py); K4 and K4s report
     # their v1 and sym variants; K6/K7 summed over the lensing paths 2-5;
     # K3's row-7 split forms on the row-7 path (phase 14), K8 on the
-    # row-13 path (phase 15). No single PyTorch call computes K1-K5's or
-    # K8's functions (library_ms null); K6/K7's yardstick is grid_sample
-    # on the wrapped, padded stack
+    # row-13 path (phase 15), K9 on the science run (its ledger samples),
+    # K10 on its own entry point (phase 19). No single PyTorch call
+    # computes K1-K5's or K8-K10's functions (library_ms null); K6/K7's
+    # yardstick is grid_sample on the wrapped, padded stack
     launches = dict(launches, direct=k4_launches["direct"],
                     direct_sym=k4_launches["direct_sym"], **lens_launches,
-                    **row7_launches, **rd_launches)
+                    **row7_launches, **rd_launches, **alias_launches,
+                    pair_potential=science_launches["pair_potential"])
     kernels = [{"name": name, "route": "cuda",
                 "source": f"lambda_cdm_tpu_torch/{src}", "replaces": rep,
                 "launches": launches[name], "max_abs_err": rec[name][0],

@@ -34,8 +34,9 @@ _log = logging.getLogger("lambda_cdm_tpu")
 # load) costs about as much as scanning this many of the cell's slots
 _BLOCK_VISIT_SLOTS = 8
 
-# the rounds the last fof_labels call took, and whether it converged
-last_fof = {"rounds": 0, "converged": True}
+# the rounds the last fof_labels call took, whether it converged, and the
+# particles it found beyond the cell capacity (adopted by their cell)
+last_fof = {"rounds": 0, "converged": True, "overflow": 0}
 
 
 @dataclasses.dataclass
@@ -222,7 +223,8 @@ def fof_labels(positions, box_size, linking_length, *, ncell: int,
             converged = True
             _log.info("fof: converged after %d rounds", rounds)
             break
-    last_fof.update(rounds=rounds, converged=converged)
+    last_fof.update(rounds=rounds, converged=converged,
+                    overflow=int(overflow))
     if not converged:
         _log.warning("fof: labels still changing after max_rounds=%d",
                      max_rounds)

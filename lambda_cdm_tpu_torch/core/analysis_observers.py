@@ -131,8 +131,8 @@ class HaloFinderObserver(Observer):
 
 class ConservationObserver(Observer):
     """Energy / momentum / angular-momentum tracking (io.diagnostics).
-    The energy is the O(N^2) pair sum of engine.compute_energy at every
-    call."""
+    The energy is the O(N^2) pair sum of engine.compute_energy (K9 on the
+    card) at every call."""
 
     def __init__(self, energy: bool = True, momentum: bool = True,
                  angular_momentum: bool = False, tolerance: float = 0.0):

@@ -114,6 +114,7 @@ class SimulationEngine:
         self._state: SimState | None = None
         self._fstate = None
         self._fast_kw: dict | None = None
+        self._fast_rebuild = False        # re-bucket at the next run/step
         self._acc = None                  # accelerations at state.positions
         self._accel_fn = None
         self._dt = None
@@ -352,6 +353,27 @@ class SimulationEngine:
             time=self._fstate.time.clone(),
             step=self._fstate.step.clone())
 
+    def release_force_state(self) -> None:
+        """Drop the fast stepper's bucket state (and its accelerations) to
+        free device memory for analysis; the next run() or step() rebuilds
+        it from `state`, which every chunk keeps in sync. The statistics
+        keep their totals; read the bucket state's overflow and drop
+        counters before releasing."""
+        if self._fstate is None:
+            return
+        self._fstate = None
+        self._acc = None
+        self._fast_since_rebucket = 0
+        self._fast_rebuild = True
+
+    def _maybe_rebuild_fast(self) -> None:
+        """Re-bucket `state` after a release_force_state(), once."""
+        if not self._fast_rebuild:
+            return
+        self._fast_rebuild = False
+        if self._fstate is None:
+            self._init_fast_path()
+
     # -- stateless solvers: a loop of the fused KDK step ---------------------
     def _ensure_acc(self) -> None:
         if self._acc is None and self._fstate is None:
@@ -392,6 +414,7 @@ class SimulationEngine:
         """Advance `num_steps` steps in one chunk."""
         if self.lifecycle == LifecycleState.UNINITIALIZED:
             raise RuntimeError("initialize() first")
+        self._maybe_rebuild_fast()
         self._chunk(num_steps)
         self.statistics.total_steps += num_steps
         return self._state
@@ -421,6 +444,7 @@ class SimulationEngine:
         chunks, until max_steps, final_redshift or final_time."""
         if self.lifecycle == LifecycleState.UNINITIALIZED:
             self.initialize()
+        self._maybe_rebuild_fast()
         cfg = self.config
         a_final = 1.0 / (1.0 + cfg.cosmology.final_redshift)
         max_steps = (num_steps if num_steps is not None
@@ -566,6 +590,7 @@ class SimulationEngine:
         self._state = None
         self._fstate = None
         self._fast_kw = None
+        self._fast_rebuild = False
         self._acc = None
         self._accel_fn = None
         self.statistics = SimulationStatistics()
@@ -573,8 +598,9 @@ class SimulationEngine:
 
     # -- diagnostics ---------------------------------------------------------
     def compute_energy(self) -> dict:
-        """KE, PE (the O(N^2) pair sum, plain PyTorch) and their total,
-        as 0-d tensors on the engine's device."""
+        """KE, PE (the O(N^2) pair sum: K9 on the card, its plain version
+        on the CPU) and their total, as 0-d tensors on the engine's
+        device."""
         from ..forces.direct import kinetic_energy, potential_energy
         cfg = self.config
         st = self.state

@@ -3,7 +3,8 @@ lambda_cdm_tpu/forces/direct.py): minimum-image displacements, the
 broadcast and row-blocked accelerations (the CPU path of the `direct`
 solver and the oracle of the tests and of validate_force_accuracy), and
 the kinetic and pairwise potential energies. On the card the `direct`
-solver runs the K4 kernel instead (ops/direct.py)."""
+solver runs the K4 kernel instead, and the potential energy K9
+(ops/direct.py)."""
 
 from __future__ import annotations
 
@@ -79,23 +80,13 @@ def potential_energy(positions, masses, box_size, softening=0.01,
                      g_const=1.0, chunk_size=2048):
     """Total pairwise potential energy
     U = -G/2 sum_{i != j} m_i m_j / sqrt(r_ij^2 + eps^2), minimum image,
-    in blocks of at most `chunk_size` rows (fewer where N is large, so a
-    block stays about 8M pairs); block sums accumulate in float64. Pairs
-    with r^2 <= eps^2 + 1e-30 (the self pair) are left out, as in the
-    JAX package."""
-    n = positions.shape[0]
-    rows = max(1, min(chunk_size, (1 << 23) // max(n, 1)))
-    soft2 = torch.tensor(softening, dtype=positions.dtype,
-                         device=positions.device) ** 2
-    total = torch.zeros((), dtype=torch.float64, device=positions.device)
-    for i0 in range(0, n, rows):
-        d = min_image(positions[None, :, :]
-                      - positions[i0:i0 + rows, None, :], box_size)
-        r2 = torch.sum(d * d, dim=-1) + soft2
-        inv_r = torch.where(r2 <= soft2 + 1e-30, 0.0, torch.rsqrt(r2))
-        pair = (masses[i0:i0 + rows, None] * masses[None, :]) * inv_r
-        total = total + torch.sum(pair, dtype=torch.float64)
-    return (-0.5 * g_const * total).to(positions.dtype)
+    pairs with r^2 <= eps^2 + 1e-30 (the self pair) left out, as in the
+    JAX package; summed in float64 and returned in the positions' dtype.
+    CUDA tensors launch K9 (ops/direct.pair_potential), CPU tensors take
+    its plain version in row blocks of at most `chunk_size`."""
+    from ..ops.direct import pair_potential
+    return pair_potential(positions, masses, box_size, softening, g_const,
+                          chunk_size).to(positions.dtype)
 
 
 def kinetic_energy(velocities, masses):

@@ -50,6 +50,8 @@ _SIGNATURES = {
     "lcdm_direct": [_P, _P, _I, _I, _I, _F, _F, _F, _P],
     "lcdm_direct_sym": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
     "lcdm_lens_sample": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "lcdm_pair_potential": [_P, _P, _I, _F, _F, _F, _P],
+    "lcdm_alias_probe": [_P, _I, _I, _I, _P],
 }
 
 
@@ -136,6 +138,22 @@ def launch(name: str, *args) -> None:
     err = getattr(library(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean device milliseconds a call of fn() on the current stream
+    (CUDA events around `reps` calls, after `warmup` calls)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def require_cuda(name: str, *tensors, dtypes=None) -> None:

@@ -1,6 +1,8 @@
-"""K4 and K4s: the softened minimum-image O(N^2) direct sum -- the CUDA
-kernels csrc/direct.cu with their plain PyTorch versions (counterpart of
-lambda_cdm_tpu/ops/pallas_direct.py).
+"""K4 and K4s: the softened minimum-image O(N^2) direct sum, and K9: the
+pair sum of the potential energy -- the CUDA kernels csrc/direct.cu with
+their plain PyTorch versions (K4/K4s are the counterpart of
+lambda_cdm_tpu/ops/pallas_direct.py; K9 replaces the XLA row-block scan of
+lambda_cdm_tpu/forces/direct.potential_energy).
 
 For every particle i:
     a_i = G sum_j m_j (r^2)^(-3/2) d,  d = x_j - x_i (minimum image),
@@ -34,7 +36,7 @@ THREADS = 128     # i particles per block of K4 (kThreads in direct.cu)
 SYM_TILE = 256    # tile edge of K4s (kSymTile in direct.cu)
 VARIANTS = ("v1", "v2", "sym", "sym2")
 
-launches = {"direct": 0, "direct_sym": 0}
+launches = {"direct": 0, "direct_sym": 0, "pair_potential": 0}
 
 
 def reset_launch_counts() -> None:
@@ -151,3 +153,60 @@ def pairwise_accelerations(positions, masses, box_size, softening=0.01,
                       colpart.data_ptr(), out.data_ptr(), n, ntiles,
                       int(bool(periodic)), box, soft2, oscale)
     return out
+
+
+def _soft2_thr(softening):
+    """(eps^2, eps^2 + 1e-30) as float32 numbers, rounded as the plain
+    version rounds them."""
+    soft2 = torch.tensor(softening, dtype=torch.float32) ** 2
+    return float(soft2), float(soft2 + 1e-30)
+
+
+def pair_potential_plain(positions, masses, box_size, softening=0.01,
+                         g_const=1.0, chunk_size=2048):
+    """Plain PyTorch K9: U = -G/2 sum_{i != j} m_i m_j / sqrt(r_ij^2 +
+    eps^2), minimum image, as a 0-d float64 tensor; blocks of at most
+    `chunk_size` rows (fewer where N is large, so a block stays about 8M
+    pairs), block sums accumulated in float64. Pairs with r^2 <= eps^2 +
+    1e-30 (the self pair) are left out, as in the JAX package."""
+    n = positions.shape[0]
+    rows = max(1, min(chunk_size, (1 << 23) // max(n, 1)))
+    soft2 = torch.tensor(softening, dtype=positions.dtype,
+                         device=positions.device) ** 2
+    total = torch.zeros((), dtype=torch.float64, device=positions.device)
+    for i0 in range(0, n, rows):
+        d = min_image(positions[None, :, :]
+                      - positions[i0:i0 + rows, None, :], box_size)
+        r2 = torch.sum(d * d, dim=-1) + soft2
+        inv_r = torch.where(r2 <= soft2 + 1e-30, 0.0, torch.rsqrt(r2))
+        pair = (masses[i0:i0 + rows, None] * masses[None, :]) * inv_r
+        total = total + torch.sum(pair, dtype=torch.float64)
+    return -0.5 * float(g_const) * total
+
+
+def pair_potential(positions, masses, box_size, softening=0.01, g_const=1.0,
+                   chunk_size=2048):
+    """The pairwise potential energy (see pair_potential_plain) as a 0-d
+    float64 tensor. CUDA tensors launch K9 (csrc/direct.cu), which
+    computes the function that lambda_cdm_tpu/forces/direct.potential_energy
+    leaves to XLA; CPU tensors take pair_potential_plain (`chunk_size`
+    sets its row blocks). Deterministic: per-block float64 partials, no
+    atomics."""
+    if positions.device.type == "cpu":
+        return pair_potential_plain(positions, masses, box_size, softening,
+                                    g_const, chunk_size)
+    n = positions.shape[0]
+    if tuple(positions.shape) != (n, 3) or tuple(masses.shape) != (n,):
+        raise ValueError(f"positions must be [N, 3] and masses [N], got "
+                         f"{tuple(positions.shape)} and "
+                         f"{tuple(masses.shape)}")
+    pts = torch.cat([positions.to(torch.float32),
+                     masses.to(torch.float32)[:, None]], dim=1).contiguous()
+    cuda_build.require_cuda("pair_potential", pts)
+    partial = torch.empty(((n + THREADS - 1) // THREADS,),
+                          dtype=torch.float64, device=pts.device)
+    soft2, thr = _soft2_thr(softening)
+    launches["pair_potential"] += 1
+    cuda_build.launch("lcdm_pair_potential", pts.data_ptr(),
+                      partial.data_ptr(), n, float(box_size), soft2, thr)
+    return -0.5 * float(g_const) * torch.sum(partial)

@@ -11,6 +11,7 @@ two agree to float32 round-off.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -121,6 +122,50 @@ def growth_factor(params: CosmologyParams, a):
 def growth_rate(params: CosmologyParams, a):
     """f(a) = dlnD/dlna ~= Omega_m(a)^0.55."""
     return omega_m_a(params, a) ** 0.55
+
+
+def growth_factor_exact(params: CosmologyParams, a, *, n_steps: int = 256):
+    """ODE-exact linear growth factor, D(1) = 1: the growth ODE in x = ln a,
+        D'' + (2 + dlnH/dlna) D' = (3/2) Omega_m(a) D,
+    from D = D' = a at a = 1e-3 by fixed-step RK4 in float32, as the JAX
+    package integrates it, interpolated in ln a (on the CPU; the result
+    goes to a's device)."""
+    a = as_f32(a)
+    x0 = as_f32(math.log(1e-3))
+    x1 = torch.log(torch.clamp(torch.max(a.cpu()), min=1.0))
+    dx = (x1 - x0) / n_steps
+
+    def dlnh_dlna(x):
+        aa = torch.exp(x)
+        de2 = (-4.0 * params.omega_r * aa ** -4
+               - 3.0 * params.omega_m * aa ** -3
+               - 2.0 * params.omega_k * aa ** -2
+               + params.omega_lambda * (
+                   de_density_evolution(params, aa)
+                   * (-3.0 * (1.0 + params.w0 + params.wa)
+                      + 3.0 * params.wa * aa)))
+        return 0.5 * de2 / e2_function(params, aa)
+
+    def rhs(x, state):
+        d, dp = state[0], state[1]
+        om = omega_m_a(params, torch.exp(x))
+        return torch.stack([dp, 1.5 * om * d - (2.0 + dlnh_dlna(x)) * dp])
+
+    state = torch.stack([torch.exp(x0), torch.exp(x0)])
+    d_grid = []
+    for i in range(n_steps):
+        x = x0 + dx * i
+        k1 = rhs(x, state)
+        k2 = rhs(x + dx / 2, state + dx / 2 * k1)
+        k3 = rhs(x + dx / 2, state + dx / 2 * k2)
+        k4 = rhs(x + dx, state + dx * k3)
+        state = state + dx / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
+        d_grid.append(state[0])
+    d_grid = torch.stack(d_grid)
+    grid_x = x0 + dx * (1 + torch.arange(n_steps, dtype=torch.float32))
+    d_at = _interp(torch.log(a.cpu()).reshape(-1), grid_x, d_grid)
+    d_one = _interp(torch.zeros(1), grid_x, d_grid)
+    return (d_at / d_one).reshape(a.shape).to(a.device)
 
 
 def _gauss_legendre(n: int):

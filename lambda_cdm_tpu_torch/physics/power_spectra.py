@@ -1,7 +1,6 @@
 """Linear matter power spectra in PyTorch (counterpart of
 lambda_cdm_tpu/physics/power_spectra.py): the BBKS and Eisenstein-Hu
-transfer functions, sigma8 normalization and P(k, z) -- what the initial
-conditions need.
+transfer functions, sigma8 normalization, sigma(R) and P(k, z).
 
 Conventions: k in h/Mpc, P(k) in (Mpc/h)^3, R in Mpc/h. Scalar
 constants are Python floats; k-dependent terms are float32 tensors.
@@ -131,22 +130,34 @@ def _tophat_window(x):
 
 def _sigma2_unnormalized(params: CosmologyParams, r, transfer):
     """(1/2pi^2) int k^2 k^ns T^2 W^2 dk, 128-point Gauss-Legendre in
-    ln k, in float32 as in the JAX package."""
+    ln k, in float32 as in the JAX package; `r` a number or a tensor of
+    radii (the result has its shape, on its device)."""
+    r = as_f32(r)
     ln_lo = math.log(1e-5)
     ln_hi = math.log(1e3)
     mid = as_f32(0.5 * (ln_hi + ln_lo))
     half = as_f32(0.5 * (ln_hi - ln_lo))
-    lnk = mid + half * _GL_X
+    lnk = (mid + half * _GL_X).to(r.device)
     k = torch.exp(lnk)
     t = transfer(params, k)
-    integrand = k ** (3.0 + params.n_s) * t * t * _tophat_window(k * r) ** 2
-    return half * torch.sum(_GL_W * integrand) / (2.0 * math.pi ** 2)
+    integrand = (k ** (3.0 + params.n_s) * t * t
+                 * _tophat_window(k * r[..., None]) ** 2)
+    return half.to(r.device) * torch.sum(_GL_W.to(r.device) * integrand,
+                                         dim=-1) / (2.0 * math.pi ** 2)
 
 
 def sigma8_normalization(params: CosmologyParams, transfer=eh98_transfer):
     """Amplitude A such that sigma(R=8 Mpc/h) = params.sigma8 with
     P(k) = A k^ns T(k)^2 (a float32 tensor on the CPU)."""
     return params.sigma8 ** 2 / _sigma2_unnormalized(params, 8.0, transfer)
+
+
+def sigma_r(params: CosmologyParams, r, transfer=eh98_transfer):
+    """RMS linear density fluctuation in top-hat spheres of radius R
+    [Mpc/h] at z = 0, on r's device (a 0-d tensor for one radius)."""
+    r = as_f32(r)
+    amp = sigma8_normalization(params, transfer).to(r.device)
+    return torch.sqrt(amp * _sigma2_unnormalized(params, r, transfer))
 
 
 def linear_power(params: CosmologyParams, k, z=0.0,

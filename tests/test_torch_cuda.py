@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
 (K1 CIC deposit, K2 fd4 gather, K3 short-range pairs in each split form,
 K4/K4s direct sums, K5 FoF hook, K6/K7 lens samplers, K8 rod-dense
-pairs), and the treepm_fast stepper,
+pairs, K9 pair potential, K10 alias probe), and the treepm_fast stepper,
 fof_labels, the `direct` solver and the lensing trace on the card against
 the same runs on the CPU. These need a CUDA
 card and nvcc; elsewhere they skip:
@@ -19,8 +19,9 @@ from _torch_parity import clustered_particles, cuda_device, \
     half_box_lattice, tt, uniform_particles  # noqa: F401  (a fixture)
 
 from lambda_cdm_tpu_torch.analysis import halo_finder
-from lambda_cdm_tpu_torch.ops import direct, fast_treepm, fof_hook, \
-    lens_sample, pm_rods, short_range, short_range_rd
+from lambda_cdm_tpu_torch.forces.direct import potential_energy
+from lambda_cdm_tpu_torch.ops import alias_probe, direct, fast_treepm, \
+    fof_hook, lens_sample, pm_rods, short_range, short_range_rd
 from lambda_cdm_tpu_torch.ops.bucketed_pm import live_counts
 from lambda_cdm_tpu_torch.physics.cosmology import CosmologyParams
 
@@ -335,6 +336,58 @@ def test_direct_kernel_half_box_image(cuda_device, variant):
     ref = direct.pairwise_accelerations_plain(tt(pos), tt(m), box, 0.1,
                                               variant=variant)
     assert _rel(got.cpu(), ref) < DIRECT_TOL
+
+
+@pytest.mark.parametrize("n", [1, 200, 333, 5000])
+def test_pair_potential_kernel(cuda_device, n):
+    """K9 against its plain version at 1e-6 (float32 pair terms, float64
+    sums in another order), the same U from two calls, one launch each;
+    potential_energy routes CUDA tensors to K9."""
+    box = 20.0
+    p, mm = uniform_particles(n, box, n)
+    p, mm = tt(p).to(cuda_device), tt(mm).to(cuda_device)
+    before = direct.launches["pair_potential"]
+    got = direct.pair_potential(p, mm, box, 0.05, 2.0)
+    again = direct.pair_potential(p, mm, box, 0.05, 2.0)
+    assert direct.launches["pair_potential"] == before + 2
+    assert got.dtype == torch.float64 and float(got) == float(again)
+    ref = direct.pair_potential_plain(p, mm, box, 0.05, 2.0)
+    assert abs(float(got) - float(ref)) <= 1e-6 * max(abs(float(ref)),
+                                                      1e-300)
+    pe = potential_energy(p, mm, box, 0.05, 2.0)
+    assert direct.launches["pair_potential"] == before + 3
+    assert pe.dtype == torch.float32 and float(pe) == float(
+        got.to(torch.float32))
+
+
+def test_pair_potential_half_box_image(cuda_device):
+    """Pairs one ulp past half a box apart: K9 takes the image of the
+    true quotient, as its plain version does."""
+    pos, m, flips = half_box_lattice(50.0, seed=3, side=16)
+    assert flips > 0
+    p, mm = tt(pos).to(cuda_device), tt(m).to(cuda_device)
+    got = float(direct.pair_potential(p, mm, 50.0, 0.05))
+    ref = float(direct.pair_potential_plain(p, mm, 50.0, 0.05))
+    assert abs(got - ref) <= 1e-6 * abs(ref)
+
+
+def test_alias_probe_kernel(cuda_device):
+    """K10: the sequential mode gives 1..8 in column 0 (and in every
+    column); the blocks mode runs, whatever order the card gives it:
+    row 0 reads itself, so it is 1, and no row exceeds 8."""
+    before = alias_probe.launches["alias_probe"]
+    x = alias_probe.alias_probe(torch.zeros((8, 128), device=cuda_device),
+                                "sequential")
+    ref = alias_probe.alias_probe_plain(torch.zeros((8, 128)), True)
+    torch.cuda.synchronize()
+    assert torch.equal(x.cpu(), ref)
+    assert x[:, 0].tolist() == [float(i) for i in range(1, 9)]
+    y = alias_probe.alias_probe(torch.zeros((8, 128), device=cuda_device),
+                                "blocks")
+    torch.cuda.synchronize()
+    assert alias_probe.launches["alias_probe"] == before + 2
+    assert float(y[0, 0]) == 1.0 and float(y.max()) <= 8.0
+    assert float(y.min()) >= 1.0
 
 
 def test_direct_solver_on_card(cuda_device):

@@ -1,8 +1,9 @@
 """The direct O(N^2) sums of the PyTorch port against the JAX package: the
 broadcast and row-blocked accelerations (the CPU path and the oracle of
-the `direct` solver), and the plain versions of the K4/K4s kernels
+the `direct` solver), the plain versions of the K4/K4s kernels
 (variants v1, v2, sym, sym2) against pallas_direct_accelerations run in
-interpret mode, as the JAX package's own tests run it."""
+interpret mode, as the JAX package's own tests run it, and the pairwise
+potential energy (K9's plain version) against the JAX package's."""
 
 import numpy as np
 import pytest
@@ -194,3 +195,46 @@ def test_kernel_wrapper_never_falls_back(variant):
     pos, m = uniform_particles(64, 10.0, seed=2)
     tops.pairwise_accelerations(tt(pos), tt(m), 10.0, 0.1, variant=variant)
     assert tops.launches == before
+
+
+# -- the pairwise potential energy (K9's plain version) -----------------------
+
+@pytest.mark.parametrize("box,soft", [(20.0, 0.05), (50.0, 0.05),
+                                      (50.0, 0.5)])
+def test_potential_energy_half_box_lattice(box, soft):
+    """N = 4096 on a jittered lattice: at box 50 its middle layer sits one
+    ulp past half a box from layer 0 (131,072 pairs whose image depends on
+    the rounding of the quotient); both packages take the true quotient.
+    Float32 pair terms summed in another order (the JAX package in
+    float32, the port in float64): measured <= 1.9e-7."""
+    pos, m, flips = half_box_lattice(box, seed=3, side=16)
+    assert len(pos) == 4096 and (flips > 0) == (box == 50.0)
+    ref = float(jdirect.potential_energy(*_jx(pos, m), box, soft, 43.0071))
+    got = tdirect.potential_energy(tt(pos), tt(m), box, soft, 43.0071)
+    assert got.dtype == torch.float32 and got.shape == ()
+    assert abs(float(got) - ref) <= TOL * abs(ref)
+
+
+def test_potential_energy_uniform_and_chunks():
+    """Uniform masses in (0.5, 2): the JAX value at 1e-5 for two row
+    blockings; K9's plain version returns the float64 sum that
+    potential_energy rounds, and counts no launch on the CPU."""
+    pos, m = uniform_particles(4096, 20.0, seed=7)
+    ref = float(jdirect.potential_energy(*_jx(pos, m), 20.0, 0.05, 1.0))
+    before = dict(tops.launches)
+    for chunk in (2048, 300):
+        got = tops.pair_potential(tt(pos), tt(m), 20.0, 0.05, 1.0,
+                                  chunk_size=chunk)
+        assert got.dtype == torch.float64 and got.shape == ()
+        assert abs(float(got) - ref) <= TOL * abs(ref)
+        assert float(tdirect.potential_energy(
+            tt(pos), tt(m), 20.0, 0.05, 1.0, chunk_size=chunk)) == \
+            float(got.to(torch.float32))
+    assert tops.launches == before
+
+
+def test_pair_potential_wrapper_never_falls_back():
+    """A tensor neither on the CPU nor on a card raises."""
+    meta = torch.zeros((64, 3), device="meta")
+    with pytest.raises(ValueError, match="cuda"):
+        tops.pair_potential(meta, torch.ones(64, device="meta"), 10.0, 0.1)

@@ -162,7 +162,8 @@ def test_kernel_build_needs_the_cuda_toolkit(monkeypatch):
     assert path.startswith(cuda_build.BUILD_DIR)
     assert path == cuda_build.library_path()
     srcs = [os.path.basename(s) for s in cuda_build._sources()]
-    assert srcs == ["cic_deposit.cu", "direct.cu", "fd4_gather.cu",
+    assert srcs == ["alias_probe.cu", "cic_deposit.cu", "direct.cu",
+                    "fd4_gather.cu",
                     "fof_hook.cu", "lens_sample.cu", "short_range.cu",
                     "short_range_rd.cu"]
     monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
