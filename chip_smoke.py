@@ -14,7 +14,9 @@ fatal on failure and each printing its seconds:
      (CIC deposit), K2 (fd4 gather) and K3 (short-range pairs) and their
      plain PyTorch versions on the same inputs, hold each kernel against
      its plain version and time both with CUDA events; K3 again on a
-     clustered state whose largest cell holds several thousand particles;
+     clustered state whose largest cell holds several thousand particles
+     (half the sampled rows from it); K3's plan of units built on the card
+     against its plain version on both states;
   3. stepper path: reset the launch counters, build the engine from
      treepm_1m.json through SimulationBuilder (2LPT ICs from a seeded
      torch.Generator) and run 32 steps; K1-K3 must have launched,
@@ -51,8 +53,10 @@ fatal on failure and each printing its seconds:
      the card against the same run on the CPU (the kernels' plain
      versions) from one initial state;
   8. K9 phase: pair_potential (the potential energy's pair sum) against
-     its plain version at 131,072 particles, two calls equal bit for bit,
-     timed; K9 alone on 1M uniform particles; the bound counts the
+     its plain version at 131,072 particles, on a 32^3 lattice whose
+     middle layer sits one ulp past half a box and on coincident particles
+     at softening 0, two calls equal bit for bit, timed; K9 alone on 1M
+     uniform particles; the bound counts the
      n(n-1)/2 unordered pairs the sum needs;
   9. K4 phase: 100,000 particles uniform in a 100 Mpc/h box (unit
      masses, softening 0.05: the JAX package's bench.py direct figure),
@@ -117,13 +121,16 @@ Then this slice's paths:
      the 1M geometry (100^3 particles, 100 Mpc/h, 192^3 PM, buckets of
      capacity 8192 on 16^3 cells) from z = 24 to z = 0: 2LPT ICs, the
      treepm_fast run with adaptive dt, P(k) at every chunk, the
-     Layzer-Irvine ledger through K9, the final-state step breakdown, the
-     FoF/SO catalogue with the HMF against Sheth-Tormen and the Born map;
+     Layzer-Irvine ledger through K9, K3 timed on the initial buckets
+     (z = 24) and the final-state step breakdown, the FoF/SO catalogue
+     with the HMF against Sheth-Tormen and the Born map;
      K1-K3, K5 and K9 must have launched, overflow and drops 0, every
      check of its certificate must pass; then --analyze-only on the
      record (certificate and record in chiprun_out/chip_smoke_science/),
-     and K9 against its plain version on the run's final 1M state (the
-     kernels line's K9 numbers).
+     K9 against its plain version on the run's final 1M state (the
+     kernels line's K9 numbers), and K3 against its plain version on that
+     state bucketed by the run's plan (half the sampled rows from the
+     fullest cell), with its plan against the plain one.
 
 The CLI phase also validates the treepm_1m state's forces through the
 stateless treepm solver.
@@ -241,11 +248,9 @@ def stencil_pairs(counts, ncell: int) -> float:
     """Pair tests of a 27-cell stencil sweep over live slots: sum over
     cells of n_c times the live slots of its 27 periodic neighbours."""
     import torch
-    c3 = counts.reshape(ncell, ncell, ncell).double()
-    nbr = c3
-    for ax in range(3):
-        nbr = nbr + torch.roll(nbr, 1, ax) + torch.roll(nbr, -1, ax)
-    return float((c3 * nbr).sum())
+    from lambda_cdm_tpu_torch.ops.short_range import neighbour_load
+    return float((counts.to(torch.float64)
+                  * neighbour_load(counts, ncell)).sum())
 
 
 def _counted():
@@ -362,6 +367,7 @@ def kernel_phase(fs, kw, device, card):
     print(f"K3 short_range (main-path state, {rows} rows): max_abs_err "
           f"{err:.3e} (rel {rel:.3e}, tol {TOL['short_range']:g})")
     check("K3", rel <= TOL["short_range"], f"rel err {rel} > tol", failures)
+    plan_check(counts, ncell, "main-path state")
     ms = cuda_ms(lambda: short_range.short_range(fs.bpos, fs.bmass, counts,
                                                  **sr), 20)
     pms = cuda_ms(lambda: short_range.short_range_plain(
@@ -381,6 +387,7 @@ def kernel_phase(fs, kw, device, card):
           f"{cms:.3f} ms on {card}")
     check("K3 clustered", crel <= TOL["short_range"],
           f"rel err {crel} > tol", failures)
+    plan_check(ccounts, ncell, "clustered state")
     for name, (e, r, k_ms, p_ms, b_ms, b_by) in rec.items():
         print(f"{name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}) at the 1M/192^3 plan (ncell {ncell}, "
@@ -419,6 +426,26 @@ def k3_compare(bpos, bmass, counts, sr, n_rows, seed, heavy=False):
     got = out.reshape(3, -1)[:, rows]
     err, rel = rel_err(got, ref)
     return err, rel, rows.numel()
+
+
+def plan_check(counts, ncell: int, label: str) -> None:
+    """K3's plan built on the card against its plain version (header,
+    classes, the order of the non-empty cells and their first units equal),
+    with the unit sizes it gives."""
+    import torch
+    from lambda_cdm_tpu_torch.ops import short_range
+    plan = short_range.unit_plan(counts, ncell).cpu()
+    ref = short_range.unit_plan_plain(counts.cpu(), ncell)
+    n_live, base = int(ref[1]), short_range.PLAN_HEADER + ncell ** 3
+    same = all(torch.equal(plan[lo:hi], ref[lo:hi]) for lo, hi in (
+        (0, base + n_live), (base + ncell ** 3, base + ncell ** 3 + n_live)))
+    units = short_range.plan_units(plan, counts, ncell)
+    print(f"K3 plan ({label}): {int(plan[2])} units of at most "
+          f"{int(units[:, 2].max())} rows over {n_live} non-empty cells "
+          f"(fullest {int(counts.max())} rows); card plan equal to plain "
+          f"{same}")
+    check(f"K3 plan ({label})", same and int(units[:, 2].max())
+          <= short_range.UNIT_ROWS, "card plan differs from plain")
 
 
 def clustered_state(kw, device, n=1_000_000, n_clump=10_000):
@@ -931,12 +958,26 @@ PAIR_POTENTIAL_SIZES = ((131_072, 0.02), (1_000_000, 0.1))
 def pair_potential_bound(n: int) -> tuple[float, str]:
     """K9's bound: each position and mass read once, the per-block
     partials written once, and the n(n-1)/2 unordered pair terms the
-    symmetric sum needs (the kernel as written evaluates all n(n-1)
-    ordered pairs, twice that)."""
+    sum needs at PAIR_POTENTIAL_FLOPS each (the work, whatever the
+    kernel does per pair)."""
     from lambda_cdm_tpu_torch.ops import direct
-    return bound(16.0 * n + 8.0 * ((n + direct.THREADS - 1)
-                                   // direct.THREADS),
+    return bound(16.0 * n + 8.0 * direct.pair_schedule(n)[0].numel(),
                  PAIR_POTENTIAL_FLOPS * float(n) * (n - 1) / 2)
+
+
+def half_box_lattice(box: float, side: int):
+    """side^3 unit masses on a lattice, jittered in y and z (numpy, seed
+    3), whose middle x layer sits one ulp past half a box from layer 0:
+    pairs whose image d * (1/box) and d / box round apart."""
+    import numpy as np
+    g = np.arange(side, dtype=np.float32) * np.float32(box / side)
+    pos = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    rng = np.random.default_rng(3)
+    pos[:, 1:] = np.mod(pos[:, 1:] + rng.uniform(-0.3, 0.3, (len(pos), 2)),
+                        box)
+    half = np.float32(box / 2)
+    pos[pos[:, 0] == half, 0] = np.nextafter(half, np.float32(box))
+    return pos.astype(np.float32), np.ones(len(pos), np.float32)
 
 
 def pair_potential_check(pos, mass, box, soft, label, card, reps=1):
@@ -966,8 +1007,7 @@ def pair_potential_check(pos, mass, box, soft, label, card, reps=1):
           f"{err:.3e} (rel {rel:.3e}, tol {PAIR_POTENTIAL_TOL:g}), two "
           f"calls equal {same}; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
           f"bound {b_ms:.4f} ms ({b_by}, {float(n) * (n - 1) / 2:.4e} "
-          f"unordered pairs; the kernel evaluates {float(n) * (n - 1):.4e}"
-          f" ordered ones) on {card}")
+          f"unordered pairs, each evaluated once) on {card}")
     check("K9", same, f"two calls on {label} differ: {float(u1)!r} "
           f"{float(u2)!r}")
     check("K9", pe < 0 and math.isfinite(pe) and pe == float(
@@ -978,9 +1018,11 @@ def pair_potential_check(pos, mass, box, soft, label, card, reps=1):
 
 def pair_potential_phase(device, card):
     """K9 (pair_potential) against its plain version at 131,072 particles
-    uniform in 100 Mpc/h (softening 0.02), two calls bit for bit equal,
-    timed beside it; K9 alone on 1M uniform particles (softening 0.1,
-    the science run's), with the bound at both."""
+    uniform in 100 Mpc/h (softening 0.02), on a 32^3 half-box lattice in
+    50 Mpc/h and on 16,384 particles at softening 0 with 4096 coincident
+    pairs, two calls bit for bit equal, timed beside it; K9 alone on
+    1M uniform particles (softening 0.1, the science run's), with the
+    bound at both."""
     import torch
     from lambda_cdm_tpu_torch.ops import direct
     from lambda_cdm_tpu_torch.forces.direct import potential_energy
@@ -990,6 +1032,16 @@ def pair_potential_phase(device, card):
     pos = torch.rand((n, 3), generator=gen, device=device) * box
     pair_potential_check(pos, torch.ones(n, device=device), box, soft,
                          "uniform particles", card, reps=3)
+    lat, lm = half_box_lattice(50.0, 32)
+    pair_potential_check(torch.from_numpy(lat).to(device),
+                         torch.from_numpy(lm).to(device), 50.0, soft,
+                         "the half-box lattice", card)
+    # softening 0 with a quarter of the particles doubled: the self pairs
+    # and the coincident pairs have r^2 = 0 and are left out
+    pos = torch.rand((16_384, 3), generator=gen, device=device) * box
+    pos[8192:12_288] = pos[:4096]
+    pair_potential_check(pos, torch.ones(16_384, device=device), box, 0.0,
+                         "coincident particles at softening 0", card)
     n, soft = PAIR_POTENTIAL_SIZES[1]
     pos = torch.rand((n, 3), generator=gen, device=device) * box
     mass = torch.ones(n, device=device)
@@ -1103,7 +1155,8 @@ def science_phase(device, card):
     print(f"science Layzer-Irvine: " + "; ".join(
         f"a={s['a']:.4f} T={s['T']:.4e} U={s['U']:.4e} "
         f"resid={s['residual']:.3e}" for s in li))
-    print(f"science final-state breakdown: {json.dumps(bd)}")
+    print(f"science final-state breakdown (K3 at z = {science_run.Z_INIT:g} "
+          f"under 'initial'): {json.dumps(bd)}")
     print(f"science FoF at the final state: {json.dumps(cert['fof'])}; "
           f"HMF {json.dumps(cert['hmf'])}")
     for name, c in checks.items():
@@ -1144,7 +1197,38 @@ def science_phase(device, card):
         torch.from_numpy(final["pos_f"]).to(device),
         torch.from_numpy(final["masses"]).to(device), g["box"],
         g["softening"], "the science run's final clustered state", card)
+    science_k3_check(final, g, device, card)
     return launches, k9
+
+
+def science_k3_check(final, g, device, card):
+    """K3 against its plain version on the science run's final state,
+    bucketed afresh by the run's own engine plan (ncell 16, capacity 8192,
+    vpu5; particles past a full cell's capacity are left out and counted),
+    on 4096 sampled live rows, half of them from the fullest cell; the
+    card's plan against its plain version."""
+    import torch
+    from lambda_cdm_tpu_torch import science_run
+    from lambda_cdm_tpu_torch.ops.bucketed_pm import live_counts
+    eng = science_run.plan_engine(
+        g, *(torch.from_numpy(final[k]).to(device) for k in
+             ("pos_f", "vel_f", "masses")), float(final["a_f"]), device)
+    fs, kw = eng._fstate, eng._fast_kw
+    counts = live_counts(fs.bmass)
+    sr = {k: kw[k] for k in ("ncell", "capacity", "box_size", "rs",
+                             "softening", "variant")}
+    err, rel, rows = k3_compare(fs.bpos, fs.bmass, counts, sr, 4096, seed=9,
+                                heavy=True)
+    plan_check(counts, kw["ncell"], "science run's final state")
+    timing = science_run.short_range_timing(eng)
+    print(f"K3 short_range (science run's final state: ncell {kw['ncell']}"
+          f", capacity {kw['capacity']}, {kw['variant']}, fullest cell "
+          f"{int(counts.max())}, {int(fs.overflow)} particles past capacity "
+          f"left out by bucketing the final positions afresh, {rows} rows, "
+          f"half from the fullest cell): "
+          f"max_abs_err {err:.3e} (rel {rel:.3e}, tol "
+          f"{TOL['short_range']:g}); {json.dumps(timing)} on {card}")
+    check("K3 science", rel <= TOL["short_range"], f"rel err {rel} > tol")
 
 
 def direct_inputs(n: int, box: float, seed: int, device):
@@ -2517,12 +2601,12 @@ def main() -> int:
     try:
         from lambda_cdm_tpu_torch.core.config import SimulationConfig
         from lambda_cdm_tpu_torch.ops import cuda_build
+        from lambda_cdm_tpu_torch.utils.precision import disable_tf32
     except ImportError as exc:
         print(f"chip_smoke: run from a checkout of the repository ({exc})",
               file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    disable_tf32()
     device = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card} ({torch.cuda.get_device_name(0)}, torch "

@@ -209,7 +209,10 @@ COMMANDS = {"run": cmd_run, "resume": cmd_resume, "info": cmd_info,
 
 def main(argv=None, device="cuda") -> int:
     """Run one command; `device` is where the particles live ("cuda" by
-    default, "cpu" for the kernels' plain versions)."""
+    default, "cpu" for the kernels' plain versions). TF32 is turned off
+    first."""
+    from .utils.precision import disable_tf32
+    disable_tf32()
     argv = sys.argv[1:] if argv is None else list(argv)
     if not argv or argv[0] in ("-h", "--help"):
         print(__doc__)

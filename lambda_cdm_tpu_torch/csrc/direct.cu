@@ -59,20 +59,41 @@
 // JAX package leaves to XLA (lambda_cdm_tpu/forces/direct.py
 // potential_energy, a lax.scan over row blocks; no TPU kernel):
 //
-//   S = sum_i sum_{j != i} m_i m_j (r^2)^(-1/2),  r^2 = |d|^2 + eps^2,
+//   S = sum_{i < j} m_i m_j (r^2)^(-1/2),  r^2 = |d|^2 + eps^2,
 //
-// with K4's image of the true quotient; pairs with r^2 <= eps^2 + 1e-30
-// (the self pair) are left out, as the plain version leaves them. The
-// wrapper returns U = -G S / 2. Design: K4's, one thread per i row and j
-// tiles of kThreads float4 in shared memory; a tile's terms are summed in
-// float32 and added to the thread's float64 total, the block's totals
-// reduced in float64 through shared memory in a fixed order, one
-// partial a block; the wrapper adds the partials with one torch.sum. No
-// atomics: two calls on one state give the same S bit for bit (the
-// Layzer-Irvine ledger differences U between samples). Bound: operations,
-// about 20 float operations and one rsqrt per ordered pair (1e12 pairs at
-// 1M particles: about 0.3 s at 67 TFLOP/s); using the pair symmetry to
-// halve them is a later redesign.
+// pairs with r^2 <= eps^2 + 1e-30 (the self pair) left out, as the plain
+// version leaves them; the wrapper returns U = -G S. Design:
+//
+// * Each unordered pair once. Tiles of kPairTile particles, P of them,
+//   made odd; one block per (p, k), k = 0..(P-1)/2, sums tile p against
+//   tile q = (p + k) mod P, which covers every unordered tile pair once
+//   (K4s's half-matrix wrap). The diagonal block (k = 0) takes j > i.
+//   There is nothing to scatter back to j, so the symmetric form costs no
+//   partials beyond one number a block.
+// * No rounding on the 16/clk pipe. d / box rounded to the nearest
+//   integer is one FMA into the magic constant 1.5 * 2^23 and one
+//   subtraction (exact for |d / box| < 2^22; the wrapper checks it),
+//   where rintf is an FRND and K4's quotient adds two FMAs. It rounds
+//   d * (1/box) unrounded, not the true quotient d / box: the two differ
+//   only for a pair within an ulp of half a box, whose two images have
+//   the same |d| to an ulp, so a potential term moves by an ulp (a force
+//   would flip sign, which is why K4 keeps the quotient). r^2 is rounded
+//   as the plain version rounds it, so the exclusion compare sees the
+//   plain version's r^2. One rsqrt a pair is what is left on the SFUs.
+// * Register blocking: a thread holds kPairRows i rows, so each j read
+//   from shared memory feeds kPairRows pairs.
+// * Deterministic: each row's terms over a tile summed in float32, times
+//   m_i in float64 (the plain version rounds m_i m_j to float32 first:
+//   with equal masses that offsets every term alike, 3.5e-8 of |U| on the
+//   science run's final state), in float64 from there; the block's rows
+//   reduced in float64
+//   through shared memory in a fixed order, one partial a block; the
+//   wrapper adds the partials with one torch.sum. No atomics: two calls
+//   on one state give the same S bit for bit (the Layzer-Irvine ledger
+//   differences U between samples).
+//
+// Bound: operations, n(n-1)/2 pairs at about 22 float operations and one
+// rsqrt each (5e11 pairs at 1M particles).
 
 #include <cuda_runtime.h>
 
@@ -81,6 +102,10 @@ namespace {
 constexpr int kThreads = 128;   // must equal ops/direct.THREADS
 constexpr int kSymTile = 256;   // must equal ops/direct.SYM_TILE
 constexpr int kSymWarps = kSymTile / 32;
+constexpr int kPairThreads = 128;
+constexpr int kPairRows = 4;     // i rows a thread
+constexpr int kPairTile = kPairThreads * kPairRows;  // = ops/direct.PAIR_TILE
+constexpr float kMagic = 12582912.0f;  // 1.5 * 2^23
 
 // d / box rounded as a true division rounds it, without dividing: with
 // inv_box the correctly rounded 1/box, q = d * inv_box lies within about
@@ -260,47 +285,101 @@ __global__ void direct_sym_reduce(const float4* __restrict__ pts,
   for (int c = 0; c < 3; ++c) out[3 * i + c] = f[c] * inv_m * oscale;
 }
 
-// K9: one float64 partial of S per block of kThreads i rows.
-__global__ void pair_potential_kernel(const float4* __restrict__ pts,
-                                      double* __restrict__ partial, int n,
-                                      float box, float soft2, float thr) {
-  __shared__ float4 tile[kThreads];
-  __shared__ double red[kThreads];
-  const float inv_box = __frcp_rn(box);
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const float4 pi = i < n ? pts[i] : make_float4(0.f, 0.f, 0.f, 0.f);
-  double total = 0.0;
+// K9: the minimum image of one component, d - box * rint(d * (1/box)):
+// the FMA rounds d * inv_box + kMagic once, to an integer plus kMagic.
+__device__ __forceinline__ float wrap_magic(float d, float box,
+                                            float inv_box) {
+  const float r = __fsub_rn(__fmaf_rn(d, inv_box, kMagic), kMagic);
+  return __fmaf_rn(-box, r, d);
+}
 
-  for (int jbase = 0; jbase < n; jbase += kThreads) {
-    const int j = jbase + threadIdx.x;
-    __syncthreads();                     // the previous tile is consumed
-    if (j < n) tile[threadIdx.x] = pts[j];
-    __syncthreads();
-    const int nt = min(kThreads, n - jbase);
-    float ts = 0.f;                      // this tile's sum
-#pragma unroll 4
-    for (int t = 0; t < nt; ++t) {
-      const float4 p = tile[t];
-      const float dx = wrap(p.x - pi.x, box, inv_box);
-      const float dy = wrap(p.y - pi.y, box, inv_box);
-      const float dz = wrap(p.z - pi.z, box, inv_box);
+// K9: rsqrtf without its guard for denormal input: the same MUFU.RSQ
+// result for every normal r^2, one compare fewer a pair. Only a taken
+// pair's result is used, and a taken r^2 exceeds eps^2 + 1e-30, a normal
+// float; r^2 = 0 (coincident particles at softening 0) gives +inf, which
+// the select drops.
+__device__ __forceinline__ float rsqrt_normal(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// K9: rows of tile p against the staged tile; kDiag: the block's own
+// tile, pairs j > i only.
+template <bool kDiag>
+__device__ __forceinline__ void pair_rows(const float4* tile, const float4* pi,
+                                          float* ts, int tid, float box,
+                                          float inv_box, float soft2,
+                                          float thr) {
+#pragma unroll 2
+  for (int t = 0; t < kPairTile; ++t) {
+    const float4 p = tile[t];
+#pragma unroll
+    for (int r = 0; r < kPairRows; ++r) {
+      const float dx = wrap_magic(p.x - pi[r].x, box, inv_box);
+      const float dy = wrap_magic(p.y - pi[r].y, box, inv_box);
+      const float dz = wrap_magic(p.z - pi[r].z, box, inv_box);
       // rounded as the plain version's sum over the three components
       const float r2 = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(dx, dx),
                                                      __fmul_rn(dy, dy)),
                                            __fmul_rn(dz, dz)), soft2);
-      const float inv_r = r2 <= thr ? 0.f : rsqrtf(r2);
-      ts += (pi.w * p.w) * inv_r;
+      const bool take = kDiag ? (r2 > thr && t > r * kPairThreads + tid)
+                              : r2 > thr;
+      // select the rsqrt, not the mass: a left-out pair may have r2 = 0
+      ts[r] = __fmaf_rn(p.w, take ? rsqrt_normal(r2) : 0.f, ts[r]);
     }
-    total += (double)ts;
   }
-  red[threadIdx.x] = i < n ? total : 0.0;
+}
+
+// K9: one float64 partial of S per (p, k) block.
+__global__ void __launch_bounds__(kPairThreads, 8)
+pair_potential_kernel(const float4* __restrict__ pts,
+                      double* __restrict__ partial, int n, int ntiles,
+                      float box, float soft2, float thr) {
+  __shared__ float4 tile[kPairTile];
+  __shared__ double red[kPairThreads];
+  const int half = (ntiles - 1) / 2;
+  const int p = blockIdx.x / (half + 1);
+  const int k = blockIdx.x % (half + 1);
+  const int q = (p + k) % ntiles;
+  const int tid = threadIdx.x;
+  if (p * kPairTile >= n || q * kPairTile >= n) {  // the odd count's pad
+    if (tid == 0) partial[blockIdx.x] = 0.0;
+    return;
+  }
+  const float inv_box = __frcp_rn(box);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  // padding rows and columns: mass 0 at the origin, terms exactly 0
+#pragma unroll
+  for (int r = 0; r < kPairRows; ++r) {
+    const int j = q * kPairTile + r * kPairThreads + tid;
+    tile[r * kPairThreads + tid] = j < n ? pts[j] : zero;
+  }
+  float4 pi[kPairRows];
+  float ts[kPairRows];
+#pragma unroll
+  for (int r = 0; r < kPairRows; ++r) {
+    const int i = p * kPairTile + r * kPairThreads + tid;
+    pi[r] = i < n ? pts[i] : zero;
+    ts[r] = 0.f;
+  }
+  __syncthreads();
+  if (k == 0)
+    pair_rows<true>(tile, pi, ts, tid, box, inv_box, soft2, thr);
+  else
+    pair_rows<false>(tile, pi, ts, tid, box, inv_box, soft2, thr);
+  double total = 0.0;
+#pragma unroll
+  for (int r = 0; r < kPairRows; ++r)
+    total += (double)pi[r].w * (double)ts[r];
+  red[tid] = total;
   __syncthreads();
 #pragma unroll
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
+  for (int s = kPairThreads / 2; s > 0; s >>= 1) {
+    if (tid < s) red[tid] += red[tid + s];
     __syncthreads();
   }
-  if (threadIdx.x == 0) partial[blockIdx.x] = red[0];
+  if (tid == 0) partial[blockIdx.x] = red[0];
 }
 
 }  // namespace
@@ -348,12 +427,13 @@ extern "C" int lcdm_direct_sym(const float4* pts, float* rowpart,
   return (int)cudaGetLastError();
 }
 
+// partial: ntiles * ((ntiles - 1) / 2 + 1) doubles, ntiles odd
 extern "C" int lcdm_pair_potential(const float4* pts, double* partial, int n,
-                                   float box, float soft2, float thr,
-                                   void* stream) {
-  const int blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 0)
-    pair_potential_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        pts, partial, n, box, soft2, thr);
+                                   int ntiles, float box, float soft2,
+                                   float thr, void* stream) {
+  const int blocks = ntiles * ((ntiles - 1) / 2 + 1);
+  if (n > 0 && blocks > 0)
+    pair_potential_kernel<<<blocks, kPairThreads, 0, (cudaStream_t)stream>>>(
+        pts, partial, n, ntiles, box, soft2, thr);
   return (int)cudaGetLastError();
 }

@@ -42,7 +42,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "lcdm_cic_deposit": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "lcdm_fd4_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
-    "lcdm_short_range": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
+    "lcdm_short_range_plan": [_P, _P, _I, _P],
+    "lcdm_short_range": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                          _F, _F, _P],
     "lcdm_short_range_rd": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P],
     "lcdm_fof_hook": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
@@ -50,7 +51,7 @@ _SIGNATURES = {
     "lcdm_direct": [_P, _P, _I, _I, _I, _F, _F, _F, _P],
     "lcdm_direct_sym": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
     "lcdm_lens_sample": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "lcdm_pair_potential": [_P, _P, _I, _F, _F, _F, _P],
+    "lcdm_pair_potential": [_P, _P, _I, _I, _F, _F, _F, _P],
     "lcdm_alias_probe": [_P, _I, _I, _I, _P],
 }
 

@@ -34,6 +34,10 @@ from . import cuda_build
 
 THREADS = 128     # i particles per block of K4 (kThreads in direct.cu)
 SYM_TILE = 256    # tile edge of K4s (kSymTile in direct.cu)
+PAIR_TILE = 512   # tile edge of K9 (kPairTile in direct.cu)
+# K9 rounds d / box with the magic constant 1.5 * 2^23, exact while
+# |d / box| < 2^22: positions must lie within 2^21 boxes of the origin
+PAIR_POSITION_LIMIT = 2.0 ** 21
 VARIANTS = ("v1", "v2", "sym", "sym2")
 
 launches = {"direct": 0, "direct_sym": 0, "pair_potential": 0}
@@ -62,6 +66,25 @@ def sym_tiles(n: int) -> int:
     wrap covers every unordered tile pair once."""
     p = max(1, (n + SYM_TILE - 1) // SYM_TILE)
     return p if p % 2 else p + 1
+
+
+def pair_tiles(n: int) -> int:
+    """K9 tile count: ceil(n / PAIR_TILE), made odd."""
+    p = max(1, (n + PAIR_TILE - 1) // PAIR_TILE)
+    return p if p % 2 else p + 1
+
+
+def pair_schedule(n: int):
+    """K9's blocks as the kernel decodes blockIdx: ([B] row tile p, [B]
+    column tile q) with B = P (half + 1), P = pair_tiles(n), half =
+    (P - 1) // 2; block b takes p = b // (half + 1), k = b % (half + 1),
+    q = (p + k) mod P. The block with q == p sums the pairs j > i of its
+    tile, the others every pair of tile p against tile q."""
+    ntiles = pair_tiles(n)
+    half = (ntiles - 1) // 2
+    b = torch.arange(ntiles * (half + 1))
+    p = b // (half + 1)
+    return p, (p + b % (half + 1)) % ntiles
 
 
 def pairwise_accelerations_plain(positions, masses, box_size, softening=0.01,
@@ -189,9 +212,9 @@ def pair_potential(positions, masses, box_size, softening=0.01, g_const=1.0,
     """The pairwise potential energy (see pair_potential_plain) as a 0-d
     float64 tensor. CUDA tensors launch K9 (csrc/direct.cu), which
     computes the function that lambda_cdm_tpu/forces/direct.potential_energy
-    leaves to XLA; CPU tensors take pair_potential_plain (`chunk_size`
-    sets its row blocks). Deterministic: per-block float64 partials, no
-    atomics."""
+    leaves to XLA, each unordered pair once (pair_schedule); CPU tensors
+    take pair_potential_plain (`chunk_size` sets its row blocks).
+    Deterministic: one float64 partial a block, no atomics."""
     if positions.device.type == "cpu":
         return pair_potential_plain(positions, masses, box_size, softening,
                                     g_const, chunk_size)
@@ -203,10 +226,16 @@ def pair_potential(positions, masses, box_size, softening=0.01, g_const=1.0,
     pts = torch.cat([positions.to(torch.float32),
                      masses.to(torch.float32)[:, None]], dim=1).contiguous()
     cuda_build.require_cuda("pair_potential", pts)
-    partial = torch.empty(((n + THREADS - 1) // THREADS,),
+    if n and float(pts[:, :3].abs().max()) >= PAIR_POSITION_LIMIT * float(
+            box_size):
+        raise ValueError(f"pair_potential: positions must lie within "
+                         f"{PAIR_POSITION_LIMIT:g} boxes of the origin")
+    ntiles = pair_tiles(n)
+    partial = torch.empty((ntiles * ((ntiles - 1) // 2 + 1),),
                           dtype=torch.float64, device=pts.device)
     soft2, thr = _soft2_thr(softening)
     launches["pair_potential"] += 1
     cuda_build.launch("lcdm_pair_potential", pts.data_ptr(),
-                      partial.data_ptr(), n, float(box_size), soft2, thr)
-    return -0.5 * float(g_const) * torch.sum(partial)
+                      partial.data_ptr(), n, ntiles, float(box_size), soft2,
+                      thr)
+    return -float(g_const) * torch.sum(partial)

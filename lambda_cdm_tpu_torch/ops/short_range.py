@@ -27,10 +27,15 @@ The kernel reads live-first counts in every split form. vpu, vpu2 and
 mxu may be given none, as on the TPU: then any slot order is taken and a
 slot with mass 0 is dead (the wrapper moves each cell's live slots first
 before the launch and puts the results back).
+
+The kernel's work is a list of units, each at most UNIT_ROWS live rows of
+one cell, heaviest first (unit_plan, built on the card from the counts;
+unit_plan_plain is its plain version, plan_units decodes either).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -47,6 +52,8 @@ SPLITS = {"vpu3": "even", "vpu4": "even", "vpu4b": "even", "vpu5": "even",
           "vpu2": "factored", "vpu": "xpoly", "mxu": "xpoly"}
 VARIANTS = tuple(SPLITS)
 _SPLIT_ID = {"even": 0, "factored": 1, "xpoly": 2}
+UNIT_ROWS = 32     # live rows a unit of K3 (kUnitRows in short_range.cu)
+PLAN_HEADER = 4    # the plan's header (kHeader in short_range.cu)
 
 launches = {"short_range": 0, "short_range_vpu": 0, "short_range_vpu2": 0,
             "short_range_mxu": 0}
@@ -252,15 +259,89 @@ def short_range_plain(bpos, bmass, counts, *, ncell: int, capacity: int,
     return out
 
 
-def _threads(capacity: int) -> int:
-    """Block size: one warp multiple near the capacity, at most 256."""
-    return min(256, max(32, 32 * ((capacity + 31) // 32)))
+def neighbour_load(counts, ncell: int):
+    """[C] live slots of each cell's 27 periodic neighbours (itself
+    included): the j count of each of its rows."""
+    c3 = counts.to(torch.int64).reshape(ncell, ncell, ncell)
+    nbr = c3
+    for ax in range(3):
+        nbr = nbr + torch.roll(nbr, 1, ax) + torch.roll(nbr, -1, ax)
+    return nbr.reshape(-1)
+
+
+def unit_plan_plain(counts, ncell: int):
+    """Plain PyTorch version of K3's plan (int32 [PLAN_HEADER + 3 C]):
+    the header [0, L non-empty cells, U units, 0]; each cell's class
+    floor(log2(neighbour load)), -1 when empty; the L non-empty cells
+    ordered by class, heavy to light, then by cell id (the rest -1); the
+    first unit of each of them (the rest -1). A cell of n live rows has
+    ceil(n / UNIT_ROWS) units, numbered in that order."""
+    cc = ncell ** 3
+    n = counts.to(torch.int64)
+    live = n > 0
+    exp = torch.frexp(neighbour_load(counts, ncell).to(torch.float64))[1]
+    cls = torch.where(live, exp.to(torch.int64) - 1, -1)
+    cells = torch.nonzero(live)[:, 0]
+    order = cells[torch.argsort(-cls[cells], stable=True)]
+    nun = (n[order] + UNIT_ROWS - 1) // UNIT_ROWS
+    ends = torch.cumsum(nun, 0)
+    pad = torch.full((cc - order.numel(),), -1, dtype=torch.int64,
+                     device=counts.device)
+    header = torch.tensor([0, order.numel(), int(ends[-1]) if len(ends)
+                           else 0, 0], device=counts.device)
+    return torch.cat([header, cls, order, pad, ends - nun, pad]).to(
+        torch.int32)
+
+
+def unit_plan(counts, ncell: int):
+    """K3's plan of units (see unit_plan_plain for its layout). CUDA
+    counts launch the plan kernels of csrc/short_range.cu (no host sync;
+    the order past the L non-empty cells is left unwritten); CPU counts
+    take unit_plan_plain."""
+    if counts.device.type == "cpu":
+        return unit_plan_plain(counts, ncell)
+    cuda_build.require_cuda("unit_plan", counts, dtypes=(torch.int32,))
+    plan = torch.empty((PLAN_HEADER + 3 * ncell ** 3,), dtype=torch.int32,
+                       device=counts.device)
+    cuda_build.launch("lcdm_short_range_plan", counts.data_ptr(),
+                      plan.data_ptr(), ncell)
+    return plan
+
+
+def plan_units(plan, counts, ncell: int):
+    """Decode a plan on the host -> [U, 3] int64 (cell, first row, live
+    rows) of each unit in the order the kernel's warps take them."""
+    plan = plan.cpu().to(torch.int64)
+    n = counts.cpu().to(torch.int64)
+    cc = ncell ** 3
+    n_live, n_units = int(plan[1]), int(plan[2])
+    base = PLAN_HEADER + cc
+    order = plan[base:base + n_live]
+    first = plan[base + cc:base + cc + n_live]
+    nun = torch.diff(torch.cat([first, torch.tensor([n_units])]))
+    cell = torch.repeat_interleave(order, nun)
+    row0 = (torch.arange(n_units) - torch.repeat_interleave(first, nun)) \
+        * UNIT_ROWS
+    return torch.stack([cell, row0, torch.clamp(n[cell] - row0,
+                                                max=UNIT_ROWS)], dim=1)
 
 
 @functools.lru_cache(maxsize=None)
 def _device_coeffs(variant: str, rs: float, device: str):
+    """The split's coefficients as a device tensor (K8 reads them so)."""
     return torch.tensor(_split_params(variant, rs)[0], dtype=torch.float32,
                         device=device)
+
+
+MAX_COEFFS = 12   # kMaxCoeffs in short_range.cu
+
+
+@functools.lru_cache(maxsize=None)
+def _host_coeffs(variant: str, rs: float):
+    """The split's coefficients as the kernel takes them: a float32 host
+    array of MAX_COEFFS, highest first, zero-padded."""
+    q = _split_params(variant, rs)[0]
+    return (ctypes.c_float * MAX_COEFFS)(*q, *[0.0] * (MAX_COEFFS - len(q)))
 
 
 def short_range(bpos, bmass, counts, *, ncell: int, capacity: int,
@@ -269,7 +350,8 @@ def short_range(bpos, bmass, counts, *, ncell: int, capacity: int,
     """Short-range accelerations (unit G) for every bucket slot -> SoA
     [3, C, K], 0 on dead slots. CUDA tensors launch K3
     (csrc/short_range.cu, replacing pallas_short_range's kernel of that
-    variant); CPU tensors take short_range_plain. `counts` ([C] int32, the
+    variant: its plan from the counts, then the pair kernel); CPU tensors
+    take short_range_plain. `counts` ([C] int32, the
     live-first layout's occupancies) may be None for vpu, vpu2 and mxu:
     then any slot order is taken and a slot of mass 0 is dead."""
     _validate(bpos, bmass, counts, ncell, capacity, softening, variant)
@@ -289,12 +371,14 @@ def short_range(bpos, bmass, counts, *, ncell: int, capacity: int,
                             dtypes=(torch.float32, torch.float32,
                                     torch.int32))
     _, p0, p1, mscale = _split_params(variant, float(rs))
-    coeffs = _device_coeffs(variant, float(rs), str(bpos.device))
+    coeffs = _host_coeffs(variant, float(rs))
+    plan = unit_plan(counts, ncell)
     out = torch.zeros_like(bpos)
     launches[counter(variant)] += 1
     cuda_build.launch("lcdm_short_range", bpos.data_ptr(), bmass.data_ptr(),
-                      counts.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
-                      ncell, capacity, _threads(capacity),
+                      counts.data_ptr(), ctypes.addressof(coeffs),
+                      plan.data_ptr(),
+                      out.data_ptr(), ncell, capacity,
                       _SPLIT_ID[SPLITS[variant]], float(box_size),
                       float(softening) ** 2, p0, p1, mscale)
     if perm is not None:

@@ -146,6 +146,37 @@ def _config(g: dict, n: int, z_final: float, small: bool, on_card: bool):
     return cfg
 
 
+def initial_conditions(g: dict, device) -> tuple:
+    """The run's 2LPT ICs at z = Z_INIT from numpy white noise (seed SEED)
+    on `device`: (positions [N, 3], velocities [N, 3], the particle mass
+    in 1e10 Msun/h)."""
+    from .physics.cosmology import CosmologyParams
+    from .physics.initial_conditions import lpt_displacements
+    params = CosmologyParams()
+    ng_ic, box = g["ng_ic"], g["box"]
+    noise = np.random.default_rng(SEED).standard_normal(
+        (ng_ic, ng_ic, ng_ic)).astype(np.float32)
+    pos, vel = lpt_displacements(
+        torch.from_numpy(noise), params, ng=ng_ic, n_side=g["n_side"],
+        box_size=box, a_init=1.0 / (1.0 + Z_INIT), kick_mode="comoving",
+        device=device)
+    n = pos.shape[0]
+    return pos, vel, 27.7536 * params.omega_m * box ** 3 / n
+
+
+def plan_engine(g: dict, pos, vel, mass, a: float, device):
+    """A SimulationEngine on the 1M run's config and bucket plan (ncell
+    16, capacity 8192 on the card), initialized at (pos, vel, mass, a):
+    its fast state holds K3's buckets of that state."""
+    from .core.engine import SimulationEngine
+    from .core.state import make_state
+    device = torch.device(device)
+    cfg = _config(g, pos.shape[0], 0.0, False, device.type == "cuda")
+    eng = SimulationEngine(cfg, device=device)
+    eng.initialize(state=make_state(pos, vel, mass, scale_factor=a))
+    return eng
+
+
 def evolve_phase(small: bool, record_path: str, device="cuda") -> dict:
     """ICs, the run to LCDM_SCIENCE_ZFINAL (default 0) with the P(k)
     observer and the ledger, the step breakdown (on the card, at the 1M
@@ -155,29 +186,20 @@ def evolve_phase(small: bool, record_path: str, device="cuda") -> dict:
     from .core.engine import SimulationEngine
     from .core.observers import Observer
     from .core.state import make_state
-    from .physics.cosmology import CosmologyParams
-    from .physics.initial_conditions import lpt_displacements
 
     device = torch.device(device)
     on_card = device.type == "cuda"
     g = geometry(small)
-    n_side, ng_ic, box = g["n_side"], g["ng_ic"], g["box"]
+    n_side, box = g["n_side"], g["box"]
     pk_grid = g["pk_grid"]
     z_final = float(os.environ.get("LCDM_SCIENCE_ZFINAL", "0.0"))
     a_i = 1.0 / (1.0 + Z_INIT)
-    params = CosmologyParams()
 
     t_wall0 = time.perf_counter()
     log(f"[1/3] 2LPT ICs: {n_side}^3 particles, box={box}, z={Z_INIT}, "
         f"numpy white noise (seed {SEED}) on {device}")
-    noise = np.random.default_rng(SEED).standard_normal(
-        (ng_ic, ng_ic, ng_ic)).astype(np.float32)
-    pos, vel = lpt_displacements(
-        torch.from_numpy(noise), params, ng=ng_ic, n_side=n_side,
-        box_size=box, a_init=a_i, kick_mode="comoving", device=device)
-    del noise
+    pos, vel, m_p = initial_conditions(g, device)
     n = pos.shape[0]
-    m_p = 27.7536 * params.omega_m * box ** 3 / n    # [1e10 Msun/h]
     mass = torch.full((n,), m_p, dtype=torch.float32, device=device)
     # no shot-noise subtraction: a displaced lattice has suppressed
     # discreteness noise below the particle Nyquist, and subtracting
@@ -201,6 +223,9 @@ def evolve_phase(small: bool, record_path: str, device="cuda") -> dict:
 
     eng.add_observer(LIObserver())
     li.sample(force=True)
+    # K3 at the early end, beside the final state's breakdown
+    initial = (short_range_timing(eng, reps=1) if on_card and not small
+               else {})
 
     log(f"[2/3] evolving z={Z_INIT} -> {z_final} (treepm_fast, "
         f"{g['pm_grid']}^3 PM, adaptive dt)")
@@ -219,7 +244,7 @@ def evolve_phase(small: bool, record_path: str, device="cuda") -> dict:
 
     breakdown = {}
     if on_card and not small:
-        breakdown = step_breakdown(eng)
+        breakdown = dict(step_breakdown(eng), initial=initial)
         log(f"  final-state step breakdown: {breakdown}")
     eng.release_force_state()
 
@@ -251,6 +276,33 @@ def evolve_phase(small: bool, record_path: str, device="cuda") -> dict:
     return record
 
 
+def short_range_timing(eng, reps: int = 3) -> dict:
+    """K3 on the engine's current fast state, timed on the card (CUDA
+    events, mean of `reps` calls), with the pair tests and the occupancy
+    that set its work and its tail. Raises on a state that is not on a
+    CUDA card."""
+    from .core.engine import _accel_kw
+    from .ops.bucketed_pm import live_counts
+    from .ops.cuda_build import cuda_ms
+    from .ops.short_range import neighbour_load, short_range
+    fs, kw = eng._fstate, eng._fast_kw
+    if not fs.bpos.is_cuda:
+        raise RuntimeError("short_range_timing times the card: the "
+                           "engine's state is not on a CUDA device")
+    counts = live_counts(fs.bmass)
+    nc = kw["ncell"]
+    akw = _accel_kw(kw)
+    return {
+        "short_range_ms": round(cuda_ms(lambda: short_range(
+            fs.bpos, fs.bmass, counts, ncell=nc, capacity=kw["capacity"],
+            box_size=akw["box_size"], rs=akw["rs"],
+            softening=akw["softening"], variant=akw["variant"]), reps), 3),
+        "short_range_pairs": float((counts.to(torch.float64)
+                                    * neighbour_load(counts, nc)).sum()),
+        "max_cell_count": int(counts.max()),
+        "mean_cell_count": round(float(counts.double().mean()), 3)}
+
+
 def step_breakdown(eng, reps: int = 3) -> dict:
     """The step's phases on the engine's current (final, clustered) fast
     state, timed on the card: the run's own ms/step, a 4-step chunk
@@ -261,7 +313,6 @@ def step_breakdown(eng, reps: int = 3) -> dict:
     from .ops.bucketed_pm import live_counts, pm_accelerations_bucketed
     from .ops.cuda_build import cuda_ms
     from .ops.fast_treepm import _rebucket, fast_run
-    from .ops.short_range import short_range
     fs, kw = eng._fstate, eng._fast_kw
     if not fs.bpos.is_cuda:
         raise RuntimeError("step_breakdown times the card: the engine's "
@@ -270,10 +321,6 @@ def step_breakdown(eng, reps: int = 3) -> dict:
     dt = float(eng._dt)
     counts = live_counts(fs.bmass)
     nc, cap = kw["ncell"], kw["capacity"]
-    c3 = counts.reshape(nc, nc, nc).double()
-    nbr = c3
-    for ax in range(3):
-        nbr = nbr + torch.roll(nbr, 1, ax) + torch.roll(nbr, -1, ax)
     out = {}
     st = eng.statistics
     if st.total_steps:
@@ -284,19 +331,12 @@ def step_breakdown(eng, reps: int = 3) -> dict:
     out["rebucket_ms"] = round(cuda_ms(lambda: _rebucket(
         fs, box_size=kw["box_size"], ncell=nc, capacity=cap,
         n_rows=kw["n_rows"]), reps), 3)
-    akw = _accel_kw(kw)
-    out["short_range_ms"] = round(cuda_ms(lambda: short_range(
-        fs.bpos, fs.bmass, counts, ncell=nc, capacity=cap,
-        box_size=akw["box_size"], rs=akw["rs"], softening=akw["softening"],
-        variant=akw["variant"]), reps), 3)
+    out.update(short_range_timing(eng, reps))
     out["pm_ms"] = round(cuda_ms(lambda: pm_accelerations_bucketed(
         fs.bpos, fs.bmass, ncell=nc, ng=kw["ng"], box_size=kw["box_size"],
         g_const=kw["g_const"], split_scale=kw["rs"], margin=kw["margin"],
         gradient=kw["gradient"], counts=counts), reps), 3)
-    out["short_range_pairs"] = float((c3 * nbr).sum())
-    out["max_cell_count"] = int(counts.max())
-    out["mean_cell_count"] = round(float(counts.double().mean()), 3)
-    out["variant"] = akw["variant"]
+    out["variant"] = _accel_kw(kw)["variant"]
     out["ncell"] = nc
     out["capacity"] = cap
     return out
@@ -609,6 +649,8 @@ def summary(cert: dict) -> dict:
 
 
 def main(argv=None) -> int:
+    from .utils.precision import disable_tf32
+    disable_tf32()
     ap = argparse.ArgumentParser(
         prog="python -m lambda_cdm_tpu_torch.science_run",
         description="The 1M-particle science run (z=24 -> 0) and its "

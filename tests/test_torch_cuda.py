@@ -11,6 +11,8 @@ card and nvcc; elsewhere they skip:
 (--noconftest: tests/conftest.py sets up JAX, which the GPU host lacks.)
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -142,6 +144,35 @@ def test_short_range_split_forms(cuda_device, variant):
     back.scatter_(2, perm[None].expand(3, -1, -1), shuffled)
     torch.cuda.synchronize()
     assert _rel(back, got) < 1e-5
+
+
+@pytest.mark.parametrize("variant", ["vpu3", "vpu2", "vpu"])
+def test_short_range_heavy_cell(cuda_device, variant):
+    """K3 in each split form on a clump of 5000 in one cell (capacity
+    8192: 157 units of that cell): against plain on every live slot at
+    1e-4, dead slots zero, two calls equal bit for bit; the card's plan
+    equals unit_plan_plain."""
+    box, ncell, cap = 40.0, 5, 8192
+    pos, m = clustered_particles(14000, box, 6, n_clump=5000, sigma=0.6,
+                                 centre=(20.0, 20.0, 20.0))
+    bpos, bmass, counts = _state(cuda_device, pos, m, box, ncell, cap)
+    assert int(counts.max()) > 4096
+    plan = short_range.unit_plan(counts, ncell)
+    ref_plan = short_range.unit_plan_plain(counts.cpu(), ncell)
+    n_live = int(ref_plan[1])
+    base = short_range.PLAN_HEADER + ncell ** 3
+    for lo, hi in ((0, base + n_live), (base + ncell ** 3,
+                                        base + ncell ** 3 + n_live)):
+        assert torch.equal(plan[lo:hi].cpu(), ref_plan[lo:hi])
+    kw = dict(ncell=ncell, capacity=cap, box_size=box, rs=1.5,
+              softening=0.1, variant=variant)
+    got = short_range.short_range(bpos, bmass, counts, **kw)
+    again = short_range.short_range(bpos, bmass, counts, **kw)
+    ref = short_range.short_range_plain(bpos, bmass, counts, **kw)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) < 1e-4
+    assert torch.equal(got, again)
+    assert bool(torch.all(got[:, bmass == 0] == 0))
 
 
 @pytest.mark.parametrize("edges", [False, True])
@@ -360,9 +391,33 @@ def test_pair_potential_kernel(cuda_device, n):
         got.to(torch.float32))
 
 
+@pytest.mark.parametrize("n, soft", [(3 * direct.PAIR_TILE + 77, 0.05),
+                                     (20000, 0.05), (2, 0.0),
+                                     (3 * direct.PAIR_TILE + 77, 0.0)])
+def test_pair_potential_deterministic(cuda_device, n, soft):
+    """K9 on several tiles with a partial last one (clustered); at
+    softening 0 a quarter of the particles and the last one sit on
+    others, so those pairs and the self pairs have r^2 = 0 and are left
+    out: two calls give the same finite U bit for bit, within 1e-6 of
+    plain."""
+    pos, m = clustered_particles(n, 30.0, n, n_clump=n // 3, sigma=0.5,
+                                 centre=(15.0, 15.0, 15.0))
+    if soft == 0.0:
+        pos[n // 2:n // 2 + n // 4] = pos[:n // 4]
+        pos[-1] = pos[0]
+    p, mm = tt(pos).to(cuda_device), tt(m).to(cuda_device)
+    got = [float(direct.pair_potential(p, mm, 30.0, soft)) for _ in
+           range(2)]
+    ref = float(direct.pair_potential_plain(p, mm, 30.0, soft))
+    assert math.isfinite(got[0]) and got[0] == got[1]
+    assert abs(got[0] - ref) <= 1e-6 * abs(ref)
+
+
 def test_pair_potential_half_box_image(cuda_device):
-    """Pairs one ulp past half a box apart: K9 takes the image of the
-    true quotient, as its plain version does."""
+    """Pairs one ulp past half a box apart: K9 rounds d * (1/box), not the
+    true quotient its plain version rounds, and may take the other image;
+    at that tie both images have the same |d| to an ulp, so U holds plain
+    at 1e-6."""
     pos, m, flips = half_box_lattice(50.0, seed=3, side=16)
     assert flips > 0
     p, mm = tt(pos).to(cuda_device), tt(m).to(cuda_device)

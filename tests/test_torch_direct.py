@@ -238,3 +238,99 @@ def test_pair_potential_wrapper_never_falls_back():
     meta = torch.zeros((64, 3), device="meta")
     with pytest.raises(ValueError, match="cuda"):
         tops.pair_potential(meta, torch.ones(64, device="meta"), 10.0, 0.1)
+
+
+# -- K9's symmetric tile schedule, emulated ----------------------------------
+
+def _schedule_pairs(n):
+    """[P, 2] (i, j) index pairs K9's blocks visit, in block order: tile p's
+    rows against tile q's columns, j > i on the diagonal block."""
+    t = tops.PAIR_TILE
+    out = []
+    for p, q in zip(*tops.pair_schedule(n)):
+        if max(int(p), int(q)) * t >= n:    # the odd count's empty tile
+            continue
+        rows = torch.arange(int(p) * t, min(n, int(p) * t + t))
+        cols = torch.arange(int(q) * t, min(n, int(q) * t + t))
+        i, j = torch.meshgrid(rows, cols, indexing="ij")
+        keep = j > i if p == q else torch.ones_like(i, dtype=torch.bool)
+        out.append(torch.stack([i[keep], j[keep]], dim=1))
+    return torch.cat(out)
+
+
+def _tiled_potential(pos, m, box, soft, g):
+    """U = -G sum_{i<j} m_i m_j / r over K9's schedule, with the kernel's
+    arithmetic: the image rint(d * fl(1/box)) of the unrounded product (an
+    FMA into the magic constant, exact here in float64), d - box r rounded
+    once (an FMA), r^2 rounded as the plain version, the exclusion r^2 <=
+    eps^2 + 1e-30; each block's terms summed in float64."""
+    soft2 = torch.tensor(soft, dtype=torch.float32) ** 2
+    thr = soft2 + 1e-30
+    inv_box = (1.0 / torch.tensor(box, dtype=torch.float32)).double()
+    total = torch.zeros((), dtype=torch.float64)
+    t = tops.PAIR_TILE
+    n = pos.shape[0]
+    for p, q in zip(*tops.pair_schedule(n)):
+        if max(int(p), int(q)) * t >= n:
+            continue
+        pi, pj = pos[p * t:p * t + t], pos[q * t:q * t + t]
+        d = (pj[None, :, :] - pi[:, None, :]).double()
+        img = torch.round(d * inv_box)
+        d = (d - float(np.float32(box)) * img).to(torch.float32)
+        r2 = torch.sum(d * d, dim=-1) + soft2
+        inv_r = torch.where(r2 <= thr, 0.0, torch.rsqrt(r2))
+        term = (m[p * t:p * t + t, None] * m[None, q * t:q * t + t]) * inv_r
+        if p == q:
+            term = torch.triu(term, diagonal=1)
+        total = total + torch.sum(term, dtype=torch.float64)
+    return -float(g) * total
+
+
+@pytest.mark.parametrize("n", [1, 2, tops.PAIR_TILE - 1, tops.PAIR_TILE + 1,
+                               4096])
+def test_pair_schedule_visits_each_unordered_pair_once(n):
+    """K9's blocks (pair_schedule, decoded as the kernel decodes blockIdx)
+    visit every unordered pair i < j exactly once and no self pair; the
+    tile count is odd, so the half-matrix wrap closes."""
+    assert tops.pair_tiles(n) % 2 == 1
+    pairs = _schedule_pairs(n)
+    assert bool(torch.all(pairs[:, 0] != pairs[:, 1]))
+    key = torch.minimum(pairs[:, 0], pairs[:, 1]) * n + torch.maximum(
+        pairs[:, 0], pairs[:, 1])
+    seen = torch.bincount(key, minlength=n * n).reshape(n, n)
+    assert bool(torch.all(torch.triu(seen, 1) == torch.triu(
+        torch.ones_like(seen), 1)))
+    assert int(seen.sum()) == n * (n - 1) // 2
+
+
+@pytest.mark.parametrize("n", [1, 2, tops.PAIR_TILE - 1, tops.PAIR_TILE + 1,
+                               4096])
+def test_pair_schedule_sum_matches_plain_and_jax(n):
+    """The schedule's sum with the kernel's arithmetic equals
+    pair_potential_plain and the JAX potential_energy at 1e-5 (float32
+    terms summed in another order; one fewer rounding of the image)."""
+    pos, m = uniform_particles(n, 20.0, seed=n)
+    got = float(_tiled_potential(tt(pos), tt(m), 20.0, 0.05, 43.0071))
+    ref = float(tops.pair_potential_plain(tt(pos), tt(m), 20.0, 0.05,
+                                          43.0071))
+    assert abs(got - ref) <= TOL * abs(ref) or n == 1 and got == ref == 0.0
+    if n > 1:
+        jref = float(jdirect.potential_energy(*_jx(pos, m), 20.0, 0.05,
+                                              43.0071))
+        assert abs(got - jref) <= TOL * abs(jref)
+
+
+@pytest.mark.parametrize("box", [20.0, 50.0])
+def test_pair_schedule_sum_half_box_lattice(box):
+    """On the lattice whose middle layer sits one ulp past half a box
+    (box 50: pairs whose image the product d * (1/box) and the quotient
+    d / box round apart), the schedule's sum holds plain and JAX at
+    1e-5: at the tie both images give |d| to an ulp."""
+    pos, m, flips = half_box_lattice(box, seed=3, side=16)
+    assert (flips > 0) == (box == 50.0)
+    got = float(_tiled_potential(tt(pos), tt(m), box, 0.05, 43.0071))
+    ref = float(tops.pair_potential_plain(tt(pos), tt(m), box, 0.05,
+                                          43.0071))
+    jref = float(jdirect.potential_energy(*_jx(pos, m), box, 0.05, 43.0071))
+    assert abs(got - ref) <= TOL * abs(ref)
+    assert abs(got - jref) <= TOL * abs(jref)

@@ -283,3 +283,23 @@ def test_cli_run_resume_validate_info(tmp_path, capsys):
     assert tcli.main(["info"], device="cpu") == 0
     assert "torch" in capsys.readouterr().out
     assert tcli.main(["bogus"], device="cpu") == 2
+
+
+@pytest.mark.parametrize("entry", ["cli", "science_run"])
+def test_entry_points_turn_tf32_off(entry, monkeypatch, capsys):
+    """cli.main and science_run.main leave both TF32 flags False (float32
+    products in full float32, as the JAX package's Precision.HIGHEST), even
+    when they were set True before."""
+    from lambda_cdm_tpu_torch import science_run
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    assert torch.backends.cuda.matmul.allow_tf32
+    assert torch.backends.cudnn.allow_tf32
+    if entry == "cli":
+        assert tcli.main(["validate", os.path.join(
+            CONFIGS, "treepm_1m.json")], device="cpu") == 0
+    else:
+        with pytest.raises(SystemExit):
+            science_run.main(["--help"])
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32

@@ -218,3 +218,80 @@ def test_variant_names():
         tsr.short_range(tt(bpos), tt(bmass), None, ncell=ncell,
                         capacity=cap, box_size=box, rs=RS, softening=SOFT)
     assert {tsr.counter(v) for v in tsr.VARIANTS} == set(tsr.launches)
+
+
+# -- K3's plan of units -------------------------------------------------------
+
+import torch  # noqa: E402
+
+
+def _plan_counts(kind, ncell=8, seed=0):
+    """Occupancies of ncell^3 cells: near 30 (Poisson), with one cell of
+    5000 rows, one live cell alone, or all empty."""
+    rng = np.random.default_rng(seed)
+    cc = ncell ** 3
+    counts = rng.poisson(30.5, cc)
+    if kind == "heavy":
+        counts[137] = 5000
+    elif kind == "one_cell":
+        counts = np.zeros(cc)
+        counts[5] = 70
+    elif kind == "empty":
+        counts = np.zeros(cc)
+    return torch.from_numpy(counts.astype(np.int32))
+
+
+@pytest.mark.parametrize("kind", ["uniform", "heavy", "one_cell", "empty"])
+def test_unit_plan_covers_live_rows_once(kind):
+    """Every live row of every cell lies in exactly one unit; a unit holds
+    1..UNIT_ROWS rows of one cell; the header counts the non-empty cells
+    and the units; empty cells have class -1 and no unit."""
+    ncell = 8
+    counts = _plan_counts(kind, ncell)
+    plan = tsr.unit_plan(counts, ncell)
+    assert plan.dtype == torch.int32
+    assert plan.numel() == tsr.PLAN_HEADER + 3 * ncell ** 3
+    units = tsr.plan_units(plan, counts, ncell)
+    assert int(plan[1]) == int((counts > 0).sum())
+    assert int(plan[2]) == units.shape[0] == int(
+        ((counts.long() + tsr.UNIT_ROWS - 1) // tsr.UNIT_ROWS).sum())
+    if units.shape[0]:
+        assert int(units[:, 2].min()) >= 1
+        assert int(units[:, 2].max()) <= tsr.UNIT_ROWS
+    cls = plan[tsr.PLAN_HEADER:tsr.PLAN_HEADER + ncell ** 3]
+    assert bool(torch.all((cls == -1) == (counts == 0)))
+    cap = int(counts.max()) if int(counts.max()) else 1
+    seen = torch.zeros(ncell ** 3 * cap, dtype=torch.int64)
+    for cell, row0, rows in units.tolist():
+        seen[cell * cap + row0:cell * cap + row0 + rows] += 1
+    live = (torch.arange(cap)[None] < counts[:, None].long()).reshape(-1)
+    assert bool(torch.all(seen == live.long()))
+
+
+@pytest.mark.parametrize("kind", ["uniform", "heavy"])
+def test_unit_plan_heaviest_first(kind):
+    """Units come in classes of neighbour load (floor(log2) of the live
+    slots of the 27 neighbours: a unit's work is its rows times that
+    load), heavy to light, cells by id within a class, each cell's units
+    together: with one cell of 5000 rows the first units are the 157 of
+    that cell and those of its 26 neighbours, whose rows each see it."""
+    ncell = 8
+    counts = _plan_counts(kind, ncell)
+    plan = tsr.unit_plan(counts, ncell)
+    units = tsr.plan_units(plan, counts, ncell)
+    load = tsr.neighbour_load(counts, ncell)
+    cls = torch.floor(torch.log2(load[units[:, 0]].double()))
+    assert bool(torch.all(cls[1:] <= cls[:-1]))
+    same = cls[1:] == cls[:-1]
+    assert bool(torch.all(units[1:, 0][same] >= units[:-1, 0][same]))
+    cells = torch.unique_consecutive(units[:, 0])
+    assert cells.numel() == int((counts > 0).sum())
+    if kind == "heavy":
+        one = torch.zeros(ncell ** 3, dtype=torch.int32)
+        one[137] = 1
+        near = torch.nonzero(tsr.neighbour_load(one, ncell))[:, 0]
+        n_top = int(((counts[near].long() + tsr.UNIT_ROWS - 1)
+                     // tsr.UNIT_ROWS).sum())
+        assert n_top >= 157 + 26
+        assert bool(torch.all(units[:n_top, 0].unique() == near))
+        assert float(cls[n_top - 1]) > float(cls[n_top])
