@@ -13,10 +13,12 @@ fatal on failure and each printing its seconds:
      plan (1M particles, 192^3 mesh, 32^3 cells of capacity 64), run K1
      (CIC deposit), K2 (fd4 gather) and K3 (short-range pairs) and their
      plain PyTorch versions on the same inputs, hold each kernel against
-     its plain version and time both with CUDA events; K3 again on a
-     clustered state whose largest cell holds several thousand particles
-     (half the sampled rows from it); K3's plan of units built on the card
-     against its plain version on both states;
+     its plain version and time both with CUDA events (K1 and K2 also as
+     CUDA graphs of calls: device time without the wrappers' host work);
+     K3 again on a clustered state whose largest cell holds several
+     thousand particles (half the sampled rows from it), and K1 and K2
+     there too; K3's plan of units built on the card against its plain
+     version on both states;
   3. stepper path: reset the launch counters, build the engine from
      treepm_1m.json through SimulationBuilder (2LPT ICs from a seeded
      torch.Generator) and run 32 steps; K1-K3 must have launched,
@@ -130,7 +132,8 @@ Then this slice's paths:
      K9 against its plain version on the run's final 1M state (the
      kernels line's K9 numbers), and K3 against its plain version on that
      state bucketed by the run's plan (half the sampled rows from the
-     fullest cell), with its plan against the plain one.
+     fullest cell), with its plan against the plain one, and K1 and K2
+     against theirs on the same buckets, timed there.
 
 The CLI phase also validates the treepm_1m state's forces through the
 stateless treepm solver.
@@ -157,8 +160,10 @@ CONFIG = os.path.join(ROOT, "examples", "configs", "treepm_1m.json")
 N_STEPS = 32
 
 # kernel-vs-plain tolerances, relative to the largest magnitude of the
-# plain result (float32 sums taken in another order: the deposit's
-# atomics, the gather's per-corner differences, the pair sums' order)
+# plain result (float32 sums taken in another order: the deposit's global
+# adds land in an order that changes from run to run, a dense tile's part
+# summed exactly in its window and rounded once; the gather's per-corner
+# differences; the pair sums' order)
 TOL = {"cic_deposit": 1e-5, "fd4_gather": 1e-4, "short_range": 1e-4}
 
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): float32 outside the
@@ -336,8 +341,14 @@ def kernel_phase(fs, kw, device, card):
     check("K1", rel <= TOL["cic_deposit"], f"rel err {rel} > tol", failures)
     check("K1", int(drop_k) == int(drop_p) > 0, "drop counts differ or 0",
           failures)
+    # K1 and K2: eager wrapper calls (the stepper's cost, host work
+    # included: the kernels line's ms) and their device time alone, from
+    # a CUDA graph of calls
+    graph = {}
     ms = cuda_ms(lambda: pm_rods.cic_deposit(bpos, fs.bmass, counts, **geo),
                  20)
+    graph["cic_deposit"] = graph_ms(lambda: pm_rods.cic_deposit(
+        bpos, fs.bmass, counts, **geo), 20)
     pms = cuda_ms(lambda: pm_rods.cic_deposit_plain(bpos, fs.bmass, counts,
                                                     **geo), 5)
     rec["cic_deposit"] = (err, rel, ms, pms) + bound(*need["cic_deposit"])
@@ -356,6 +367,8 @@ def kernel_phase(fs, kw, device, card):
     check("K2", rel <= TOL["fd4_gather"], f"rel err {rel} > tol", failures)
     check("K2", dead_max == 0.0, "dead slots not zero", failures)
     ms = cuda_ms(lambda: pm_rods.fd4_gather(phi, bpos, counts, **geo), 20)
+    graph["fd4_gather"] = graph_ms(lambda: pm_rods.fd4_gather(
+        phi, bpos, counts, **geo), 20)
     pms = cuda_ms(lambda: pm_rods.fd4_gather_plain(phi, bpos, counts, **geo),
                   5)
     rec["fd4_gather"] = (err, rel, ms, pms) + bound(*need["fd4_gather"])
@@ -388,10 +401,14 @@ def kernel_phase(fs, kw, device, card):
     check("K3 clustered", crel <= TOL["short_range"],
           f"rel err {crel} > tol", failures)
     plan_check(ccounts, ncell, "clustered state")
+    pm_kernel_check(cbpos, cbmass, ccounts, kw, device, card,
+                    "clustered state")
     for name, (e, r, k_ms, p_ms, b_ms, b_by) in rec.items():
-        print(f"{name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}) at the 1M/192^3 plan (ncell {ncell}, "
-              f"capacity {cap}) on {card}")
+        dev_ms = (f" (device time {graph[name]:.4f} ms as a CUDA graph)"
+                  if name in graph else "")
+        print(f"{name}: kernel {k_ms:.4f} ms{dev_ms}, plain {p_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}) at the 1M/192^3 plan (ncell "
+              f"{ncell}, capacity {cap}) on {card}")
     if failures:
         raise AssertionError("kernel phase: " + "; ".join(failures))
     return rec
@@ -1197,16 +1214,17 @@ def science_phase(device, card):
         torch.from_numpy(final["pos_f"]).to(device),
         torch.from_numpy(final["masses"]).to(device), g["box"],
         g["softening"], "the science run's final clustered state", card)
-    science_k3_check(final, g, device, card)
+    science_kernel_check(final, g, device, card)
     return launches, k9
 
 
-def science_k3_check(final, g, device, card):
+def science_kernel_check(final, g, device, card):
     """K3 against its plain version on the science run's final state,
     bucketed afresh by the run's own engine plan (ncell 16, capacity 8192,
     vpu5; particles past a full cell's capacity are left out and counted),
     on 4096 sampled live rows, half of them from the fullest cell; the
-    card's plan against its plain version."""
+    card's plan against its plain version; K1 and K2 against theirs on
+    the same buckets, each timed there."""
     import torch
     from lambda_cdm_tpu_torch import science_run
     from lambda_cdm_tpu_torch.ops.bucketed_pm import live_counts
@@ -1229,6 +1247,60 @@ def science_k3_check(final, g, device, card):
           f"max_abs_err {err:.3e} (rel {rel:.3e}, tol "
           f"{TOL['short_range']:g}); {json.dumps(timing)} on {card}")
     check("K3 science", rel <= TOL["short_range"], f"rel err {rel} > tol")
+    pm_kernel_check(fs.bpos, fs.bmass, counts, kw, device, card,
+                    "science run's final state")
+
+
+def pm_kernel_check(bpos, bmass, counts, kw, device, card, label):
+    """K1 and K2 against their plain versions on one bucket layout (K2 on
+    the potential of that deposit), plain's drop count, 0 on dead slots;
+    both kernels timed eagerly and as CUDA graphs, beside their wrappers'
+    memsets."""
+    import torch
+    from lambda_cdm_tpu_torch.ops import bucketed_pm, pm_rods
+    ng, box = kw["ng"], kw["box_size"]
+    geo = dict(ncell=kw["ncell"], ng=ng, box_size=box, margin=kw["margin"])
+    grid_k, drop_k = pm_rods.cic_deposit(bpos, bmass, counts, **geo)
+    grid_p, drop_p = pm_rods.cic_deposit_plain(bpos, bmass, counts, **geo)
+    derr, drel = rel_err(grid_k, grid_p)
+    green = bucketed_pm._greens(ng, float(box), float(kw["rs"]), str(device))
+    phi = torch.fft.irfftn(green * torch.fft.rfftn(grid_p / (box / ng) ** 3),
+                           s=(ng, ng, ng)).contiguous()
+    del grid_k, grid_p
+    acc_k = pm_rods.fd4_gather(phi, bpos, counts, **geo)
+    acc_p = pm_rods.fd4_gather_plain(phi, bpos, counts, **geo)
+    live = torch.arange(bmass.shape[1], device=device)[None] < counts[:, None]
+    gerr, grel = rel_err(acc_k, acc_p, live[None])
+    dead_max = float(torch.where(live[None], 0.0, acc_k).abs().max())
+    del acc_k, acc_p
+
+    def k1():
+        return pm_rods.cic_deposit(bpos, bmass, counts, **geo)
+
+    def k2():
+        return pm_rods.fd4_gather(phi, bpos, counts, **geo)
+
+    k1_ms, k2_ms = cuda_ms(k1, 10), cuda_ms(k2, 10)
+    k1_dev, k2_dev = graph_ms(k1, 10), graph_ms(k2, 10)
+    # the wrappers' memsets (the grid; K2's [3, C, K] output, which gives
+    # the dead slots their 0), as CUDA graphs
+    grid_set = graph_ms(lambda: torch.zeros((ng, ng, ng), device=device), 10)
+    out_set = graph_ms(lambda: torch.zeros_like(bpos), 10)
+    tiles = pm_rods.tile_plan(geo["ncell"], ng, geo["margin"])
+    print(f"K1/K2 ({label}: ncell {geo['ncell']}, capacity "
+          f"{bmass.shape[1]}, tiles {json.dumps(tiles)}, fullest cell "
+          f"{int(counts.max())}): K1 max_abs_err {derr:.3e} "
+          f"(rel {drel:.3e}, tol {TOL['cic_deposit']:g}), dropped kernel "
+          f"{int(drop_k)} plain {int(drop_p)}, {k1_ms:.4f} ms eager, "
+          f"{k1_dev:.4f} ms as a CUDA graph (grid memset {grid_set:.4f}); K2 "
+          f"max_abs_err {gerr:.3e} on live slots (rel {grel:.3e}, tol "
+          f"{TOL['fd4_gather']:g}), dead-slot max {dead_max:g}, "
+          f"{k2_ms:.4f} ms eager, {k2_dev:.4f} ms as a CUDA graph (output "
+          f"memset {out_set:.4f}) on {card}")
+    check(f"K1 ({label})", drel <= TOL["cic_deposit"], f"rel err {drel}")
+    check(f"K1 ({label})", int(drop_k) == int(drop_p), "drop counts differ")
+    check(f"K2 ({label})", grel <= TOL["fd4_gather"], f"rel err {grel}")
+    check(f"K2 ({label})", dead_max == 0.0, "dead slots not zero")
 
 
 def direct_inputs(n: int, box: float, seed: int, device):

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Time K3 and K9 of several checkouts of the PyTorch port on one card, on
-the same inputs, in turns (for a before/after comparison).
+"""Time K1, K2, K3 and K9 of several checkouts of the PyTorch port on one
+card, on the same inputs, in turns (for a before/after comparison).
 
     python3 kernel_ab.py --root OLD --root . --root . --root OLD \\
         [--record RECORD.npz]
 
 Needs one CUDA card and nvcc. The inputs are made once, with the port in
 this script's directory, and written to a temporary directory as npz
-(live slots only, about 80 MB; removed at the end):
+(live slots and each state's potential, about 250 MB; removed at the
+end):
 
   treepm_1m    examples/configs/treepm_1m.json's initial buckets (1M
                particles, plan ncell 32, capacity 64);
@@ -24,15 +25,23 @@ this script's directory, and written to a temporary directory as npz
   k9_1m        the record's final 1M positions (else 1M uniform),
                softening 0.1.
 
+Each bucket state also carries the potential of its plain deposit (at
+its plan's 192^3 mesh and split scale) for K2.
+
 Then one process a --root, in the order given, imports that root's
-lambda_cdm_tpu_torch (building its kernels there) and times K3 (vpu3 on
-every state; vpu, vpu2 and mxu on treepm_1m) and K9 with CUDA events, and
-prints one JSON line with each result's SHA-256 (K3: the raw bytes of the
-[3, C, K] output; K9: U as a float64) and the static instruction mix of
-K9's, K3's and K4's functions in its library (cuobjdump -sass: FRND and
-MUFU against FADD, FMUL and FFMA). A line a result then says which roots
-gave the first root's bytes; the last line holds every root's numbers and
-the card.
+lambda_cdm_tpu_torch (building its kernels there) and times, on every
+bucket state: K3 (vpu3; vpu, vpu2 and mxu on treepm_1m) with CUDA
+events; K1 and K2 twice, as eager wrapper calls between CUDA events (what
+the stepper pays, host work included) and as device time from a CUDA
+graph of the same calls (each call's memset included); and K9 with CUDA
+events. It prints one JSON line with each result's SHA-256 (K2 and
+K3: the raw bytes of the [3, C, K] output; K9: U as a float64; K1: its
+grid where two calls give equal bytes, else none) and the static
+instruction mix of K1's, K2's, K3's, K4's and K9's functions in its
+library (cuobjdump -sass: FRND and MUFU against FADD, FMUL and FFMA;
+global reductions and atomics, shared atomics, shared and global loads).
+A line a result then says which roots gave the first root's bytes; the
+last line holds every root's numbers and the card.
 """
 
 from __future__ import annotations
@@ -52,15 +61,22 @@ K3_REPS = {"treepm_1m": 20, "clustered": 3, "clustered_last": 3,
            "science_z24": 3, "science_z0": 3, "science_z0_last": 3}
 ROW7 = ("vpu", "vpu2", "mxu")
 K9_REPS = {"k9_131k": 3, "k9_1m": 1}
+PM_REPS = 20
 # the kernel functions whose instruction mix each root reports
 SASS_KERNELS = ("pair_potential_kernel", "short_range_kernel",
-                "direct_kernel")
+                "direct_kernel", "cic_deposit_kernel", "fd4_gather_kernel")
+# SASS mnemonics counted together
+SASS_FAMILIES = {"FADD": "FP32", "FMUL": "FP32", "FFMA": "FP32",
+                 "FRND": "FRND", "MUFU": "MUFU", "RED": "RED", "REDG": "RED",
+                 "ATOM": "ATOM", "ATOMG": "ATOM", "ATOMS": "ATOMS",
+                 "LDS": "LDS", "LDG": "LDG"}
 
 
 def sass_mix(lib: str) -> dict:
-    """{function: {FRND, MUFU, FP32 (FADD + FMUL + FFMA), all: static
-    instruction counts}} of the SASS_KERNELS functions in the shared
-    library `lib` (cuobjdump -sass), or {} without cuobjdump."""
+    """{function: {FRND, MUFU, FP32 (FADD + FMUL + FFMA), RED (global
+    reductions), ATOM (global atomics), ATOMS (shared atomics), LDS, LDG,
+    all: static instruction counts}} of the SASS_KERNELS functions in the
+    shared library `lib` (cuobjdump -sass), or {} without cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return {}
@@ -73,14 +89,14 @@ def sass_mix(lib: str) -> dict:
             cur = m.group(1) if any(k in m.group(1) for k in SASS_KERNELS) \
                 else None
             if cur:
-                out[cur] = {"FRND": 0, "MUFU": 0, "FP32": 0, "all": 0}
+                out[cur] = dict.fromkeys(sorted(set(SASS_FAMILIES.values()))
+                                         + ["all"], 0)
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)",
                      line)
         if cur and m:
-            op = m.group(1)
-            key = "FP32" if op in ("FADD", "FMUL", "FFMA") else op
-            if key in out[cur]:
+            key = SASS_FAMILIES.get(m.group(1))
+            if key:
                 out[cur][key] += 1
             out[cur]["all"] += 1
     return out
@@ -93,19 +109,27 @@ def _sha(t) -> str:
 
 
 def _k3_state(fs, kw, path):
-    """Save a live-first bucket state's live slots, counts and geometry."""
+    """Save a live-first bucket state's live slots, counts and geometry,
+    and the potential of its plain deposit (K2's input)."""
     import numpy as np
     import torch
-    from lambda_cdm_tpu_torch.ops.bucketed_pm import live_counts
-    counts = live_counts(fs.bmass)
+    from lambda_cdm_tpu_torch.ops import bucketed_pm, pm_rods
+    counts = bucketed_pm.live_counts(fs.bmass)
     cap = fs.bmass.shape[1]
     live = torch.arange(cap, device=counts.device)[None] < counts[:, None]
+    ng, box = kw["ng"], float(kw["box_size"])
+    pm = dict(ncell=kw["ncell"], ng=ng, box_size=box, margin=kw["margin"])
+    grid, _ = pm_rods.cic_deposit_plain(fs.bpos, fs.bmass, counts, **pm)
+    green = bucketed_pm._greens(ng, box, float(kw["rs"]),
+                                str(fs.bpos.device))
+    phi = torch.fft.irfftn(green * torch.fft.rfftn(grid / (box / ng) ** 3),
+                           s=(ng, ng, ng))
     np.savez(path, counts=counts.cpu().numpy(),
              pos=fs.bpos[:, live].cpu().numpy(),
-             mass=fs.bmass[live].cpu().numpy(),
+             mass=fs.bmass[live].cpu().numpy(), phi=phi.cpu().numpy(),
+             pm=json.dumps(pm),
              geo=json.dumps({"ncell": kw["ncell"], "capacity": cap,
-                             "box_size": float(kw["box_size"]),
-                             "rs": float(kw["rs"]),
+                             "box_size": box, "rs": float(kw["rs"]),
                              "softening": float(kw["softening"])}))
 
 
@@ -192,9 +216,48 @@ def make_inputs(out: str, record: str | None) -> list:
     return names
 
 
+def _graph_ms():
+    """chip_smoke.graph_ms of this script's checkout: device milliseconds
+    a call from one CUDA graph of calls (K1 and K2 take less than their
+    wrappers' host time, so an eager loop would time the host)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "kernel_ab_chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.graph_ms
+
+
+def pm_kernels(res, name, z, bpos, bmass, counts, device) -> None:
+    """Time K1 and K2 on one bucket state into res, PM_REPS calls each,
+    eagerly (`ms`) and as a CUDA graph (`graph_ms`); hash K2's output and
+    K1's where two calls agree."""
+    import torch
+    from lambda_cdm_tpu_torch.ops import cuda_build, pm_rods
+    graph_ms = _graph_ms()
+    pm = json.loads(str(z["pm"]))
+    phi = torch.from_numpy(z["phi"]).to(device)
+
+    def k1():
+        return pm_rods.cic_deposit(bpos, bmass, counts, **pm)
+
+    def k2():
+        return pm_rods.fd4_gather(phi, bpos, counts, **pm)
+
+    grid, again = k1()[0], k1()[0]
+    res[f"{name}/K1"] = {"ms": cuda_build.cuda_ms(k1, PM_REPS),
+                         "graph_ms": graph_ms(k1, PM_REPS),
+                         "sha256": _sha(grid)
+                         if torch.equal(grid, again) else None}
+    acc = k2()
+    res[f"{name}/K2"] = {"ms": cuda_build.cuda_ms(k2, PM_REPS),
+                         "graph_ms": graph_ms(k2, PM_REPS),
+                         "sha256": _sha(acc)}
+
+
 def worker(root: str, out: str, names: list) -> dict:
-    """Time the K3 and K9 of the port under `root` on the inputs in
-    `out`."""
+    """Time the K1, K2, K3 and K9 of the port under `root` on the inputs
+    in `out`."""
     import numpy as np
     import torch
     sys.path.insert(0, os.path.abspath(root))
@@ -225,6 +288,8 @@ def worker(root: str, out: str, names: list) -> dict:
             ms = cuda_build.cuda_ms(lambda: short_range.short_range(
                 bpos, bmass, counts, variant=v, **geo), K3_REPS[name])
             res[f"{name}/{v}"] = {"ms": ms, "sha256": _sha(acc)}
+        del acc
+        pm_kernels(res, name, z, bpos, bmass, counts, device)
     return res
 
 
@@ -266,16 +331,22 @@ def main() -> int:
     for r in runs:
         for fn, mix in sorted(r["sass"].items()):
             print(f"sass {r['root']} {fn}: {json.dumps(mix)}")
-    for key in runs[0]:
-        if key in ("root", "sass"):
-            continue
-        ms = ", ".join(f"{r['root']} {r[key]['ms']:.4f}" for r in runs)
-        same = ", ".join(r["root"] for r in runs
-                         if r[key]["sha256"] == runs[0][key]["sha256"])
-        line = f"{key}: ms {ms}; bytes equal to the first root's: {same}"
-        if "U" in runs[0][key]:
-            ref = runs[0][key]["U"]
-            dev = max(abs(r[key]["U"] - ref) / abs(ref) for r in runs)
+    keys = [k for r in runs for k in r if k not in ("root", "sass")]
+    for key in dict.fromkeys(keys):
+        have = [r for r in runs if key in r]
+        ms = ", ".join(f"{r['root']} {r[key]['ms']:.4f}" for r in have)
+        line = f"{key}: ms {ms}"
+        if "graph_ms" in have[0][key]:
+            ms = ", ".join(f"{r['root']} {r[key]['graph_ms']:.4f}"
+                           for r in have)
+            line += f"; as a CUDA graph, ms {ms}"
+        if have[0][key]["sha256"]:
+            same = ", ".join(r["root"] for r in have
+                             if r[key]["sha256"] == have[0][key]["sha256"])
+            line += f"; bytes equal to the first root's: {same}"
+        if "U" in have[0][key]:
+            ref = have[0][key]["U"]
+            dev = max(abs(r[key]["U"] - ref) / abs(ref) for r in have)
             line += f"; largest relative U difference {dev:.3e}"
         print(f"{line} on {card}")
     print(json.dumps({"card": card, "runs": runs}))

@@ -40,8 +40,10 @@ _F = ctypes.c_float
 
 # C signatures: (name, argtypes); every entry returns an int error code
 _SIGNATURES = {
-    "lcdm_cic_deposit": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "lcdm_fd4_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    "lcdm_cic_deposit": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
+                         _P],
+    "lcdm_fd4_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I,
+                        _P],
     "lcdm_short_range_plan": [_P, _P, _I, _P],
     "lcdm_short_range": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                          _F, _F, _P],

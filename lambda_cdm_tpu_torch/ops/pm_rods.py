@@ -8,6 +8,14 @@ does not take) and runs the plain version only for CPU tensors. Inputs:
 SoA bpos [3, C, K] float32, bmass [C, K] float32 and live-slot counts
 [C] int32 of a live-first bucket layout.
 
+Both kernels run one block a tile of cells (tile_plan) whose threads
+walk the tile's live rows laid end to end: no thread exists for a dead
+slot. K2 stages the tile's potential window (every point the drop rule
+and the fd4 stencil admit) in shared memory. K1 sums a tile's rows in a
+shared window of exact fixed-point sums and adds each nonzero point to
+the grid once (where the window does not fit, it pushes each row to the
+grid with pair reductions).
+
 Mesh coordinates are u = x * scale with scale = ng / box rounded once to
 float32, as the TPU kernels compute them, so a kernel and its plain
 version locate every particle identically.
@@ -20,6 +28,8 @@ outside it deposits nothing (counted in `dropped`) and gathers zero.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -47,6 +57,66 @@ def _check(bpos, bmass, counts, ncell):
     if tuple(counts.shape) != (cc,):
         raise ValueError(f"counts must be [{cc}]")
     return cap
+
+
+# shared memory a block may take (the H100's 227 KB opt-in, less what the
+# kernels declare statically)
+MAX_SMEM = 232448 - 1024
+# the largest K2 window with which a tile of 2^3 cells is taken (a larger
+# window leaves fewer blocks an SM); the largest K1 window (two 32-bit
+# words a point, reserved by every block of the launch)
+TILE_GATHER_BYTES = 64 * 1024
+DEPOSIT_WINDOW_BYTES = 32 * 1024
+
+
+def tile_plan(ncell: int, ng: int, margin: int = 1) -> dict:
+    """The kernels' tiling: a block a tile of `tile`^3 cells. K2:
+    `gather_tile` (2 where ncell is even and the window of 2^3 cells fits
+    in TILE_GATHER_BYTES, else 1) and its window `gather_win` points a side
+    (tile * ppc + 2 (margin + 1) + 4: the drop rule's corners and the fd4
+    stencil's +-2), staged in shared memory when it fits
+    (`gather_staged`). K1: `deposit_tile` (2 where ncell is even and that
+    window fits in DEPOSIT_WINDOW_BYTES, else 1) and its window
+    `deposit_win` (tile * ppc + 2 (margin + 1): the drop rule's corners),
+    in which each tile sums when it fits (`deposit_windowed`). Computed
+    once a geometry (the wrappers call it on every launch); the dict is
+    shared, so do not modify it."""
+    return _tile_plan(ncell, ng, margin, TILE_GATHER_BYTES,
+                      DEPOSIT_WINDOW_BYTES)
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_plan(ncell, ng, margin, gather_limit, deposit_limit):
+    ppc = ng // ncell
+
+    def gather_win(tile):
+        return tile * ppc + 2 * (margin + 1) + 4
+
+    def gather_bytes(tile):
+        w = gather_win(tile)
+        return 4 * (w ** 3 + 3 * w)
+
+    def deposit_win(tile):
+        return tile * ppc + 2 * (margin + 1)
+
+    def deposit_fits(tile):
+        return 8 * deposit_win(tile) ** 3 <= deposit_limit
+
+    gtile = 2 if ncell % 2 == 0 and gather_bytes(2) <= gather_limit else 1
+    dtile = 2 if ncell % 2 == 0 and deposit_fits(2) else 1
+    return {"gather_tile": gtile, "gather_win": gather_win(gtile),
+            "gather_staged": gather_bytes(gtile) <= MAX_SMEM,
+            "deposit_tile": dtile, "deposit_win": deposit_win(dtile),
+            "deposit_windowed": deposit_fits(dtile)}
+
+
+def _check_kernel_geometry(ncell, ng, margin):
+    if ng % ncell:
+        raise ValueError(f"PM grid {ng} must be a multiple of ncell {ncell}")
+    if ng ** 3 >= 2 ** 31 or margin + 3 >= ng or ncell >= 1024:
+        raise ValueError(
+            f"PM grid {ng} on {ncell} cells with margin {margin}: the "
+            f"kernels take ng^3 < 2^31, margin + 3 < ng and ncell < 1024")
 
 
 def _mesh_scale(ng, box_size) -> float:
@@ -120,8 +190,8 @@ def cic_deposit(bpos, bmass, counts, *, ncell: int, ng: int,
     cuda_build.require_cuda("cic_deposit", bpos, bmass, counts,
                             dtypes=(torch.float32, torch.float32,
                                     torch.int32))
-    if ng % ncell:
-        raise ValueError(f"PM grid {ng} must be a multiple of ncell {ncell}")
+    _check_kernel_geometry(ncell, ng, margin)
+    tp = tile_plan(ncell, ng, margin)
     grid = torch.zeros((ng, ng, ng), dtype=torch.float32,
                        device=bpos.device)
     dropped = torch.zeros((), dtype=torch.int32, device=bpos.device)
@@ -129,7 +199,8 @@ def cic_deposit(bpos, bmass, counts, *, ncell: int, ng: int,
     cuda_build.launch("lcdm_cic_deposit", bpos.data_ptr(),
                       bmass.data_ptr(), counts.data_ptr(), grid.data_ptr(),
                       dropped.data_ptr(), ncell, cap, ng, margin,
-                      _mesh_scale(ng, box_size))
+                      _mesh_scale(ng, box_size), tp["deposit_tile"],
+                      int(tp["deposit_windowed"]))
     return grid, dropped
 
 
@@ -178,12 +249,13 @@ def fd4_gather(phi, bpos, counts, *, ncell: int, ng: int, box_size: float,
                                     torch.int32))
     if tuple(phi.shape) != (ng, ng, ng):
         raise ValueError(f"phi must be [{ng}, {ng}, {ng}]")
-    if ng % ncell:
-        raise ValueError(f"PM grid {ng} must be a multiple of ncell {ncell}")
-    out = torch.zeros_like(bpos)
+    _check_kernel_geometry(ncell, ng, margin)
+    tp = tile_plan(ncell, ng, margin)
+    out = torch.zeros_like(bpos)        # the kernel writes live slots
     launches["fd4_gather"] += 1
     cuda_build.launch("lcdm_fd4_gather", phi.data_ptr(), bpos.data_ptr(),
                       counts.data_ptr(), out.data_ptr(), ncell, cap, ng,
                       margin, _mesh_scale(ng, box_size),
-                      _inv_12h(ng, box_size))
+                      _inv_12h(ng, box_size), tp["gather_tile"],
+                      int(tp["gather_staged"]))
     return out

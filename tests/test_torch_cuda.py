@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(K1 CIC deposit, K2 fd4 gather, K3 short-range pairs in each split form,
+(K1 CIC deposit, K2 fd4 gather, also on a 5,000-row cell and a mostly
+dead layout, K3 short-range pairs in each split form,
 K4/K4s direct sums, K5 FoF hook, K6/K7 lens samplers, K8 rod-dense
 pairs, K9 pair potential, K10 alias probe), and the treepm_fast stepper,
 fof_labels, the `direct` solver and the lensing trace on the card against
@@ -60,7 +61,9 @@ def test_cic_deposit_kernel(cuda_device, push):
     assert pm_rods.launches["cic_deposit"] == before + 1
     ref, rdrop = pm_rods.cic_deposit_plain(bpos, bmass, counts, **geo)
     torch.cuda.synchronize()
-    # float32 atomics in another order: a few ulps of a cell's sum
+    # each grid point sums the same float32 terms as plain in another
+    # order (global adds as they land; a dense tile's part summed exactly
+    # in its window and rounded once): a few ulps of a point's sum
     assert _rel(grid, ref) < 1e-5
     assert int(drop) == int(rdrop)
     assert (int(drop) > 0) == (push > 0)
@@ -80,6 +83,73 @@ def test_fd4_gather_kernel(cuda_device):
     assert _rel(got, ref) < 1e-5
     live = torch.arange(128, device=cuda_device)[None] < counts[:, None]
     assert bool(torch.all(got[:, ~live] == 0))
+
+
+def _pm_kernels_vs_plain(device, bpos, bmass, counts, ncell, ng, box):
+    """K1 and K2 against their plain versions: the existing bars (1e-5 of
+    the largest value), plain's drop count, 0 on every dead and dropped
+    slot."""
+    geo = dict(ncell=ncell, ng=ng, box_size=box)
+    grid, drop = pm_rods.cic_deposit(bpos, bmass, counts, **geo)
+    ref, rdrop = pm_rods.cic_deposit_plain(bpos, bmass, counts, **geo)
+    gen = torch.Generator(device=device).manual_seed(3)
+    phi = torch.randn((ng, ng, ng), generator=gen, device=device)
+    got = pm_rods.fd4_gather(phi, bpos, counts, **geo)
+    gref = pm_rods.fd4_gather_plain(phi, bpos, counts, **geo)
+    torch.cuda.synchronize()
+    assert _rel(grid, ref) < 1e-5
+    assert int(drop) == int(rdrop) > 0
+    assert _rel(got, gref) < 1e-5
+    assert bool(torch.all(got[gref == 0] == 0))
+    cap = bmass.shape[1]
+    live = torch.arange(cap, device=device)[None] < counts[:, None]
+    assert bool(torch.all(got[:, ~live] == 0))
+
+
+@pytest.mark.parametrize("ncell,ng", [(8, 32), (5, 40)])
+def test_pm_kernels_heavy_cell(cuda_device, ncell, ng):
+    """A cell of over 5,000 rows (capacity 8192): K1 sums its tile in the
+    tile's window, K2 walks it in one block's loop; tiles of 2^3 cells
+    (ncell 8) and of one (ncell 5)."""
+    box = 32.0
+    centre = (box / ncell) * (ncell // 2 + 0.5)
+    pos, m = clustered_particles(20000, box, 5, n_clump=6000, sigma=0.3,
+                                 centre=(centre,) * 3)
+    bpos, bmass, counts = _state(cuda_device, pos, m, box, ncell, 8192,
+                                 0.05)
+    assert int(counts.max()) > 5000
+    _pm_kernels_vs_plain(cuda_device, bpos, bmass, counts, ncell, ng, box)
+
+
+@pytest.mark.parametrize("ncell,ng,cap,windowed,staged", [
+    (2, 32, 4096, False, True), (1, 40, 20480, False, False),
+    (3, 27, 1024, True, True), (3, 51, 1024, False, True)])
+def test_pm_kernels_other_paths(cuda_device, ncell, ng, cap, windowed,
+                                staged):
+    """Geometries that take the kernels' other paths (pm_rods.tile_plan):
+    K1 pushing rows to the grid where no window fits (ppc 16, 40, 17), K2
+    reading the potential from global memory where its window does not
+    fit (ncell 1: 48^3 points), and odd ng (27, 51: K1's scalar adds
+    instead of pairs, from its window and from pushed rows)."""
+    box = 32.0
+    tp = pm_rods.tile_plan(ncell, ng)
+    assert (tp["deposit_windowed"], tp["gather_staged"]) == (windowed,
+                                                             staged)
+    pos, m = uniform_particles(20000, box, 7)
+    bpos, bmass, counts = _state(cuda_device, pos, m, box, ncell, cap,
+                                 0.05)
+    _pm_kernels_vs_plain(cuda_device, bpos, bmass, counts, ncell, ng, box)
+
+
+def test_pm_kernels_mostly_dead(cuda_device):
+    """Capacity 1024 for ~39 live rows a cell: 96% dead slots, which no
+    thread walks and which K2 writes as 0."""
+    box, ncell, ng = 32.0, 8, 32
+    pos, m = uniform_particles(20000, box, 6)
+    bpos, bmass, counts = _state(cuda_device, pos, m, box, ncell, 1024,
+                                 0.05)
+    assert float(counts.sum()) < 0.05 * counts.numel() * 1024
+    _pm_kernels_vs_plain(cuda_device, bpos, bmass, counts, ncell, ng, box)
 
 
 @pytest.mark.parametrize("clustered", [False, True])
