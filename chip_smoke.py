@@ -43,7 +43,11 @@ fatal on failure and each printing its seconds:
      its plain version on sampled rows (exactly equal labels), fof_labels
      on a 131,072-particle subset against a scipy cKDTree + connected-
      components oracle (exactly equal labels), fof_labels and find_halos
-     at 1M (converged before max_rounds);
+     at 1M (converged before max_rounds), find_halos's split (plan,
+     _fof_setup, the rounds with K5's share of them, the overflow
+     adoption, the catalogue; a synchronise after each part; its labels
+     and rounds equal to fof_labels'), and K5's first sweep on each cell
+     level fof_plan weighs, in the plan's order;
   6. CLI phase: treepm_1m.json as shipped through the CLI's
      _build_engine -> initialize -> run for 40 steps with every observer
      the config asks for (P(k) every 20 steps, FoF halos, snapshot and
@@ -62,16 +66,18 @@ fatal on failure and each printing its seconds:
      n(n-1)/2 unordered pairs the sum needs;
   9. K4 phase: 100,000 particles uniform in a 100 Mpc/h box (unit
      masses, softening 0.05: the JAX package's bench.py direct figure),
-     K4 (v1, v2) and K4s (sym, sym2) against their plain versions and
-     timed; K4 also at two and three ragged tiles and without the
-     minimum image (no path of the port runs K4s: its launches are read
-     from the direct_10k run, and are 0);
+     K4 (v1, v2) and K4s (sym, sym2) against their plain versions, two
+     calls equal bit for bit, and timed; K4 also at two and three ragged
+     tiles and without the minimum image; the image's range flag clear
+     (no path of the port runs K4s: its launches are read from the
+     direct_10k run, and are 0);
  10. direct_10k phase: examples/configs/direct_10k.json at full size
      (10,648 particles, direct solver) through the CLI's engine for its
      500 steps with its energy and momentum observers; K4 must have
      launched once at the start, once a step and twice for the
      force-fraction timing; then validate_force_accuracy on the final
-     state;
+     state, and K4 against its plain version there (the kernels line's
+     K4 numbers), two calls equal;
  11. stateless pm/treepm phase (plain PyTorch, no TPU kernel on their
      path): pm_128_256.json (2,097,152 particles, 256^3) and
      basic_lambda_cdm.json (262,144 particles, treepm on 128^3) at full
@@ -129,7 +135,8 @@ Then this slice's paths:
      K1-K3, K5 and K9 must have launched, overflow and drops 0, every
      check of its certificate must pass; then --analyze-only on the
      record (certificate and record in chiprun_out/chip_smoke_science/),
-     K9 against its plain version on the run's final 1M state (the
+     find_halos's split on the run's final state (as in phase 5), K9
+     against its plain version on the run's final 1M state (the
      kernels line's K9 numbers), and K3 against its plain version on that
      state bucketed by the run's plan (half the sampled rows from the
      fullest cell), with its plan against the plain one, and K1 and K2
@@ -600,6 +607,91 @@ def fof_oracle(pos, box: float, b: float):
     return least[comp], int(link.sum()), int((fwd != bwd).sum())
 
 
+def find_halos_split(pos, vel, mass, box: float, factor: float):
+    """halo_finder.find_halos step by step, with a synchronise after each
+    part -> ({seconds for fof_plan, _fof_setup, the rounds (K5's share of
+    them from CUDA events around each sweep), the overflow adoption and
+    the catalogue (group count, window plan, catalog_from_labels); the
+    rounds, plan, overflow and halo count}, the labels): its labels and
+    rounds must equal fof_labels'."""
+    import torch
+    from lambda_cdm_tpu_torch.analysis import halo_finder as hf
+    from lambda_cdm_tpu_torch.ops import fof_hook
+    n = pos.shape[0]
+    b = factor * box / n ** (1.0 / 3.0)
+    live = mass > 0
+    out = {}
+
+    def lap(name, t0):
+        torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    plan = hf.fof_plan(n, box, b, positions=pos, live=live)
+    t = lap("plan_s", t)
+    ncell, cap = plan["ncell"], plan["capacity"]
+    bxyz, _, counts, pslot, slot_particle, ovf = hf._fof_setup(
+        pos, live, box, ncell, cap)
+    t = lap("setup_s", t)
+    sweeps = []
+
+    def hook(*args, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        res = fof_hook.fof_hook(*args, **kw)
+        ev[1].record()
+        sweeps.append(ev)
+        return res
+
+    lab = torch.arange(n, device=pos.device)
+    active = torch.ones(ncell ** 3, dtype=torch.int32, device=pos.device)
+    rounds = 0
+    while rounds < 64:
+        lab, changed, active = hf._fof_round(
+            lab, bxyz, counts, pslot, box_size=float(box),
+            linking_length=float(b), ncell=ncell, capacity=cap,
+            hook_fn=hook, active=active)
+        rounds += 1
+        if not bool(changed):
+            break
+    t = lap("rounds_s", t)
+    out["k5_s"] = 1e-3 * sum(e0.elapsed_time(e1) for e0, e1 in sweeps)
+    out["k5_sweeps_ms"] = [round(e0.elapsed_time(e1), 4)
+                           for e0, e1 in sweeps]
+    lab = hf._fof_adopt_overflow(lab, pslot, slot_particle, live, pos, box,
+                                 ncell=ncell, capacity=cap)
+    t = lap("adopt_s", t)
+    del bxyz, pslot, slot_particle
+    labels = lab.to(torch.int32)
+    n_groups = int(hf.count_groups(labels, min_particles=20))
+    max_halos = max(256, 1 << max(n_groups - 1, 0).bit_length())
+    window = (hf.catalog_window_plan(pos, box, live=live)
+              if n >= 200_000 else None)
+    cat = hf.catalog_from_labels(pos, vel, mass, labels, box,
+                                 max_halos=max_halos, min_particles=20,
+                                 window=window)
+    t = lap("catalogue_s", t)
+    out.update(rounds=rounds, overflow=int(ovf), plan=plan,
+               num_halos=int(cat.num_halos), total_s=sum(
+                   v for k, v in out.items() if k.endswith("_s")
+                   and k != "k5_s"))
+    return out, labels
+
+
+def print_split(label: str, split: dict, card: str) -> None:
+    print(f"find_halos split ({label}): plan {split['plan_s']:.3f}"
+          f" s, _fof_setup {split['setup_s']:.3f} s, {split['rounds']} "
+          f"rounds {split['rounds_s']:.3f} s (K5 {split['k5_s']:.4f} s of "
+          f"them; sweeps {split['k5_sweeps_ms']} ms), adoption "
+          f"{split['adopt_s']:.3f} s, catalogue {split['catalogue_s']:.3f} "
+          f"s; total {split['total_s']:.3f} s; plan {split['plan']}, "
+          f"overflow {split['overflow']}, {split['num_halos']} halos on "
+          f"{card}")
+
+
 def fof_phase(device, card):
     """K5 at 1M clustered: the plan, one sweep against the plain version,
     fof_labels on a subset against the oracle, fof_labels and find_halos
@@ -709,8 +801,68 @@ def fof_phase(device, card):
     check("K5 1M", rounds["converged"], "fof_labels did not converge")
     check("K5 1M", nh > 500 and bool(torch.all(torch.isfinite(
         cat.radius[:nh]))), "implausible halo catalogue")
+    split, split_labels = find_halos_split(
+        pos, vel, torch.ones(n, device=device), box, b * n ** (1 / 3) / box)
+    print_split("1M clustered", split, card)
+    check("K5 1M split", split["rounds"] == rounds["rounds"]
+          and bool(torch.equal(split_labels, labels))
+          and split["num_halos"] == nh, "the split differs from find_halos")
+    del split_labels, labels
+    fof_layouts(pos, live, box, b, plan, card)
     return {"ms": ms, "plain_ms": pms, "max_abs_err": float(mism),
             "bound_ms": b_ms, "bound_by": b_by, "rounds": rounds["rounds"]}
+
+
+def fof_layouts(pos, live, box: float, b: float, plan: dict, card) -> None:
+    """The layouts fof_plan weighs at the three finest cell levels (each
+    level's capacity of least overflow within the plan's 2 GB budget),
+    ranked as fof_plan ranks them (overflow within 0.1% of the particles
+    first, by the K5 cost model's slot visits; else by overflow, then
+    slot visits), beside K5's first sweep on each."""
+    import torch
+    from lambda_cdm_tpu_torch.analysis import halo_finder as hf
+    from lambda_cdm_tpu_torch.ops import fof_hook
+    n = pos.shape[0]
+    nmax = max(min(int(math.floor(box / b)), 128), 1)
+    nf = 1 << (nmax.bit_length() - 1)
+    caps = hf._FOF_CAPS
+    stats = hf._occupancy_pyramid(pos, live, box, nf, caps)
+    rows = []
+    for lvl, ncell in enumerate(hf._pyramid_levels(nf)[:3]):
+        max_occ, ovf_tab, sweep = stats[lvl]
+        cap_occ = max(16, 1 << (max(max_occ, 1) - 1).bit_length())
+        fit = [(0 if c >= max_occ else ovf_tab[k], c)
+               for k, c in enumerate(caps)
+               if c <= cap_occ and 16 * ncell ** 3 * c <= 2 << 30]
+        if not fit:
+            continue
+        ovf, cap = min(fit)
+        bxyz, _, counts, pslot, _, _ = hf._fof_setup(pos, live, box, ncell,
+                                                     cap)
+        nslots = ncell ** 3 * cap
+        lab = torch.full((nslots + 1,), n, dtype=torch.int32,
+                         device=pos.device)
+        lab[torch.where(pslot >= 0, pslot, nslots)] = torch.arange(
+            n, dtype=torch.int32, device=pos.device)
+        lab = lab[:nslots].reshape(ncell ** 3, cap)
+        kw = dict(ncell=ncell, capacity=cap, n_sentinel=n, box_size=box,
+                  linking_length=b)
+        ms = cuda_ms(lambda: fof_hook.fof_hook(*bxyz, lab, counts, None,
+                                               **kw), 5)
+        key = ((0, sweep, ovf) if ovf <= max(1, n // 1000)
+               else (1, ovf, sweep))
+        rows.append((key, ncell, cap, ovf, sweep, ms))
+        del bxyz, lab, pslot
+        torch.cuda.empty_cache()
+    print("K5 layouts fof_plan weighs: " + "; ".join(
+        f"ncell {nc} capacity {cap}: overflow {ovf}, model {w:.4e} slot "
+        f"visits, K5 first sweep {ms:.4f} ms" + (
+            " (the plan)" if (nc, cap) == (plan["ncell"], plan["capacity"])
+            else "") for _, nc, cap, ovf, w, ms in rows) + f" on {card}")
+    by_plan = [r[1] for r in sorted(rows)]
+    by_time = [r[1] for r in sorted(rows, key=lambda r: r[5])]
+    print(f"K5 layouts: fof_plan ranks the cell levels {by_plan}, K5's "
+          f"first sweep {by_time}")
 
 
 def cli_phase(device, card):
@@ -1210,6 +1362,13 @@ def science_phase(device, card):
     final = science_run.load_record(os.path.join(SCIENCE_OUT,
                                                  "science_record.npz"))
     g = science_run.geometry(False)
+    split, _ = find_halos_split(
+        *(torch.from_numpy(final[k]).to(device) for k in
+          ("pos_f", "vel_f", "masses")), g["box"], 0.2)
+    print_split("the science run's final state", split, card)
+    check("science FoF split", split["rounds"] == cert["fof"]["rounds"]
+          and split["plan"]["ncell"] == cert["fof"]["ncell"],
+          f"the split differs from the run's FoF {cert['fof']}")
     k9 = pair_potential_check(
         torch.from_numpy(final["pos_f"]).to(device),
         torch.from_numpy(final["masses"]).to(device), g["box"],
@@ -1314,7 +1473,9 @@ def direct_inputs(n: int, box: float, seed: int, device):
 
 def k4_phase(device, card):
     """K4 (v1, v2) and K4s (sym, sym2) at 100k against their plain
-    versions, timed; K4 at ragged tiles and without the minimum image."""
+    versions, two calls equal, timed; K4 at ragged tiles and without the
+    minimum image; the range flag clear."""
+    import torch
     from lambda_cdm_tpu_torch.ops import direct
     n, box, soft = 100_000, 100.0, 0.05
     pos, mass = direct_inputs(n, box, 41, device)
@@ -1324,8 +1485,11 @@ def k4_phase(device, card):
         kw = dict(periodic=True, variant=variant)
         name = "direct_sym" if variant.startswith("sym") else "direct"
         got = direct.pairwise_accelerations(pos, mass, box, soft, **kw)
+        again = direct.pairwise_accelerations(pos, mass, box, soft, **kw)
         ref = direct.pairwise_accelerations_plain(pos, mass, box, soft, **kw)
         err, rel = rel_err(got, ref)
+        check(f"K4 {variant}", bool(torch.equal(got, again)),
+              "two calls differ", failures)
         ms = cuda_ms(lambda: direct.pairwise_accelerations(
             pos, mass, box, soft, **kw), 10)
         pms = cuda_ms(lambda: direct.pairwise_accelerations_plain(
@@ -1352,6 +1516,7 @@ def k4_phase(device, card):
                   f"{rel:.3e} (tol {DIRECT_TOL[variant]:g})")
             check(f"K4 {variant} N={m_n}", rel <= DIRECT_TOL[variant],
                   f"rel err {rel} > tol", failures)
+    direct.check_range()
     if failures:
         raise AssertionError("K4 phase: " + "; ".join(failures))
     return out
@@ -1403,23 +1568,37 @@ def direct_phase(device, card):
         check("direct_10k", eng.last_energy_error is not None
               and eng.last_energy_error == eng.last_energy_error,
               "no energy error recorded")
-        # the step's split: one K4 launch at this N against the step
+        # the step's split: one K4 launch at this N against the step, and
+        # K4 against its plain version on the final state (the kernels
+        # line's K4 numbers: the shape of the path that launches it)
         from lambda_cdm_tpu_torch.ops import direct
-        k_ms = cuda_ms(lambda: direct.pairwise_accelerations(
-            st.positions, st.masses, cfg.particles.box_size,
-            cfg.forces.softening_length, cfg.units.G), 20)
+        args = (st.positions, st.masses, cfg.particles.box_size,
+                cfg.forces.softening_length, cfg.units.G)
+        k_ms = cuda_ms(lambda: direct.pairwise_accelerations(*args), 20)
+        got = direct.pairwise_accelerations(*args)
+        again = direct.pairwise_accelerations(*args)
+        ref = direct.pairwise_accelerations_plain(*args)
+        err, rel = rel_err(got, ref)
+        p_ms = cuda_ms(lambda: direct.pairwise_accelerations_plain(*args), 3)
+        direct.check_range()
         b_ms, b_by = bound(28.0 * n, DIRECT_FLOPS["direct"] * float(n) * n)
-        print(f"direct_10k: K4 at N={n} {k_ms:.4f} ms a launch (CUDA "
-              f"events, mean of 20; bound {b_ms:.4f} ms, {b_by}): "
-              f"{100 * k_ms / ms_step:.1f}% of the step; the rest is the "
-              f"fused KDK's elementwise launches and its host-side "
-              f"scale-factor arithmetic")
+        print(f"direct_10k: K4 at N={n} ({direct.j_slices(n)} j slices) "
+              f"{k_ms:.4f} ms a launch (CUDA events, mean of 20; bound "
+              f"{b_ms:.4f} ms, {b_by}): {100 * k_ms / ms_step:.1f}% of the "
+              f"step; the rest is the fused KDK's elementwise launches and "
+              f"its host-side scale-factor arithmetic; on the final state "
+              f"max_abs_err {err:.3e} (rel {rel:.3e}, tol "
+              f"{DIRECT_TOL['v1']:g}) against plain ({p_ms:.4f} ms), two "
+              f"calls {'equal' if torch.equal(got, again) else 'DIFFER'}")
+        check("direct_10k K4", rel <= DIRECT_TOL["v1"], f"rel err {rel}")
+        check("direct_10k K4", bool(torch.equal(got, again)),
+              "two calls differ")
         res = eng.validate_force_accuracy(n_sample=1024)
         print(f"direct_10k force validation (1024 targets): scale-normalized"
               f" avg {res['avg_err']:.4e} max {res['max_err']:.4e} against "
               f"the plain min-image oracle")
         check("direct_10k", res["max_err"] < 1e-4, "K4 forces disagree")
-        return launches
+        return launches, (err, rel, k_ms, p_ms, b_ms, b_by)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2712,7 +2891,8 @@ def main() -> int:
     timed("reference check", reference_check, device)
     timed("K9 phase", pair_potential_phase, device, card)
     k4 = timed("K4 phase", k4_phase, device, card)
-    k4_launches = timed("direct_10k phase", direct_phase, device, card)
+    k4_launches, k4_10k = timed("direct_10k phase", direct_phase, device,
+                                card)
     stateless_ms = timed("stateless pm/treepm phase", stateless_phase, device,
                          card)
     timed("stateless reference check", stateless_reference_check, device)
@@ -2729,7 +2909,7 @@ def main() -> int:
 
     rec["fof_hook"] = (k5["max_abs_err"], 0.0, k5["ms"], k5["plain_ms"],
                        k5["bound_ms"], k5["bound_by"])
-    rec["direct"] = k4["v1"]
+    rec["direct"] = k4_10k
     rec["direct_sym"] = k4["sym"]
     for name, r in lens.items():
         rec[name] = (r["max_abs_err"], 0.0, r["ms"], r["plain_ms"],

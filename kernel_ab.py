@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time K1, K2, K3 and K9 of several checkouts of the PyTorch port on one
+"""Time K1-K5 and K9 of several checkouts of the PyTorch port on one
 card, on the same inputs, in turns (for a before/after comparison).
 
     python3 kernel_ab.py --root OLD --root . --root . --root OLD \\
-        [--record RECORD.npz]
+        [--record RECORD.npz] [--only pm,k9,k4,k5]
 
 Needs one CUDA card and nvcc. The inputs are made once, with the port in
 this script's directory, and written to a temporary directory as npz
@@ -23,7 +23,23 @@ end):
                the fullest cell has the last cell id;
   k9_131k      131,072 uniform particles in 100 Mpc/h, softening 0.02;
   k9_1m        the record's final 1M positions (else 1M uniform),
-               softening 0.1.
+               softening 0.1;
+  k4_10k       examples/configs/direct_10k.json's state after
+               initialize() (10,648 particles: K4's j slices);
+  k4_100k      chip_smoke.direct_inputs(100_000, 100.0, 41), softening
+               0.05 (K4 at one slice);
+  k5_first     chip_smoke.fof_state(1_000_000, seed=21) bucketed on its
+               fof_plan, labels the particle indices, every cell active:
+               fof_labels' first sweep;
+  k5_late      the same buckets with the labels and active mask after
+               four rounds of halo_finder._fof_round (made here once);
+  fof_1m       the same positions (and seeded velocities) for fof_labels
+               and find_halos;
+  fof_science  with --record: the science run's final state for
+               find_halos on the science run's own FoF plan.
+
+--only keeps some groups: pm (the bucket states: K1-K3), k9, k4, k5 (K5
+states, fof_1m and fof_science).
 
 Each bucket state also carries the potential of its plain deposit (at
 its plan's 192^3 mesh and split scale) for K2.
@@ -33,15 +49,20 @@ lambda_cdm_tpu_torch (building its kernels there) and times, on every
 bucket state: K3 (vpu3; vpu, vpu2 and mxu on treepm_1m) with CUDA
 events; K1 and K2 twice, as eager wrapper calls between CUDA events (what
 the stepper pays, host work included) and as device time from a CUDA
-graph of the same calls (each call's memset included); and K9 with CUDA
-events. It prints one JSON line with each result's SHA-256 (K2 and
-K3: the raw bytes of the [3, C, K] output; K9: U as a float64; K1: its
-grid where two calls give equal bytes, else none) and the static
-instruction mix of K1's, K2's, K3's, K4's and K9's functions in its
-library (cuobjdump -sass: FRND and MUFU against FADD, FMUL and FFMA;
+graph of the same calls (each call's memset included); K9, K4 (v1 and
+v2) and K5 (one sweep) with CUDA events; fof_labels and find_halos with
+the host clock around calls that end in a synchronise. It prints one
+JSON line with each result's SHA-256 (K2 and K3: the raw bytes of the
+[3, C, K] output; K9: U as a float64; K1: its grid where two calls give
+equal bytes, else none; K4: the [N, 3] accelerations; K5: the [C, K]
+labels; fof_labels and find_halos: the particle labels) and the static
+instruction mix of K1's, K2's, K3's, K4's, K5's and K9's functions in
+its library (cuobjdump -sass: FRND and MUFU against FADD, FMUL and FFMA;
 global reductions and atomics, shared atomics, shared and global loads).
-A line a result then says which roots gave the first root's bytes; the
-last line holds every root's numbers and the card.
+A line a result then says which roots gave the first root's bytes (K5:
+and whether they are the plain version's, fof_hook_plain on the whole
+state), with the bound of K4 and K5 beside their times; the last line
+holds every root's numbers and the card.
 """
 
 from __future__ import annotations
@@ -61,10 +82,14 @@ K3_REPS = {"treepm_1m": 20, "clustered": 3, "clustered_last": 3,
            "science_z24": 3, "science_z0": 3, "science_z0_last": 3}
 ROW7 = ("vpu", "vpu2", "mxu")
 K9_REPS = {"k9_131k": 3, "k9_1m": 1}
+K4_REPS = {"k4_10k": 50, "k4_100k": 5}
+K5_REPS = 10
 PM_REPS = 20
+GROUPS = ("pm", "k9", "k4", "k5")
 # the kernel functions whose instruction mix each root reports
 SASS_KERNELS = ("pair_potential_kernel", "short_range_kernel",
-                "direct_kernel", "cic_deposit_kernel", "fd4_gather_kernel")
+                "direct_kernel", "cic_deposit_kernel", "fd4_gather_kernel",
+                "fof_hook_kernel")
 # SASS mnemonics counted together
 SASS_FAMILIES = {"FADD": "FP32", "FMUL": "FP32", "FFMA": "FP32",
                  "FRND": "FRND", "MUFU": "MUFU", "RED": "RED", "REDG": "RED",
@@ -158,8 +183,46 @@ def _fullest_last(fs, kw):
                       bmass=m.reshape(fs.bmass.shape))
 
 
-def make_inputs(out: str, record: str | None) -> list:
-    """Write every input to `out`; returns their names."""
+def _k4_state(path, pos, mass, box, soft, g):
+    """Save a direct-sum input and its K4 bound."""
+    import numpy as np
+    import chip_smoke
+    n = pos.shape[0]
+    b_ms, b_by = chip_smoke.bound(28.0 * n, chip_smoke.DIRECT_FLOPS["direct"]
+                                  * float(n) * n)
+    np.savez(path, pos=pos.cpu().numpy(), mass=mass.cpu().numpy(),
+             geo=json.dumps(dict(box_size=box, softening=soft, g_const=g)),
+             bound=json.dumps([b_ms, b_by]))
+
+
+def _k5_state(path, bxyz, lab, counts, active, geo):
+    """Save a K5 input (live slots only), the SHA-256 of fof_hook_plain's
+    sweep of it and K5's bound: the pair tests of the active cells' live
+    rows, 8 float operations each, against their bytes."""
+    import numpy as np
+    import torch
+    import chip_smoke
+    from lambda_cdm_tpu_torch.ops import fof_hook
+    from lambda_cdm_tpu_torch.ops.short_range import neighbour_load
+    cap = geo["capacity"]
+    live = torch.arange(cap, device=counts.device)[None] < counts[:, None]
+    kw = dict(ncell=geo["ncell"], capacity=cap, n_sentinel=geo["n"],
+              box_size=geo["box_size"], linking_length=geo["b"])
+    ref = fof_hook.fof_hook_plain(*bxyz, lab, counts, active, **kw)
+    swept = torch.where(active != 0, counts, 0).to(torch.float64)
+    pairs = float((swept * neighbour_load(counts, geo["ncell"])).sum())
+    b_ms, b_by = chip_smoke.bound(20 * float(swept.sum())
+                                  + 8 * counts.numel(),
+                                  chip_smoke.FLOPS["fof_hook"] * pairs)
+    np.savez(path, counts=counts.cpu().numpy(), active=active.cpu().numpy(),
+             xyz=torch.stack([t[live] for t in bxyz]).cpu().numpy(),
+             lab=lab[live].cpu().numpy(), geo=json.dumps(geo),
+             plain_sha256=_sha(ref), bound=json.dumps([b_ms, b_by, pairs]))
+
+
+def make_inputs(out: str, record: str | None, groups) -> list:
+    """Write every input of the given groups to `out`; returns their
+    names."""
     import numpy as np
     import torch
     sys.path.insert(0, ROOT)
@@ -169,50 +232,131 @@ def make_inputs(out: str, record: str | None) -> list:
     device = torch.device("cuda", 0)
     os.makedirs(out, exist_ok=True)
     names = []
-    cfg = SimulationConfig.from_file(chip_smoke.CONFIG)
-    cfg.profiling.output_file = ""
-    fs, kw = chip_smoke.main_path_state(cfg, device)
-    _k3_state(fs, kw, os.path.join(out, "treepm_1m.npz"))
-    bpos, bmass, _, cap = chip_smoke.clustered_state(kw, device)
-    cfs = fs.replace(bpos=bpos, bmass=bmass)
-    _k3_state(cfs, kw, os.path.join(out, "clustered.npz"))
-    _k3_state(_fullest_last(cfs, kw), kw,
-              os.path.join(out, "clustered_last.npz"))
-    names += ["treepm_1m", "clustered", "clustered_last"]
-    del fs
     g = science_run.geometry(False)
-    pos, vel, m_p = science_run.initial_conditions(g, device)
-    mass = torch.full((pos.shape[0],), m_p, device=device)
-    eng = science_run.plan_engine(g, pos, vel, mass,
-                                  1.0 / (1.0 + science_run.Z_INIT), device)
-    _k3_state(eng._fstate, eng._fast_kw, os.path.join(out,
-                                                      "science_z24.npz"))
-    names.append("science_z24")
-    del eng
-    gen = torch.Generator(device=device).manual_seed(31)
-    k9 = {"k9_131k": (torch.rand((131_072, 3), generator=gen,
-                                 device=device) * 100.0, 0.02)}
-    if record:
-        final = science_run.load_record(record)
-        eng = science_run.plan_engine(
-            g, *(torch.from_numpy(final[k]).to(device) for k in
-                 ("pos_f", "vel_f", "masses")), float(final["a_f"]), device)
+    final = science_run.load_record(record) if record else None
+    if "pm" in groups:
+        cfg = SimulationConfig.from_file(chip_smoke.CONFIG)
+        cfg.profiling.output_file = ""
+        fs, kw = chip_smoke.main_path_state(cfg, device)
+        _k3_state(fs, kw, os.path.join(out, "treepm_1m.npz"))
+        bpos, bmass, _, cap = chip_smoke.clustered_state(kw, device)
+        cfs = fs.replace(bpos=bpos, bmass=bmass)
+        _k3_state(cfs, kw, os.path.join(out, "clustered.npz"))
+        _k3_state(_fullest_last(cfs, kw), kw,
+                  os.path.join(out, "clustered_last.npz"))
+        names += ["treepm_1m", "clustered", "clustered_last"]
+        del fs
+        pos, vel, m_p = science_run.initial_conditions(g, device)
+        mass = torch.full((pos.shape[0],), m_p, device=device)
+        eng = science_run.plan_engine(g, pos, vel, mass,
+                                      1.0 / (1.0 + science_run.Z_INIT),
+                                      device)
         _k3_state(eng._fstate, eng._fast_kw,
-                  os.path.join(out, "science_z0.npz"))
-        _k3_state(_fullest_last(eng._fstate, eng._fast_kw), eng._fast_kw,
-                  os.path.join(out, "science_z0_last.npz"))
-        names += ["science_z0", "science_z0_last"]
+                  os.path.join(out, "science_z24.npz"))
+        names.append("science_z24")
         del eng
-        k9["k9_1m"] = (torch.from_numpy(final["pos_f"]), g["softening"])
-    else:
-        k9["k9_1m"] = (torch.rand((1_000_000, 3), generator=gen,
-                                  device=device) * 100.0, g["softening"])
-    for name, (p, soft) in k9.items():
-        np.savez(os.path.join(out, f"{name}.npz"), pos=p.cpu().numpy(),
-                 mass=np.ones(p.shape[0], np.float32),
-                 geo=json.dumps(dict(box_size=100.0, softening=soft)))
-        names.append(name)
+        if final is not None:
+            eng = science_run.plan_engine(
+                g, *(torch.from_numpy(final[k]).to(device) for k in
+                     ("pos_f", "vel_f", "masses")), float(final["a_f"]),
+                device)
+            _k3_state(eng._fstate, eng._fast_kw,
+                      os.path.join(out, "science_z0.npz"))
+            _k3_state(_fullest_last(eng._fstate, eng._fast_kw),
+                      eng._fast_kw, os.path.join(out, "science_z0_last.npz"))
+            names += ["science_z0", "science_z0_last"]
+            del eng
+    if "k9" in groups:
+        gen = torch.Generator(device=device).manual_seed(31)
+        k9 = {"k9_131k": (torch.rand((131_072, 3), generator=gen,
+                                     device=device) * 100.0, 0.02)}
+        if final is not None:
+            k9["k9_1m"] = (torch.from_numpy(final["pos_f"]), g["softening"])
+        else:
+            k9["k9_1m"] = (torch.rand((1_000_000, 3), generator=gen,
+                                      device=device) * 100.0,
+                           g["softening"])
+        for name, (p, soft) in k9.items():
+            np.savez(os.path.join(out, f"{name}.npz"), pos=p.cpu().numpy(),
+                     mass=np.ones(p.shape[0], np.float32),
+                     geo=json.dumps(dict(box_size=100.0, softening=soft)))
+            names.append(name)
+    if "k4" in groups:
+        from lambda_cdm_tpu_torch.core.engine import SimulationEngine
+        cfg = SimulationConfig.from_file(chip_smoke.DIRECT_CONFIG)
+        cfg.profiling.output_file = ""
+        eng = SimulationEngine(cfg, device=device)
+        eng.initialize()
+        _k4_state(os.path.join(out, "k4_10k.npz"), eng.state.positions,
+                  eng.state.masses, float(cfg.particles.box_size),
+                  float(cfg.forces.softening_length), float(cfg.units.G))
+        pos, mass = chip_smoke.direct_inputs(100_000, 100.0, 41, device)
+        _k4_state(os.path.join(out, "k4_100k.npz"), pos, mass, 100.0, 0.05,
+                  1.0)
+        names += ["k4_10k", "k4_100k"]
+        del eng
+    if "k5" in groups:
+        names += _fof_inputs(out, final, g, device)
     torch.cuda.empty_cache()
+    return names
+
+
+def _fof_inputs(out, final, g, device) -> list:
+    """The K5 states (first sweep, after four rounds) and the fof_labels /
+    find_halos inputs at 1M clustered, and on the science run's final
+    state with a record."""
+    import numpy as np
+    import torch
+    import chip_smoke
+    from lambda_cdm_tpu_torch.analysis import halo_finder as hf
+    from lambda_cdm_tpu_torch.ops import fof_hook
+    box, b = 100.0, 0.2
+    pos_np, _ = chip_smoke.fof_state(1_000_000, seed=21, box=box)
+    n = len(pos_np)
+    pos = torch.from_numpy(pos_np).to(device)
+    live = torch.ones(n, dtype=torch.bool, device=device)
+    plan = hf.fof_plan(n, box, b, positions=pos, live=live)
+    ncell, cap = plan["ncell"], plan["capacity"]
+    bxyz, _, counts, pslot, _, _ = hf._fof_setup(pos, live, box, ncell, cap)
+    geo = dict(ncell=ncell, capacity=cap, box_size=box, b=b, n=n)
+    nslots = ncell ** 3 * cap
+
+    def slot_labels(lab_p):
+        lab = torch.full((nslots + 1,), n, dtype=torch.int32, device=device)
+        lab[torch.where(pslot >= 0, pslot, nslots)] = lab_p.to(torch.int32)
+        return lab[:nslots].reshape(ncell ** 3, cap)
+
+    lab_p = torch.arange(n, device=device)
+    active = torch.ones(ncell ** 3, dtype=torch.int32, device=device)
+    _k5_state(os.path.join(out, "k5_first.npz"), bxyz, slot_labels(lab_p),
+              counts, active, geo)
+    for _ in range(4):
+        lab_p, _, active = hf._fof_round(
+            lab_p, bxyz, counts, pslot, box_size=box, linking_length=b,
+            ncell=ncell, capacity=cap, hook_fn=fof_hook.fof_hook,
+            active=active)
+    _k5_state(os.path.join(out, "k5_late.npz"), bxyz, slot_labels(lab_p),
+              counts, active, geo)
+    del bxyz, pslot
+    gen = torch.Generator(device=device).manual_seed(23)
+    vel = torch.randn((n, 3), generator=gen, device=device)
+    np.savez(os.path.join(out, "fof_1m.npz"), pos=pos_np,
+             vel=vel.cpu().numpy(), mass=np.ones(n, np.float32),
+             geo=json.dumps(dict(box_size=box, factor=b * n ** (1 / 3) / box,
+                                 plan=None)))
+    names = ["k5_first", "k5_late", "fof_1m"]
+    if final is not None:
+        pos_f = torch.from_numpy(final["pos_f"]).to(device)
+        mass = torch.from_numpy(final["masses"]).to(device)
+        nf = pos_f.shape[0]
+        b_link = 0.2 * g["box"] / nf ** (1.0 / 3.0)
+        splan = hf.fof_plan(nf, float(g["box"]), float(b_link),
+                            positions=pos_f, live=mass > 0)
+        np.savez(os.path.join(out, "fof_science.npz"), pos=final["pos_f"],
+                 vel=final["vel_f"], mass=final["masses"],
+                 geo=json.dumps(dict(box_size=float(g["box"]), factor=0.2,
+                                     plan=splan)))
+        names.append("fof_science")
     return names
 
 
@@ -255,9 +399,85 @@ def pm_kernels(res, name, z, bpos, bmass, counts, device) -> None:
                          "sha256": _sha(acc)}
 
 
+def k4_kernels(res, name, z, geo, device) -> None:
+    """Time K4 (v1, v2) on one direct-sum input into res and hash it."""
+    import torch
+    from lambda_cdm_tpu_torch.ops import cuda_build, direct
+    pos = torch.from_numpy(z["pos"]).to(device)
+    mass = torch.from_numpy(z["mass"]).to(device)
+    for v in ("v1", "v2"):
+        acc = direct.pairwise_accelerations(pos, mass, variant=v, **geo)
+        ms = cuda_build.cuda_ms(lambda: direct.pairwise_accelerations(
+            pos, mass, variant=v, **geo), K4_REPS[name])
+        res[f"{name}/{v}"] = {"ms": ms, "sha256": _sha(acc),
+                              "bound": json.loads(str(z["bound"]))}
+
+
+def k5_kernel(res, name, z, geo, device) -> None:
+    """Time one K5 sweep on a saved state into res; hash it and say
+    whether it is fof_hook_plain's."""
+    import torch
+    from lambda_cdm_tpu_torch.ops import cuda_build, fof_hook
+    counts = torch.from_numpy(z["counts"]).to(device)
+    active = torch.from_numpy(z["active"]).to(device)
+    nc, cap = geo["ncell"], geo["capacity"]
+    live = torch.arange(cap, device=device)[None] < counts[:, None]
+    xyz = torch.from_numpy(z["xyz"]).to(device)
+    bxyz = []
+    for c in range(3):
+        t = torch.zeros((nc ** 3, cap), device=device)
+        t[live] = xyz[c]
+        bxyz.append(t)
+    lab = torch.full((nc ** 3, cap), geo["n"], dtype=torch.int32,
+                     device=device)
+    lab[live] = torch.from_numpy(z["lab"]).to(device)
+    kw = dict(ncell=nc, capacity=cap, n_sentinel=geo["n"],
+              box_size=geo["box_size"], linking_length=geo["b"])
+    got = fof_hook.fof_hook(*bxyz, lab, counts, active, **kw)
+    ms = cuda_build.cuda_ms(lambda: fof_hook.fof_hook(
+        *bxyz, lab, counts, active, **kw), K5_REPS)
+    sha = _sha(got)
+    res[name] = {"ms": ms, "sha256": sha,
+                 "plain": sha == str(z["plain_sha256"]),
+                 "bound": json.loads(str(z["bound"]))}
+
+
+def fof_calls(res, name, z, geo, device) -> None:
+    """fof_labels and find_halos on one particle set, two calls each,
+    host clock around calls that end in a synchronise: seconds, rounds,
+    the labels' SHA-256."""
+    import time
+    import torch
+    from lambda_cdm_tpu_torch.analysis import halo_finder as hf
+    pos = torch.from_numpy(z["pos"]).to(device)
+    vel = torch.from_numpy(z["vel"]).to(device)
+    mass = torch.from_numpy(z["mass"]).to(device)
+    n, box = pos.shape[0], geo["box_size"]
+    b = geo["factor"] * box / n ** (1.0 / 3.0)
+    live = mass > 0
+    plan = geo["plan"] or hf.fof_plan(n, box, b, positions=pos, live=live)
+    fof_s, halo_s = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        labels, _ = hf.fof_labels(pos, box, b, **plan, live=live)
+        torch.cuda.synchronize()
+        fof_s.append(time.perf_counter() - t0)
+        rounds = hf.last_fof["rounds"]
+        t0 = time.perf_counter()
+        cat = hf.find_halos(pos, vel, mass, box, min_particles=20,
+                            linking_length_factor=geo["factor"],
+                            plan=geo["plan"])
+        torch.cuda.synchronize()
+        halo_s.append(time.perf_counter() - t0)
+    res[name] = {"ms": 1e3 * fof_s[-1], "fof_labels_s": fof_s,
+                 "find_halos_s": halo_s, "rounds": rounds, "plan": plan,
+                 "num_halos": int(cat.num_halos), "sha256": _sha(labels)}
+
+
 def worker(root: str, out: str, names: list) -> dict:
-    """Time the K1, K2, K3 and K9 of the port under `root` on the inputs
-    in `out`."""
+    """Time the kernels of the port under `root` on the inputs in
+    `out`."""
     import numpy as np
     import torch
     sys.path.insert(0, os.path.abspath(root))
@@ -267,6 +487,15 @@ def worker(root: str, out: str, names: list) -> dict:
     for name in names:
         z = np.load(os.path.join(out, f"{name}.npz"))
         geo = json.loads(str(z["geo"]))
+        if name in K4_REPS:
+            k4_kernels(res, name, z, geo, device)
+            continue
+        if name.startswith("k5_"):
+            k5_kernel(res, name, z, geo, device)
+            continue
+        if name.startswith("fof_"):
+            fof_calls(res, name, z, geo, device)
+            continue
         if name in K9_REPS:
             pos = torch.from_numpy(z["pos"]).to(device)
             mass = torch.from_numpy(z["mass"]).to(device)
@@ -297,6 +526,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", action="append", default=[])
     ap.add_argument("--record", default=None)
+    ap.add_argument("--only", default=",".join(GROUPS),
+                    help="comma-separated groups of inputs: pm, k9, k4, k5")
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--names", default="", help=argparse.SUPPRESS)
@@ -313,7 +544,10 @@ def main() -> int:
         ap.error("give --root at least once")
     runs = []
     with tempfile.TemporaryDirectory() as out:
-        names = make_inputs(out, args.record)
+        groups = args.only.split(",")
+        if not set(groups) <= set(GROUPS):
+            ap.error(f"--only takes {', '.join(GROUPS)}")
+        names = make_inputs(out, args.record, groups)
         for root in args.root:
             proc = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--worker", root,
@@ -344,6 +578,17 @@ def main() -> int:
             same = ", ".join(r["root"] for r in have
                              if r[key]["sha256"] == have[0][key]["sha256"])
             line += f"; bytes equal to the first root's: {same}"
+        if "plain" in have[0][key]:
+            same = ", ".join(r["root"] for r in have if r[key]["plain"])
+            line += f"; the plain version's bytes: {same}"
+        if "bound" in have[0][key]:
+            line += (f"; bound {have[0][key]['bound'][0]:.4f} ms "
+                     f"({have[0][key]['bound'][1]})")
+        if "rounds" in have[0][key]:
+            line += "; " + ", ".join(
+                f"{r['root']} rounds {r[key]['rounds']}, fof_labels s "
+                f"{r[key]['fof_labels_s']}, find_halos s "
+                f"{r[key]['find_halos_s']}" for r in have)
         if "U" in have[0][key]:
             ref = have[0][key]["U"]
             dev = max(abs(r[key]["U"] - ref) / abs(ref) for r in have)

@@ -26,12 +26,16 @@ import torch
 
 from ..forces.direct import min_image
 from ..forces.treepm import bucket_gather, bucket_src_map
-from ..ops.fof_hook import THREADS, fof_hook, fof_hook_plain
+from ..ops.fof_hook import fof_hook, fof_hook_plain
 
 _log = logging.getLogger("lambda_cdm_tpu")
 
-# a block's visit to one neighbour cell (count read, two barriers, tile
-# load) costs about as much as scanning this many of the cell's slots
+# fof_plan's K5 cost model: blocks of _BLOCK_ROWS live rows (K5's first
+# design, one block a chunk of 64 rows; K5 now runs one warp a unit of
+# 32, and the model is kept so that the plan does not move), and a
+# block's visit to one neighbour cell (count read, two barriers, tile
+# load) costs about as much as scanning _BLOCK_VISIT_SLOTS of its slots
+_BLOCK_ROWS = 64
 _BLOCK_VISIT_SLOTS = 8
 
 # the rounds the last fof_labels call took, whether it converged, and the
@@ -253,7 +257,7 @@ def fof_plan(num_particles: int, box_size: float, linking_length: float,
     is the JAX package's CPU one, 27 ncell^3 capacity^2 (the padded
     lattice), so the plan is exactly the JAX package's CPU plan. For
     CUDA positions it is K5's, which follows occupancy: per block of
-    THREADS live rows, the slots of its 27 neighbour cells plus a fixed
+    _BLOCK_ROWS live rows, the slots of its 27 neighbour cells plus a fixed
     cost per neighbour visit; capacity then sizes only memory, and ties
     go to the least overflow."""
     nmax = max(min(int(math.floor(box_size / linking_length)), 128), 1)
@@ -338,7 +342,7 @@ def _occupancy_pyramid(positions, live, box_size, nf: int, caps: tuple):
         nbr = counts
         for ax in range(3):
             nbr = nbr + torch.roll(nbr, 1, ax) + torch.roll(nbr, -1, ax)
-        blocks = (counts + THREADS - 1) // THREADS
+        blocks = (counts + _BLOCK_ROWS - 1) // _BLOCK_ROWS
         sweep = torch.sum(blocks * (nbr + 27 * _BLOCK_VISIT_SLOTS))
         out.append((int(counts.max()), ovf.tolist(), int(sweep)))
     return out

@@ -41,6 +41,7 @@ import torch
 from .config import SimulationConfig
 from .observers import Observer, ObserverBus
 from .state import SimState, host_scalar
+from ..ops.direct import check_range
 from ..utils.profiling import Profiler, synchronize
 
 _log = logging.getLogger("lambda_cdm_tpu")
@@ -416,6 +417,7 @@ class SimulationEngine:
             raise RuntimeError("initialize() first")
         self._maybe_rebuild_fast()
         self._chunk(num_steps)
+        check_range()
         self.statistics.total_steps += num_steps
         return self._state
 
@@ -485,6 +487,7 @@ class SimulationEngine:
                 with self.profiler.timer("run.chunk"):
                     self._chunk(n)
                     synchronize(self._state.positions)
+                check_range()
                 dt_chunk = time.perf_counter() - t_chunk0
                 self.statistics.compute_time_s += dt_chunk
                 a_after = float(self._state.scale_factor)

@@ -12,15 +12,46 @@
 //       r^2 = dx^2 + (dy^2 + (dz^2 + eps^2)),
 //
 // with oscale = G (v1) or G / box^2 (v2). The self pair has d = 0 and adds
-// nothing; eps > 0 keeps it finite. Design: one thread per i (kThreads a
-// block); the j particles pass through shared memory in tiles of kThreads
-// float4 (x, y, z, m); the sums stay in registers, each tile's summed
-// apart and then added to the total (on the H100 one float32 running sum
-// over 1e5 pairs drifted 1.8e-5 of the largest |a| from the plain tree
-// reduction; the TPU kernel also sums per tile); the ragged last tile is
-// cut by its count, so there is no zero-mass padding. The TPU kernel's
-// [4, Np] lane layout, its padding to 2048-wide j tiles and its VMEM
-// accumulator tiles are TPU workarounds and are not carried over.
+// nothing; eps > 0 keeps it finite. The TPU kernel's [4, Np] lane layout,
+// its padding to 2048-wide j tiles and its VMEM accumulator tiles are TPU
+// workarounds and are not carried over.
+//
+// Design (the parent ran one thread per i, 128 a block: 84 blocks at
+// direct_10k's 10,648 particles left 48 of the 132 SMs idle, and three
+// FRND a pair on the 16/clk pipe):
+//
+// * Fill the card at small N. A block takes a tile of kTileRows i rows
+//   against one of S slices of the j range (whole kJTile tiles), S =
+//   ops/direct.j_slices(n): about TARGET_BLOCKS (11 an SM) blocks in all,
+//   S = 1 from about 100k particles up. With S > 1 each block writes its
+//   slice's sums to a [S, n, 3] partial buffer and a second kernel adds
+//   them in slice order 0..S-1 and scales them; with S = 1 the block
+//   writes the result.
+//   No float atomics: two calls on one input give equal bytes.
+// * Register blocking. Lane l of a warp holds the kRows rows l, l + 32,
+//   l + 64, l + 96 of the tile; warp w takes j 32w..32w+31 of every
+//   kJTile tile of the slice, staged by the warp itself in its own
+//   32-slot shared buffer behind __syncwarp (the next sub-tile's load is
+//   in flight while this one's pairs run), so each j read from shared
+//   memory feeds kRows pairs and no block barrier stands in the j loop.
+//   Each 32-j sub-tile is summed apart and then added to the warp's total
+//   (on the H100 one float32 running sum over 1e5 pairs drifted 1.8e-5 of
+//   the largest |a| from the plain tree reduction; the TPU kernel also
+//   sums per tile); the block adds its four warps' totals in warp order
+//   through shared memory. The ragged last tile is cut by its count, so
+//   there is no zero-mass padding. The order differs from the parent's
+//   (one thread per i over j in order), so the result is not the parent's
+//   bytes, even at S = 1.
+// * No FRND in the loop: rint(q) is (q + 1.5 * 2^23) - 1.5 * 2^23, two
+//   FADDs rounded to nearest (the constant is even, so ties go to even, as
+//   rintf sends them), exact for |q| < 2^22. The wrapper does not read the
+//   positions back to check that (K4 runs once a step): each block tests
+//   the positions it stages, and a position 2^21 boxes or more from the
+//   origin -- the only way to reach |q| >= 2^22 -- sets a flag on the
+//   device, which ops/direct.check_range reads where the caller already
+//   synchronises (the engine's chunk end) and raises there.
+// * The rsqrt skips rsqrtf's guard for denormal input: r^2 >= eps^2, a
+//   normal float for any softening the solvers take.
 //
 // The image is that of the true quotient d / box, as forces/direct's
 // min_image (the CPU solver) takes it. The TPU kernel's d * (1/box) can
@@ -43,7 +74,10 @@
 // particle, its half + 1 row partials and half column partials in a fixed
 // order and divides by the mass once (zero mass gives 0). No atomics:
 // the result is deterministic. sym2 passes coordinates in box units with
-// box = 1.
+// box = 1. K4s keeps rintf for the image (wrap_rint): its schedule is not
+// redesigned, and K4's magic rounding made it slower (on the H100 at 100k,
+// sym 13.07 -> 13.37 ms: two FADDs on the FP32 pipe where the FRND ran on
+// its own).
 //
 // Bound on the H100: operations. About 22 float operations and one rsqrt
 // (on the SFUs) per ordered pair, n^2 pairs for K4 and n^2 / 2 for K4s,
@@ -99,13 +133,19 @@
 
 namespace {
 
-constexpr int kThreads = 128;   // must equal ops/direct.THREADS
+constexpr int kThreads = 128;    // a block of K4 (ops/direct.THREADS)
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 4;         // i rows a lane
+constexpr int kTileRows = 32 * kRows;  // i rows a block (TILE_ROWS)
+constexpr int kJTile = 128;      // j tile (= ops/direct.J_TILE), kWarps x 32
 constexpr int kSymTile = 256;   // must equal ops/direct.SYM_TILE
 constexpr int kSymWarps = kSymTile / 32;
 constexpr int kPairThreads = 128;
 constexpr int kPairRows = 4;     // i rows a thread
 constexpr int kPairTile = kPairThreads * kPairRows;  // = ops/direct.PAIR_TILE
 constexpr float kMagic = 12582912.0f;  // 1.5 * 2^23
+
+static_assert(kJTile == kWarps * 32, "a warp takes 32 j of each tile");
 
 // d / box rounded as a true division rounds it, without dividing: with
 // inv_box the correctly rounded 1/box, q = d * inv_box lies within about
@@ -119,64 +159,149 @@ __device__ __forceinline__ float quotient(float d, float box,
   return __fmaf_rn(__fmaf_rn(-q, box, d), inv_box, q);
 }
 
+// rintf(q) for |q| < 2^22 without FRND: adding 1.5 * 2^23 rounds q to an
+// integer (ties to even, the constant being even), subtracting it is exact
+__device__ __forceinline__ float round_magic(float q) {
+  return __fadd_rn(__fadd_rn(q, kMagic), -kMagic);
+}
+
 // The minimum image of one component: d - box * rint(d / box). box * rint
 // is exact for |rint| <= 2, so the FMA the subtraction contracts into
 // rounds as the plain version's multiply and subtract.
 __device__ __forceinline__ float wrap(float d, float box, float inv_box) {
+  return d - box * round_magic(quotient(d, box, inv_box));
+}
+
+// K4s's image: the same function with rintf, exact at any range
+__device__ __forceinline__ float wrap_rint(float d, float box,
+                                           float inv_box) {
   return d - box * rintf(quotient(d, box, inv_box));
 }
 
-template <bool kScaled, bool kPeriodic>
-__global__ void direct_kernel(const float4* __restrict__ pts,
-                              float* __restrict__ out, int n, float box,
-                              float soft2, float oscale) {
-  __shared__ float4 tile[kThreads];
-  const float inv_box = __frcp_rn(box);
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const float4 pi = i < n ? pts[i] : make_float4(0.f, 0.f, 0.f, 0.f);
-  float ax = 0.f, ay = 0.f, az = 0.f;
+// whether a staged position lies where round_magic may be inexact: every
+// |x| < limit = 2^21 boxes keeps every |d / box| below 2^22
+__device__ __forceinline__ bool out_of_range(float4 p, float limit) {
+  return fabsf(p.x) >= limit || fabsf(p.y) >= limit || fabsf(p.z) >= limit;
+}
 
-  for (int jbase = 0; jbase < n; jbase += kThreads) {
-    const int j = jbase + threadIdx.x;
-    __syncthreads();                     // the previous tile is consumed
-    if (j < n) tile[threadIdx.x] = pts[j];
-    __syncthreads();
-    const int nt = min(kThreads, n - jbase);
-    float tx = 0.f, ty = 0.f, tz = 0.f;  // this tile's sums
-#pragma unroll 4
+// rsqrtf without its guard for denormal input: the same MUFU.RSQ result
+// for every normal argument
+__device__ __forceinline__ float rsqrt_normal(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// K4: block (i tile, j slice); see the design note above. out: [n, 3]
+// when nslices == 1, else partial [nslices, n, 3] (unscaled sums).
+template <bool kScaled, bool kPeriodic>
+__global__ void __launch_bounds__(kThreads, 6)
+direct_kernel(const float4* __restrict__ pts, float* __restrict__ out,
+              int* __restrict__ flag, int n, int nslices, float box,
+              float soft2, float oscale, float limit) {
+  __shared__ float4 tiles[kWarps][32];
+  __shared__ float sums[kWarps][3][kTileRows];
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float inv_box = __frcp_rn(box);
+  const int i0 = blockIdx.x * kTileRows;
+  const int ntj = (n + kJTile - 1) / kJTile;
+  const int s = blockIdx.y;
+  const int j0 = (int)((long long)s * ntj / nslices) * kJTile;
+  const int j1 = min(n, (int)((long long)(s + 1) * ntj / nslices) * kJTile);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 pi[kRows];
+  float ax[kRows], ay[kRows], az[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int i = i0 + 32 * r + lane;
+    pi[r] = i < n ? pts[i] : zero;
+    ax[r] = ay[r] = az[r] = 0.f;
+  }
+  float4* tile = tiles[warp];
+  bool bad = false;
+  int jb = j0 + 32 * warp;               // this warp's sub-tile of each tile
+  float4 next = jb + lane < j1 ? pts[jb + lane] : zero;
+  for (; jb < j1; jb += kJTile) {
+    const int nt = min(32, j1 - jb);
+    if (kPeriodic) bad |= out_of_range(next, limit);
+    tile[lane] = next;
+    __syncwarp();
+    const int jn = jb + kJTile + lane;
+    next = jn < j1 ? pts[jn] : zero;
+    float tx[kRows], ty[kRows], tz[kRows];  // this sub-tile's sums
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) tx[r] = ty[r] = tz[r] = 0.f;
+#pragma unroll 2
     for (int t = 0; t < nt; ++t) {
       const float4 p = tile[t];
-      float dx = p.x - pi.x;
-      float dy = p.y - pi.y;
-      float dz = p.z - pi.z;
-      if (kPeriodic) {
-        if (kScaled) {
-          dx -= rintf(dx);
-          dy -= rintf(dy);
-          dz -= rintf(dz);
-        } else {
-          dx = wrap(dx, box, inv_box);
-          dy = wrap(dy, box, inv_box);
-          dz = wrap(dz, box, inv_box);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        float dx = p.x - pi[r].x;
+        float dy = p.y - pi[r].y;
+        float dz = p.z - pi[r].z;
+        if (kPeriodic) {
+          if (kScaled) {
+            dx -= round_magic(dx);
+            dy -= round_magic(dy);
+            dz -= round_magic(dz);
+          } else {
+            dx = wrap(dx, box, inv_box);
+            dy = wrap(dy, box, inv_box);
+            dz = wrap(dz, box, inv_box);
+          }
         }
+        const float r2 = kScaled ? dx * dx + (dy * dy + (dz * dz + soft2))
+                                 : dx * dx + dy * dy + dz * dz + soft2;
+        const float inv_r = rsqrt_normal(r2);
+        const float w = p.w * (inv_r * inv_r * inv_r);
+        tx[r] += w * dx;
+        ty[r] += w * dy;
+        tz[r] += w * dz;
       }
-      const float r2 = kScaled ? dx * dx + (dy * dy + (dz * dz + soft2))
-                               : dx * dx + dy * dy + dz * dz + soft2;
-      const float inv_r = rsqrtf(r2);
-      const float w = p.w * (inv_r * inv_r * inv_r);
-      tx += w * dx;
-      ty += w * dy;
-      tz += w * dz;
     }
-    ax += tx;
-    ay += ty;
-    az += tz;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      ax[r] += tx[r];
+      ay[r] += ty[r];
+      az[r] += tz[r];
+    }
+    __syncwarp();                        // the sub-tile is consumed
   }
-  if (i < n) {
-    out[3 * i] = ax * oscale;
-    out[3 * i + 1] = ay * oscale;
-    out[3 * i + 2] = az * oscale;
+  if (kPeriodic && __any_sync(full, bad) && lane == 0) *flag = 1;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    sums[warp][0][32 * r + lane] = ax[r];
+    sums[warp][1][32 * r + lane] = ay[r];
+    sums[warp][2][32 * r + lane] = az[r];
   }
+  __syncthreads();
+  // warp w adds the four warps' totals of rows 32w..32w+31 in warp order
+  const int row = 32 * warp + lane;
+  const int i = i0 + row;
+  if (i >= n) return;
+  float* dst = nslices == 1 ? out + 3 * (long long)i
+                            : out + 3 * ((long long)s * n + i);
+  const float scale = nslices == 1 ? oscale : 1.0f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float v = sums[0][c][row];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) v += sums[w][c][row];
+    dst[c] = v * scale;
+  }
+}
+
+// K4's second pass (S > 1): the slices' sums of each output float, added
+// in slice order and scaled
+__global__ void direct_reduce(const float* __restrict__ partial,
+                              float* __restrict__ out, int n3, int nslices,
+                              float oscale) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n3) return;
+  float v = partial[k];
+  for (int s = 1; s < nslices; ++s) v += partial[(long long)s * n3 + k];
+  out[k] = v * oscale;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -216,9 +341,9 @@ __global__ void direct_sym_pairs(const float4* __restrict__ pts,
     float dy = pj.y - pi.y;
     float dz = pj.z - pi.z;
     if (kPeriodic) {
-      dx = wrap(dx, box, inv_box);
-      dy = wrap(dy, box, inv_box);
-      dz = wrap(dz, box, inv_box);
+      dx = wrap_rint(dx, box, inv_box);
+      dy = wrap_rint(dy, box, inv_box);
+      dz = wrap_rint(dz, box, inv_box);
     }
     const float r2 = dx * dx + (dy * dy + (dz * dz + soft2));
     const float inv_r = rsqrtf(r2);
@@ -293,17 +418,6 @@ __device__ __forceinline__ float wrap_magic(float d, float box,
   return __fmaf_rn(-box, r, d);
 }
 
-// K9: rsqrtf without its guard for denormal input: the same MUFU.RSQ
-// result for every normal r^2, one compare fewer a pair. Only a taken
-// pair's result is used, and a taken r^2 exceeds eps^2 + 1e-30, a normal
-// float; r^2 = 0 (coincident particles at softening 0) gives +inf, which
-// the select drops.
-__device__ __forceinline__ float rsqrt_normal(float x) {
-  float y;
-  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // K9: rows of tile p against the staged tile; kDiag: the block's own
 // tile, pairs j > i only.
 template <bool kDiag>
@@ -326,6 +440,8 @@ __device__ __forceinline__ void pair_rows(const float4* tile, const float4* pi,
       const bool take = kDiag ? (r2 > thr && t > r * kPairThreads + tid)
                               : r2 > thr;
       // select the rsqrt, not the mass: a left-out pair may have r2 = 0
+      // rsqrt_normal: a taken r2 exceeds eps^2 + 1e-30, a normal float;
+      // r2 = 0 (coincident particles at softening 0) gives +inf, dropped
       ts[r] = __fmaf_rn(p.w, take ? rsqrt_normal(r2) : 0.f, ts[r]);
     }
   }
@@ -384,25 +500,33 @@ pair_potential_kernel(const float4* __restrict__ pts,
 
 }  // namespace
 
-extern "C" int lcdm_direct(const float4* pts, float* out, int n,
-                           int scaled, int periodic, float box, float soft2,
-                           float oscale, void* stream) {
-  const int blocks = (n + kThreads - 1) / kThreads;
+// K4: nslices = ops/direct.j_slices(n); partial: [nslices, n, 3] floats
+// when nslices > 1 (unused otherwise); flag: one int the kernel sets to 1
+// when a position lies at or past limit (periodic only)
+extern "C" int lcdm_direct(const float4* pts, float* out, float* partial,
+                           int* flag, int n, int nslices, int scaled,
+                           int periodic, float box, float soft2,
+                           float oscale, float limit, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (blocks > 0) {
-    if (scaled && periodic)
-      direct_kernel<true, true><<<blocks, kThreads, 0, s>>>(
-          pts, out, n, box, soft2, oscale);
-    else if (scaled)
-      direct_kernel<true, false><<<blocks, kThreads, 0, s>>>(
-          pts, out, n, box, soft2, oscale);
-    else if (periodic)
-      direct_kernel<false, true><<<blocks, kThreads, 0, s>>>(
-          pts, out, n, box, soft2, oscale);
-    else
-      direct_kernel<false, false><<<blocks, kThreads, 0, s>>>(
-          pts, out, n, box, soft2, oscale);
-  }
+  if (n <= 0 || nslices < 1) return (int)cudaGetLastError();
+  const dim3 grid((n + kTileRows - 1) / kTileRows, nslices);
+  float* dst = nslices == 1 ? out : partial;
+  if (scaled && periodic)
+    direct_kernel<true, true><<<grid, kThreads, 0, s>>>(
+        pts, dst, flag, n, nslices, box, soft2, oscale, limit);
+  else if (scaled)
+    direct_kernel<true, false><<<grid, kThreads, 0, s>>>(
+        pts, dst, flag, n, nslices, box, soft2, oscale, limit);
+  else if (periodic)
+    direct_kernel<false, true><<<grid, kThreads, 0, s>>>(
+        pts, dst, flag, n, nslices, box, soft2, oscale, limit);
+  else
+    direct_kernel<false, false><<<grid, kThreads, 0, s>>>(
+        pts, dst, flag, n, nslices, box, soft2, oscale, limit);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || nslices == 1) return (int)err;
+  direct_reduce<<<(3 * n + 255) / 256, 256, 0, s>>>(partial, out, 3 * n,
+                                                   nslices, oscale);
   return (int)cudaGetLastError();
 }
 

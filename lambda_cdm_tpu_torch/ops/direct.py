@@ -23,6 +23,12 @@ solver) does; the TPU kernels multiply by 1/box, which picks the other
 image for some pairs next to half a box apart. CUDA tensors launch K4
 (v1, v2) or K4s (sym, sym2); CPU tensors take the plain version. There
 is no fallback: a CUDA tensor goes to its kernel or the call raises.
+
+K4 rounds the image with a magic constant, exact while every position
+lies within 2^21 boxes of the origin. It checks that on the card without
+a readback: a position past it sets a flag on the device, and
+check_range() (called by the engine at each chunk end, where it
+synchronises anyway) raises if it is set.
 """
 
 from __future__ import annotations
@@ -32,10 +38,15 @@ import torch
 from ..forces.direct import min_image
 from . import cuda_build
 
-THREADS = 128     # i particles per block of K4 (kThreads in direct.cu)
+THREADS = 128     # threads a block of K4 (kThreads in direct.cu)
+TILE_ROWS = 128   # i rows a block of K4 (kTileRows in direct.cu)
+J_TILE = 128      # j tile of K4; its slices are whole tiles (kJTile)
+# K4's grid: about this many (i tile, j slice) blocks, eleven an H100 SM
+# (17 slices at 10,648 particles; 1 from 782 i tiles, about 100k, up)
+TARGET_BLOCKS = 11 * 132
 SYM_TILE = 256    # tile edge of K4s (kSymTile in direct.cu)
 PAIR_TILE = 512   # tile edge of K9 (kPairTile in direct.cu)
-# K9 rounds d / box with the magic constant 1.5 * 2^23, exact while
+# K4 and K9 round d / box with the magic constant 1.5 * 2^23, exact while
 # |d / box| < 2^22: positions must lie within 2^21 boxes of the origin
 PAIR_POSITION_LIMIT = 2.0 ** 21
 VARIANTS = ("v1", "v2", "sym", "sym2")
@@ -46,6 +57,49 @@ launches = {"direct": 0, "direct_sym": 0, "pair_potential": 0}
 def reset_launch_counts() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def j_slices(n: int) -> int:
+    """K4's j slices S: TARGET_BLOCKS // (i tiles), at least 1 and at most
+    one a j tile (1 from about 100k particles up)."""
+    tiles = max(1, -(-n // TILE_ROWS))
+    return max(1, min(TARGET_BLOCKS // tiles, -(-n // J_TILE)))
+
+
+def slice_bounds(n: int):
+    """[(j0, j1)] of K4's j slices, as the kernel computes them: slice s
+    takes the j tiles floor(s T / S) .. floor((s + 1) T / S) - 1 of the T =
+    ceil(n / J_TILE)."""
+    ntj, s = -(-n // J_TILE), j_slices(n)
+    return [(k * ntj // s * J_TILE, min(n, (k + 1) * ntj // s * J_TILE))
+            for k in range(s)]
+
+
+# per device: the int32 flag K4 sets when a position lies 2^21 boxes or
+# more from the origin
+_range_flags: dict = {}
+
+
+def _range_flag(device):
+    flag = _range_flags.get(device)
+    if flag is None:
+        flag = _range_flags[device] = torch.zeros(1, dtype=torch.int32,
+                                                  device=device)
+    return flag
+
+
+def check_range() -> None:
+    """Raise if a K4 launch since the last check met a position 2^21
+    boxes or more from the origin (its image may be off by a box there),
+    and clear the flag: one readback for each device K4 has run on,
+    none before its first launch."""
+    for device, flag in _range_flags.items():
+        if int(flag):
+            flag.zero_()
+            raise ValueError(
+                f"direct kernel on {device}: a position lies "
+                f"{PAIR_POSITION_LIMIT:g} boxes or more from the origin, "
+                f"where its minimum image is not exact")
 
 
 def _check(softening, variant):
@@ -139,7 +193,9 @@ def pairwise_accelerations(positions, masses, box_size, softening=0.01,
     `periodic` is False). CUDA tensors launch K4 (v1, v2) or K4s (sym,
     sym2) from csrc/direct.cu, replacing pallas_direct's _direct_kernel,
     _direct_kernel_v2 and _direct_kernel_sym; CPU tensors take
-    pairwise_accelerations_plain. Requires softening > 0."""
+    pairwise_accelerations_plain. Requires softening > 0. For K4 a
+    position 2^21 boxes or more from the origin sets the flag
+    check_range() reads; the call itself never synchronises."""
     _check(softening, variant)
     if positions.device.type == "cpu":
         return pairwise_accelerations_plain(
@@ -158,15 +214,20 @@ def pairwise_accelerations(positions, masses, box_size, softening=0.01,
     out = torch.empty((n, 3), dtype=torch.float32, device=pts.device)
     soft2 = (float(softening) * scale) ** 2
     oscale = float(g_const) * scale * scale
+    box = box_size * scale
     if variant in ("v1", "v2"):
+        flag = _range_flag(pts.device)
+        slices = j_slices(n)
+        partial = torch.empty((slices, n, 3) if slices > 1 else (0,),
+                              dtype=torch.float32, device=pts.device)
         launches["direct"] += 1
-        cuda_build.launch("lcdm_direct", pts.data_ptr(), out.data_ptr(), n,
+        cuda_build.launch("lcdm_direct", pts.data_ptr(), out.data_ptr(),
+                          partial.data_ptr(), flag.data_ptr(), n, slices,
                           int(variant == "v2"), int(bool(periodic)),
-                          box_size, soft2, oscale)
+                          box_size, soft2, oscale, PAIR_POSITION_LIMIT * box)
         return out
     ntiles = sym_tiles(n)
     half = (ntiles - 1) // 2
-    box = box_size * scale
     rowpart = torch.empty((ntiles * (half + 1), 3, SYM_TILE),
                           dtype=torch.float32, device=pts.device)
     colpart = torch.empty((max(ntiles * half, 1), 3, SYM_TILE),

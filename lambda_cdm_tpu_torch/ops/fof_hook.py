@@ -16,6 +16,10 @@ is a Gauss-Seidel one (ordered grid through an aliased buffer): `reverse`
 and `bidirectional`, which order the TPU sweep, have no meaning here and
 are accepted only so that call sites read as in the JAX package. Both
 sweeps reach the same fixpoint in the caller's hook-and-compress loop.
+
+The kernel's work is K3's plan of units (ops/short_range.unit_plan) over
+the live rows of the active cells: one warp a unit of at most UNIT_ROWS
+rows, heaviest first, with no host sync.
 """
 
 from __future__ import annotations
@@ -24,9 +28,7 @@ import numpy as np
 import torch
 
 from . import cuda_build
-from .short_range import _neighbours
-
-THREADS = 64    # rows per block of the kernel (kThreads in fof_hook.cu)
+from .short_range import _neighbours, unit_plan
 
 launches = {"fof_hook": 0}
 
@@ -106,22 +108,6 @@ def fof_hook_plain(bx, by, bz, lab, counts, active=None, *, ncell: int,
     return full.reshape(lab.shape)
 
 
-def _work_list(counts, active):
-    """(cell of each block, first row of each block): one block of THREADS
-    rows per chunk of the live rows of each active cell."""
-    live = counts if active is None else torch.where(active != 0, counts, 0)
-    nchunk = (live.long() + THREADS - 1) // THREADS
-    ends = torch.cumsum(nchunk, 0)
-    total = int(ends[-1])
-    cells = torch.arange(counts.numel(), device=counts.device,
-                         dtype=torch.int32)
-    chunk_cell = torch.repeat_interleave(cells, nchunk, output_size=total)
-    first = (ends - nchunk)[chunk_cell.long()]
-    chunk_base = ((torch.arange(total, device=counts.device) - first)
-                  * THREADS).to(torch.int32)
-    return chunk_cell, chunk_base, total
-
-
 def fof_hook(bx, by, bz, lab, counts, active=None, *, ncell: int,
              capacity: int, n_sentinel: int, box_size: float,
              linking_length: float, reverse: bool = False,
@@ -140,14 +126,11 @@ def fof_hook(bx, by, bz, lab, counts, active=None, *, ncell: int,
     cuda_build.require_cuda(
         "fof_hook", bx, by, bz, lab, counts, active,
         dtypes=(torch.float32,) * 3 + (torch.int32,) * 3)
-    chunk_cell, chunk_base, total = _work_list(counts, active)
+    plan = unit_plan(torch.where(active != 0, counts, 0), ncell)
     out = lab.clone()
-    if total == 0:
-        return out
     launches["fof_hook"] += 1
     cuda_build.launch("lcdm_fof_hook", bx.data_ptr(), by.data_ptr(),
                       bz.data_ptr(), lab.data_ptr(), counts.data_ptr(),
-                      chunk_cell.data_ptr(), chunk_base.data_ptr(),
-                      out.data_ptr(), total, ncell, capacity,
+                      plan.data_ptr(), out.data_ptr(), ncell, capacity,
                       float(box_size), _b2(linking_length))
     return out

@@ -313,7 +313,49 @@ def test_fof_hook_kernel(cuda_device, ncell, cap):
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
     assert int((got != lab).sum()) > 0
-    assert int(counts.max()) > fof_hook.THREADS
+    assert int(counts.max()) > short_range.UNIT_ROWS
+    cap_rows = torch.arange(cap, device=cuda_device)[None]
+    off = (active == 0)[:, None] | (cap_rows >= counts[:, None])
+    assert torch.equal(got[off], lab[off])
+
+
+def test_fof_hook_kernel_late_round(cuda_device):
+    """K5 on the state of fof_labels' last round that still changes a
+    label (most labels are their component's least index, the active
+    mask has shrunk): equal to the plain version; two calls equal."""
+    ncell, cap, box, b = 16, 2048, 20.0, 0.3
+    pos, _ = clustered_particles(6000, box, 7, n_clump=2500, sigma=0.4,
+                                 centre=(10.0, 10.0, 10.0))
+    n = pos.shape[0]
+    bxyz, _, counts, pslot, _, _ = halo_finder._fof_setup(
+        tt(pos).to(cuda_device), torch.ones(n, dtype=torch.bool,
+                                            device=cuda_device),
+        box, ncell, cap)
+    state = (torch.arange(n, device=cuda_device),
+             torch.ones(ncell ** 3, dtype=torch.int32, device=cuda_device))
+    late = None
+    while True:
+        nxt, changed, act = halo_finder._fof_round(
+            state[0], bxyz, counts, pslot, box_size=box, linking_length=b,
+            ncell=ncell, capacity=cap, hook_fn=fof_hook.fof_hook,
+            active=state[1])
+        if not bool(changed):
+            break
+        late, state = state, (nxt, act)
+    lab_p, active = late
+    assert 0 < int(active.sum()) < ncell ** 3
+    nslots = ncell ** 3 * cap
+    lab = torch.full((nslots + 1,), n, dtype=torch.int32, device=cuda_device)
+    lab[torch.where(pslot >= 0, pslot, nslots)] = lab_p.to(torch.int32)
+    lab = lab[:nslots].reshape(ncell ** 3, cap)
+    kw = dict(ncell=ncell, capacity=cap, n_sentinel=n, box_size=box,
+              linking_length=b)
+    got = fof_hook.fof_hook(*bxyz, lab, counts, active, **kw)
+    again = fof_hook.fof_hook(*bxyz, lab, counts, active, **kw)
+    ref = fof_hook.fof_hook_plain(*bxyz, lab, counts, active, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and torch.equal(got, again)
+    assert int((got != lab).sum()) > 0
 
 
 def test_fof_labels_card_matches_cpu(cuda_device):
@@ -421,6 +463,51 @@ def test_direct_kernel(cuda_device, n, variant):
                                                   variant=variant)
         torch.cuda.synchronize()
         assert _rel(got, ref) < DIRECT_TOL
+
+
+@pytest.mark.parametrize("variant", ["v1", "v2"])
+@pytest.mark.parametrize("n", [77, 10_648, 100_000])
+def test_direct_kernel_slices(cuda_device, n, variant):
+    """K4 where its j slices change: below one tile (S = 1), direct_10k's
+    10,648 (S = 17) and 100k (S = 1), periodic and not, against the plain
+    version; two calls give equal bytes."""
+    box = 20.0
+    pos, m = uniform_particles(n, box, n + 1)
+    p, mm = tt(pos).to(cuda_device), tt(m).to(cuda_device)
+    assert (direct.j_slices(n) > 1) == (n == 10_648)
+    for periodic in (True, False):
+        kw = dict(periodic=periodic, variant=variant)
+        got = direct.pairwise_accelerations(p, mm, box, 0.05, 2.0, **kw)
+        again = direct.pairwise_accelerations(p, mm, box, 0.05, 2.0, **kw)
+        ref = direct.pairwise_accelerations_plain(p, mm, box, 0.05, 2.0,
+                                                  **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert _rel(got, ref) < DIRECT_TOL
+    direct.check_range()
+
+
+@pytest.mark.parametrize("variant", ["v1", "v2"])
+def test_direct_kernel_range_flag(cuda_device, variant):
+    """A position 2^21 boxes or more from the origin, where the magic
+    rounding of the image may be off, sets the flag on the card: the call
+    itself returns, check_range raises and clears it; a call in range
+    leaves it clear."""
+    box = 10.0
+    pos, m = uniform_particles(300, box, 5)
+    p, mm = tt(pos).to(cuda_device), tt(m).to(cuda_device)
+    direct.check_range()
+    direct.pairwise_accelerations(p, mm, box, 0.1, variant=variant)
+    direct.check_range()
+    far = p.clone()
+    far[17, 1] = direct.PAIR_POSITION_LIMIT * box * 1.5
+    direct.pairwise_accelerations(far, mm, box, 0.1, variant=variant)
+    with pytest.raises(ValueError, match="boxes"):
+        direct.check_range()
+    direct.check_range()
+    direct.pairwise_accelerations(far, mm, box, 0.1, periodic=False,
+                                  variant=variant)
+    direct.check_range()
 
 
 @pytest.mark.parametrize("variant", ["v1", "sym"])

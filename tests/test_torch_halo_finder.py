@@ -187,7 +187,7 @@ def test_fof_hook_plain_rows_and_inactive_cells():
 
 class TestPlans:
     @pytest.mark.parametrize("case", ["uniform", "clumpy", "dead_rows",
-                                      "tight_budget"])
+                                      "tight_budget", "chain"])
     def test_fof_plan_matches(self, case):
         box = 20.0
         live = None
@@ -199,6 +199,14 @@ class TestPlans:
             pos = _clumpy(4000, box, 6, n_clumps=4, frac=0.5, sigma=0.1)
         elif case == "dead_rows":
             pos, live, box = _overflow_dead()
+        elif case == "chain":
+            # a dense periodic chain along x through a uniform box: one
+            # row of cells far above the mean occupancy
+            pos = np.random.default_rng(3).uniform(0, box, (4000, 3))
+            pos[:1500] = np.stack([np.arange(1500) * box / 1500,
+                                   np.full(1500, 7.3), np.full(1500, 11.1)],
+                                  1)
+            pos = pos.astype(np.float32)
         else:
             # the budget rules out the unconstrained plan (8, 16)
             pos = np.random.default_rng(2).uniform(0, box, (4000, 3)) \

@@ -1,0 +1,251 @@
+"""The schedules of K4 (the direct sum) and K5 (the FoF hook sweep),
+emulated on the CPU in the order their CUDA kernels take them:
+
+* K4: j slices (ops/direct.j_slices, slice_bounds) of whole j tiles; in a
+  slice, warp w sums j 32w..32w+31 of every tile, each 32-j sub-tile
+  apart; the warps' totals are added in warp order, the slices' in slice
+  order. Against pairwise_accelerations_plain and the JAX package's
+  pallas_direct_accelerations in interpret mode at 1e-5 of the largest
+  |a| (float32 sums in another order; the JAX package's own bar for its
+  kernel).
+* K5: one warp a unit of ops/short_range.unit_plan over the counts of the
+  active cells; a batch of 32 j skipped whole when its least label is
+  not below the unit's largest minimum, a j skipped when no row's
+  minimum is above its label. Labels are integers: the emulation must
+  equal fof_hook_plain exactly, on a first sweep and on a late round.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import max_rel, tt, uniform_particles
+
+import jax.numpy as jnp
+
+from lambda_cdm_tpu.ops.pallas_direct import pallas_direct_accelerations
+from lambda_cdm_tpu_torch.analysis import halo_finder as thf
+from lambda_cdm_tpu_torch.forces.direct import min_image
+from lambda_cdm_tpu_torch.ops import direct as tops
+from lambda_cdm_tpu_torch.ops import fof_hook, short_range
+
+TOL = 1e-5
+WARPS = tops.THREADS // 32
+
+
+# -- K4 ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [1, 2, 77, 127, 128, 129, 777, 3585, 10_648,
+                               50_000, 99_999, 100_000, 1_000_000])
+def test_j_slices_cover_every_j_once(n):
+    """Slices are whole J_TILE tiles (the last one cut at n) that cover
+    0..n-1 exactly once, in order, none empty; S fills the card (about
+    TARGET_BLOCKS blocks) and is 1 from 100k particles up."""
+    s = tops.j_slices(n)
+    bounds = tops.slice_bounds(n)
+    assert len(bounds) == s >= 1
+    assert bounds[0][0] == 0 and bounds[-1][1] == n
+    for (a0, a1), (b0, _) in zip(bounds, bounds[1:]):
+        assert a1 == b0
+    for j0, j1 in bounds:
+        assert j1 > j0 and j0 % tops.J_TILE == 0
+        assert j1 % tops.J_TILE == 0 or j1 == n
+    tiles = -(-n // tops.TILE_ROWS)
+    assert tiles * s <= max(tops.TARGET_BLOCKS, tiles)
+    if n >= 100_000:
+        assert s == 1
+    if n == 10_648:
+        assert s > 1 and tiles * s > 4 * 132
+
+
+def _terms(p, m, i0, i1, j0, j1, box, soft2, variant, periodic):
+    """[i1 - i0, 3] sums over j in [j0, j1) of m_j r^-3 d, each variant's
+    arithmetic (coordinates already in its units)."""
+    d = [p[None, j0:j1, c] - p[i0:i1, c, None] for c in range(3)]
+    if periodic:
+        d = [dc - torch.round(dc) if variant == "v2"
+             else min_image(dc, box) for dc in d]
+    dx, dy, dz = d
+    r2 = (dx * dx + dy * dy + dz * dz + soft2 if variant == "v1"
+          else dx * dx + (dy * dy + (dz * dz + soft2)))
+    inv_r = torch.rsqrt(r2)
+    w = m[None, j0:j1] * (inv_r * inv_r * inv_r)
+    return torch.stack([torch.sum(w * dc, dim=1) for dc in d], dim=1)
+
+
+def _k4_emulated(pos, m, box, soft, g, variant, periodic=True):
+    """K4's sum in the kernel's order (see the module docstring)."""
+    scale = 1.0 / box if variant == "v2" else 1.0
+    p = tt(pos) * scale
+    mm = tt(m)
+    soft2 = (soft * scale) ** 2
+    n = p.shape[0]
+    total = None
+    for j0, j1 in tops.slice_bounds(n):
+        warps = [torch.zeros((n, 3)) for _ in range(WARPS)]
+        for jb in range(j0, j1, 32):
+            w = (jb - j0) // 32 % WARPS
+            warps[w] = warps[w] + _terms(p, mm, 0, n, jb, min(jb + 32, j1),
+                                         box, soft2, variant, periodic)
+        block = warps[0]
+        for w in warps[1:]:
+            block = block + w
+        total = block if total is None else total + block
+    return (g * scale * scale) * total
+
+
+@pytest.mark.parametrize("n,variant", [(777, "v1"), (777, "v2"),
+                                       (6000, "v1"), (6000, "v2")])
+def test_k4_schedule_matches_plain_and_pallas(n, variant):
+    """S = 7 one-tile slices at 777 (a ragged tile), S = 30 slices of one
+    or two tiles at 6000: the emulated K4 against the plain version and
+    the JAX kernel in interpret mode."""
+    box, soft = 20.0, 0.05
+    pos, m = uniform_particles(n, box, seed=n)
+    assert tops.j_slices(n) > 1
+    got = _k4_emulated(pos, m, box, soft, 2.0, variant)
+    plain = tops.pairwise_accelerations_plain(tt(pos), tt(m), box, soft, 2.0,
+                                              variant=variant)
+    assert max_rel(got, plain) < TOL
+    ref = pallas_direct_accelerations(jnp.asarray(pos), jnp.asarray(m), box,
+                                      soft, 2.0, interpret=True,
+                                      variant=variant)
+    assert max_rel(got, ref) < TOL
+    assert max_rel(plain, ref) < TOL
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+def test_k4_schedule_at_direct_10k(periodic):
+    """direct_10k's 10,648 particles: S = 17 slices of four or five tiles;
+    the emulated K4 against the plain version."""
+    n, box, soft = 10_648, 20.0, 0.05
+    pos, m = uniform_particles(n, box, seed=11)
+    assert tops.j_slices(n) == 17
+    got = _k4_emulated(pos, m, box, soft, 1.0, "v1", periodic)
+    plain = tops.pairwise_accelerations_plain(tt(pos), tt(m), box, soft,
+                                              periodic=periodic)
+    assert max_rel(got, plain) < TOL
+
+
+def test_check_range_without_launches():
+    """check_range reads nothing and raises nothing before any launch on a
+    card (CPU calls set no flag)."""
+    pos, m = uniform_particles(64, 10.0, seed=2)
+    tops.pairwise_accelerations(tt(pos) + 3e7, tt(m), 10.0, 0.1)
+    tops.check_range()
+
+
+# -- K5 ----------------------------------------------------------------------
+
+def _fof_state(seed, ncell=4, cap=256, box=10.0, n=1500):
+    """A clumpy box bucketed for the hook: (bx, by, bz, counts, pslot, n)."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0, box, (n, 3))
+    pos[:600] = 5.0 + 0.5 * rng.standard_normal((600, 3))
+    pos = tt(np.mod(pos, box))
+    bxyz, _, counts, pslot, _, ovf = thf._fof_setup(
+        pos, torch.ones(n, dtype=torch.bool), box, ncell, cap)
+    assert int(ovf) == 0 and int(counts.max()) > short_range.UNIT_ROWS
+    return bxyz, counts, pslot, n
+
+
+def _slot_labels(lab_p, pslot, ncell, cap):
+    nslots = ncell ** 3 * cap
+    n = lab_p.shape[0]
+    lab = torch.full((nslots + 1,), n, dtype=torch.int32)
+    lab[torch.where(pslot >= 0, pslot, nslots)] = lab_p.to(torch.int32)
+    return lab[:nslots].reshape(ncell ** 3, cap)
+
+
+def _k5_emulated(bxyz, lab, counts, active, ncell, cap, box, b):
+    """K5's sweep in the kernel's order, with its skips -> (labels, j
+    batches skipped whole, j skipped by the vote, j tested)."""
+    masked = torch.where(active != 0, counts, 0)
+    plan = short_range.unit_plan(masked, ncell)
+    b2 = torch.tensor(fof_hook._b2(b), dtype=torch.float32)
+    flat = [t.reshape(-1) for t in bxyz]
+    flat_lab = lab.reshape(-1)
+    out = flat_lab.clone()
+    big = torch.iinfo(torch.int32).max
+    skipped_batches = voted = tested = 0
+    for cell, row0, rows in short_range.plan_units(plan, masked,
+                                                   ncell).tolist():
+        si = cell * cap + row0 + torch.arange(rows)
+        xi = [f[si] for f in flat]
+        m = flat_lab[si].clone()
+        ncid, shift = short_range._neighbours(torch.tensor([cell]), ncell,
+                                              box)
+        for nb in range(27):
+            cn = int(ncid[0, nb])
+            nj = int(counts[cn])
+            for jb in range(0, nj, 32):
+                sj = cn * cap + torch.arange(jb, min(jb + 32, nj))
+                lj = flat_lab[sj]
+                if int(lj.min()) >= int(m.max()):
+                    skipped_batches += 1
+                    continue
+                pj = [flat[c][sj] + shift[c][0, nb] for c in range(3)]
+                for t in range(sj.numel()):
+                    if not bool(torch.any(lj[t] < m)):
+                        voted += 1
+                        continue
+                    tested += 1
+                    d = [pj[c][t] - xi[c] for c in range(3)]
+                    r2 = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
+                    m = torch.where((r2 < b2) & (lj[t] < m), lj[t], m)
+        assert int(m.max()) < big
+        out[si] = m
+    return out.reshape(lab.shape), skipped_batches, voted, tested
+
+
+def test_k5_units_cover_active_rows_once():
+    """unit_plan over the active-masked counts: every live row of every
+    active cell in exactly one unit, no row of an inactive cell."""
+    ncell, cap = 4, 256
+    _, counts, _, _ = _fof_state(3, ncell, cap)
+    active = torch.tensor(np.arange(ncell ** 3) % 3 != 1, dtype=torch.int32)
+    masked = torch.where(active != 0, counts, 0)
+    units = short_range.plan_units(short_range.unit_plan_plain(masked,
+                                                               ncell),
+                                   masked, ncell)
+    seen = torch.zeros(ncell ** 3 * cap, dtype=torch.int64)
+    for cell, row0, rows in units.tolist():
+        assert int(active[cell]) == 1 and 1 <= rows <= short_range.UNIT_ROWS
+        seen[cell * cap + row0:cell * cap + row0 + rows] += 1
+    want = ((torch.arange(cap)[None] < counts[:, None])
+            & (active != 0)[:, None]).reshape(-1)
+    assert torch.equal(seen, want.long())
+
+
+@pytest.mark.parametrize("late", [False, True])
+def test_k5_schedule_matches_plain(late):
+    """First sweep (random labels, every cell active) and a late round
+    (the labels and active mask that fof_labels' last round which still
+    changes a label is given): the emulated K5 equals fof_hook_plain
+    exactly, and both skips are taken."""
+    ncell, cap, box, b = 8, 256, 10.0, 0.35
+    bxyz, counts, pslot, n = _fof_state(5, ncell, cap, box)
+    rng = np.random.default_rng(6)
+    lab_p = torch.tensor(rng.permutation(n), dtype=torch.int64)
+    active = torch.ones(ncell ** 3, dtype=torch.int32)
+    if late:
+        state = (torch.arange(n), active)
+        while True:
+            nxt, changed, act = thf._fof_round(
+                *state[:1], bxyz, counts, pslot, box_size=box,
+                linking_length=b, ncell=ncell, capacity=cap,
+                hook_fn=fof_hook.fof_hook_plain, active=state[1])
+            if not bool(changed):
+                break
+            lab_p, active = state
+            state = (nxt, act)
+        assert 0 < int(active.sum()) < ncell ** 3
+    lab = _slot_labels(lab_p, pslot, ncell, cap)
+    kw = dict(ncell=ncell, capacity=cap, n_sentinel=n, box_size=box,
+              linking_length=b)
+    ref = fof_hook.fof_hook_plain(*bxyz, lab, counts, active, **kw)
+    got, batches, voted, tested = _k5_emulated(bxyz, lab, counts, active,
+                                               ncell, cap, box, b)
+    assert torch.equal(got, ref)
+    assert int((ref != lab).sum()) > 0
+    assert batches > 0 and voted > 0 and tested > 0
