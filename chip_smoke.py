@@ -28,16 +28,23 @@ fatal on failure and each printing its seconds:
      just before and read just after: bench.py's lensing geometry (16
      planes, 65,536 rays, 256^2 with the Jacobian off and on, 512^2)
      through lens_plane_fields and trace_rays with auto_sample_window's
-     window, rays/s and one sampler launch a plane; bench.py's accuracy
-     geometry, the card's windowed trace against the CPU trace at 1e-3,
-     and a planted half-cell sampler fault that must fail that check;
+     window, rays/s, one launch of the trace kernel a trace and the
+     trace's device launches a plane (torch.profiler, at most 3);
+     bench.py's accuracy geometry, the card's windowed trace against the
+     CPU trace at 1e-3, and a planted half-cell fault (the impact
+     positions moved in x inside the trace kernel) that must fail that
+     check;
      tests/test_lensing_limber.py's traced C_ell against Limber at its
      bars; raytraced_maps_from_state on the 1M state after the stepper
      path and on a uniform 4096-particle box (weak-field checks), the E/B
      null test on the 1M state's Born map's shear,
      and the LensingObserver's time; then K6 and K7 against their plain
      version at path 2's shapes, a ragged R with edge points and an
-     unwrapped bundle, timed as CUDA graphs beside grid_sample;
+     unwrapped bundle, one device launch a call, timed as CUDA graphs
+     beside grid_sample; and the trace kernel on both routes (wrapped
+     impact positions, K6's; unwrapped, K7's) against its plain version
+     run on the card (trace_planes_plain) at path 2's geometries, timed
+     as CUDA graphs;
   5. K5 phase: a 1M-particle clustered box (clumps, two periodic chains,
      uniform rest): fof_plan on the card, one FoF hook sweep of K5 against
      its plain version on sampled rows (exactly equal labels), fof_labels
@@ -106,10 +113,11 @@ Then the fast stepper's other options:
  15. row-13 phase: benchmarks/bench_short_range_rd.py's geometry (1M
      particles uniform in 100 Mpc/h from numpy, ncell 24, rs 1.25 x
      100/192, window 4.5 rs, softening 0.01, k_rod 3072): rd_pack and
-     rd_window_tables on the card, then K8 (short_range_rd) against its
-     plain version on sampled rows, K8 and K3 vpu3 (cell buckets of
-     capacity 128) against the exact-erfc sum over all N at 256
-     particles, and the times;
+     rd_window_tables on the card, then K8 (short_range_rd: its plan,
+     against rd_plan_plain, and its pair kernel) against its plain version
+     on sampled rows, two calls equal byte for byte, K8 and K3 vpu3 (cell
+     buckets of capacity 128) against the exact-erfc sum over all N at
+     256 particles, and the times;
  16. pm_fast phase: pm_128_256.json with --forces.type=pm_fast through the
      CLI's engine for 10 steps, beside the stateless pm run of phase 11:
      validate_force_accuracy, pm_fast's own force against the oracle at
@@ -1771,11 +1779,19 @@ def stateless_reference_check(device):
 # lensing bar (`acc_lens`, 1e-3 of the largest |kappa|)
 LENS_TOL = 1e-5
 LENS_MAPS_TOL = 1e-3
-# float operations counted from csrc/lens_sample.cu: per ray (two shifts,
-# two floors, four weight differences), per ray and channel (8 products,
-# 3 sums)
-LENS_FLOPS = (8, 11)
+# float operations counted from csrc/lens_sample.cu: per ray (the grid
+# coordinates' two quotients and two products, two shifts, two floors,
+# four weight differences), per ray and channel (8 products, 3 sums); the
+# trace's per ray and plane (the impact position's two products, the
+# sampler's 12, the deflection's two quotients and two sums, kappa's
+# three operations; the Jacobian's 16 products and sums) besides its
+# samples
+LENS_FLOPS = (12, 11)
+TRACE_FLOPS = (21, 16)
 LENS_BOX = 100.0
+# the most device launches (kernels, copies, fills) a lens plane of a
+# trace may take, given its plane fields
+TRACE_LAUNCHES_A_PLANE = 3
 
 
 def graph_ms(fn, reps: int = 50) -> float:
@@ -1806,6 +1822,52 @@ def graph_ms(fn, reps: int = 50) -> float:
 def lens_counts() -> dict:
     from lambda_cdm_tpu_torch.ops import lens_sample
     return dict(lens_sample.launches)
+
+
+def device_launches(fn, tries: int = 4) -> int:
+    """Device activities (kernels, copies, fills) of one fn() call as
+    torch.profiler records them; a window in which it recorded none is
+    taken again, up to `tries` times (0: none recorded)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                for e in prof.events())
+        if n:
+            return n
+    return 0
+
+
+def touched_cells(xy, extent, ng: int) -> int:
+    """The distinct cells among the four corners of every point's bilinear
+    sample: what a gather at xy must read of each [ng, ng] channel."""
+    import torch
+    from lambda_cdm_tpu_torch.ops import lens_sample as ls
+    i0 = torch.floor(ls.grid_coords(xy, extent, ng) - 0.5).long()
+    ids = [torch.remainder(i0[:, 0] + a, ng) * ng
+           + torch.remainder(i0[:, 1] + b, ng) for a in (0, 1) for b in (0, 1)]
+    return int(torch.unique(torch.cat(ids)).numel())
+
+
+def trace_touched(fl, theta0, chis, weights, box, window: int) -> int:
+    """The cells a trace must read, summed over its planes: each plane's
+    touched_cells at the impact positions of the plain trace."""
+    import torch
+    from lambda_cdm_tpu_torch.ops import lens_sample as ls
+    theta, kap = theta0, torch.zeros_like(theta0[:, 0])
+    total = 0
+    for idx in range(fl.shape[0]):
+        xy = theta * chis[idx]
+        if window == 0:
+            xy = torch.remainder(xy, box)
+        total += touched_cells(xy, box, fl.shape[-1])
+        theta, kap, _ = ls.plane_step_plain(fl[idx], theta, kap, None,
+                                            chis[idx], weights[idx], 100.0,
+                                            box, wrap=window == 0)
+    return total
 
 
 def lens_bench_geometry(ng: int, n_planes: int, n_side: int, chis, a_l,
@@ -1847,12 +1909,12 @@ def lens_kernel_phase(fields_by_shape, device, card):
     """K6 and K7 against their plain version at the bench's shapes (R =
     65,536 grid-ordered rays at F = 3 and 6 on 256^2, F = 3 on 512^2), a
     ragged R of 700 with points on the periodic edges, and an unwrapped
-    coherent bundle through the windowed entry; each timed as one CUDA
-    graph of calls, with grid_sample beside it."""
+    coherent bundle through the windowed entry; one device launch a call;
+    each timed as one CUDA graph of calls and eagerly, with grid_sample
+    beside it; the bound reads the cells the points touch."""
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from lambda_cdm_tpu_torch.ops import cuda_build
     from lambda_cdm_tpu_torch.ops import lens_sample as ls
     ext = torch.tensor(LENS_BOX, device=device)
     failures = []
@@ -1873,6 +1935,9 @@ def lens_kernel_phase(fields_by_shape, device, card):
             err[name] = max(err[name], e)
             check(name, rel <= LENS_TOL, f"{ng}^2 F={n_f}: rel err {rel}",
                   failures)
+            n_launch = device_launches(lambda: fn(fields, pts))
+            check(name, n_launch == 1, f"{n_launch} device launches a call",
+                  failures)
             ms = graph_ms(lambda: fn(fields, pts))
             pms = graph_ms(lambda: ls.bilinear_sample_fields_plain(
                 fields, pts, ext), reps=10)
@@ -1885,20 +1950,14 @@ def lens_kernel_phase(fields_by_shape, device, card):
                 pad, grid, mode="bilinear", padding_mode="border",
                 align_corners=False))
             eager = cuda_ms(lambda: fn(fields, pts), 50)
-            # the kernel alone, without the wrapper's two scaling ops
-            g = ls.grid_coords(pts, ext, ng).contiguous()
-            out = torch.empty((n_f, n_rays), device=device)
-            bare = graph_ms(lambda: cuda_build.launch(
-                "lcdm_lens_sample", fields.data_ptr(), g.data_ptr(),
-                out.data_ptr(), n_f, ng, n_rays,
-                int(name == "lens_sample_xwin")))
-            b_ms, b_by = bound(n_rays * (8 + 4 * n_f) + 4 * n_f * ng * ng,
+            b_ms, b_by = bound(n_rays * (8 + 4 * n_f)
+                               + 4 * n_f * touched_cells(pts, ext, ng),
                                n_rays * (LENS_FLOPS[0] + LENS_FLOPS[1]
                                          * n_f))
             print(f"{name} ({ng}^2, F={n_f}, R={n_rays}): max_abs_err "
                   f"{e:.3e} (rel {rel:.3e}, tol {LENS_TOL:g}); kernel "
-                  f"{ms:.5f} ms a call (graph; eager {eager:.5f}; the "
-                  f"launch alone {bare:.5f}), plain "
+                  f"{ms:.5f} ms a call (graph; eager {eager:.5f}; "
+                  f"{n_launch} device launch), plain "
                   f"{pms:.5f}, grid_sample {lms:.5f} (rel {lib_rel:.1e} "
                   f"off), bound {b_ms:.5f} ms ({b_by}) on {card}")
             if (ng, n_f) == (256, 3):
@@ -1935,19 +1994,81 @@ def lens_kernel_phase(fields_by_shape, device, card):
     return rec
 
 
+def trace_kernel_phase(traces, params, device, card):
+    """The trace kernel (lens_sample.trace_planes on the card: both routes,
+    wrapped impact positions as K6 takes them and unwrapped as K7 does) at
+    each of the lensing bench's geometries against its plain version run
+    on the card from the same arrays (trace_planes_plain: PyTorch's own
+    elementwise ops, so every output is held bit for bit), each timed as
+    a CUDA graph of calls; its bound reads the cells its rays touch
+    (trace_touched) and writes the bundle. Returns the kernels line's
+    records of the two routes (256^2, Jacobian off)."""
+    import torch
+    from lambda_cdm_tpu_torch.ops import lens_sample as ls
+    from lambda_cdm_tpu_torch.raytracing import lensing
+    box = torch.tensor(LENS_BOX, device=device)
+    chi_s = torch.tensor(2500.0, device=device)
+    failures = []
+    rec = {}
+    for (ng, jac), (fl, chis, a_l, theta0, w) in traces.items():
+        weights = lensing.lensing_efficiency(params, chis, chi_s, a_l)
+        n_planes, n_f = fl.shape[0], fl.shape[1]
+        n_rays = theta0.shape[0]
+        routes = (("lens_trace", 0),) + ((("lens_trace_xwin", w),) if w
+                                         else ())
+        for name, window in routes:
+            def fused():
+                return ls.trace_planes(fl, theta0, chis, weights, 100.0,
+                                       LENS_BOX, chi_s, jacobian=jac,
+                                       window=window)
+
+            def plain():
+                return ls.trace_planes_plain(fl, theta0, chis, weights,
+                                             100.0, box, chi_s,
+                                             jacobian=jac, window=window)
+            got, ref = fused(), plain()
+            diff = {k: float((got[k] - ref[k]).abs().max()) for k in ref}
+            same = all(torch.equal(got[k], ref[k]) for k in ref)
+            check(name, same, f"{ng}^2 jacobian={jac}: differs from its "
+                  f"plain version {json.dumps(diff)}", failures)
+            ms = graph_ms(fused, reps=20)
+            pms = graph_ms(plain, reps=3)
+            n_out = 20 + (20 if jac else 0)
+            used = 6 if jac else 3
+            cells = trace_touched(fl, theta0, chis, weights, box, window)
+            b_ms, b_by = bound(
+                n_rays * (8 + n_out) + 4 * used * cells,
+                n_rays * n_planes * (TRACE_FLOPS[0] + LENS_FLOPS[1] * used
+                                     + (TRACE_FLOPS[1] if jac else 0)))
+            print(f"{name} ({ng}^2, {n_planes} planes, F={n_f}, jacobian "
+                  f"{jac}, R={n_rays}, window {window}): "
+                  f"{'equal to' if same else 'differs from'} its plain "
+                  f"version on the card; kernel {ms:.5f} ms a trace "
+                  f"(graph), plain {pms:.5f}, bound {b_ms:.5f} ms ({b_by}) "
+                  f"on {card}")
+            if (ng, jac) == (256, False):
+                rec[name] = dict(ms=ms, plain_ms=pms, library_ms=None,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 max_abs_err=max(diff.values()))
+    if failures:
+        raise AssertionError("trace kernel phase: " + "; ".join(failures))
+    return rec
+
+
 def lens_bench_phase(params, device, card):
     """bench.py section_lensing: lens_plane_fields then trace_rays at 16
     planes and 65,536 rays, 256^2 with the Jacobian off and on, and 512^2,
-    with auto_sample_window's window; rays/s on the host clock, and one
-    sampler launch a plane. Returns (the launches of one trace of each,
-    each configuration's last plane and its impact positions: the K6/K7
-    inputs of the kernel phase)."""
+    with auto_sample_window's window; rays/s on the host clock, one launch
+    of the trace kernel a trace, and the trace's device launches a plane.
+    Returns (the launches of one trace of each, each configuration's last
+    plane and its impact positions: the K6/K7 inputs of the kernel phase,
+    and each configuration's trace inputs)."""
     import torch
     from lambda_cdm_tpu_torch.ops import lens_sample
     from lambda_cdm_tpu_torch.raytracing import lensing
     n_planes = 16
     total = dict.fromkeys(lens_sample.launches, 0)
-    kernel_inputs = {}
+    kernel_inputs, traces = {}, {}
     for ng, jac in ((256, False), (256, True), (512, False)):
         planes, chis, a_l, theta0 = lens_bench_geometry(
             ng, n_planes, 256, torch.linspace(400.0, 1900.0, n_planes),
@@ -1968,24 +2089,30 @@ def lens_bench_phase(params, device, card):
         counts = lens_counts()
         for k in total:
             total[k] += counts[k]
+        n_dev = device_launches(trace)
         t0 = time.perf_counter()
         for _ in range(10):
             trace()
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / 10
         n_rays = theta0.shape[0]
-        name = "lens_sample_xwin" if w > 0 else "lens_sample"
+        name = "lens_trace_xwin" if w > 0 else "lens_trace"
         print(f"lensing bench {ng}^2 jacobian={jac} ({n_rays} rays x "
               f"{n_planes} planes, window {w}): {1e3 * dt:.3f} ms a trace "
-              f"= {n_rays / dt:.4e} rays/s on {card}; launches "
+              f"= {n_rays / dt:.4e} rays/s on {card}; {n_dev} device "
+              f"launches a trace ({n_dev / n_planes:.3f} a plane); launches "
               f"{json.dumps(counts)}")
-        check("lensing bench", counts[name] == n_planes
-              and sum(counts.values()) == n_planes,
-              "not one sampler launch a plane")
+        check("lensing bench", counts[name] == 1
+              and sum(counts.values()) == 1,
+              "not one trace kernel launch a trace")
+        check("lensing bench",
+              0 < n_dev <= TRACE_LAUNCHES_A_PLANE * n_planes,
+              f"{n_dev} device launches a trace of {n_planes} planes")
         check("lensing bench", bool(torch.all(torch.isfinite(b.kappa))),
               "non-finite kappa")
         kernel_inputs[(ng, fl.shape[1])] = (fl[-1], theta0 * chis[-1])
-    return total, kernel_inputs
+        traces[(ng, jac)] = (fl, chis, a_l, theta0, w)
+    return total, kernel_inputs, traces
 
 
 def _lens_accuracy_inputs(device):
@@ -1999,8 +2126,9 @@ def _lens_accuracy_inputs(device):
 def lens_accuracy_phase(params, device):
     """The card's windowed trace against the port's CPU trace from the same
     arrays, at the BASELINE bar; then the same card trace with a planted
-    sampler fault (half a cell in x) that the check must see. Returns the
-    sound trace's launches."""
+    fault (every impact position half a cell off in x inside the trace
+    kernel) that the check must see. Returns the sound trace's
+    launches."""
     import torch
     from lambda_cdm_tpu_torch.ops import lens_sample
     from lambda_cdm_tpu_torch.raytracing import lensing
@@ -2022,20 +2150,19 @@ def lens_accuracy_phase(params, device):
                              ng=ng).kappa
     _, err = rel_err(kap, ref)
 
-    sound = lens_sample.bilinear_sample_fields_xwin
-    shift = torch.tensor([0.5 * LENS_BOX / ng, 0.0], device=device)
+    sound = lens_sample.trace_planes
 
-    def half_cell(fields, xy, extent, **kw):
-        return sound(fields, xy + shift, extent, **kw)
-    lens_sample.bilinear_sample_fields_xwin = half_cell
+    def half_cell(*args, **kw):
+        return sound(*args, **dict(kw, x_offset=0.5 * LENS_BOX / ng))
+    lens_sample.trace_planes = half_cell
     try:
         _, fault = rel_err(card_kappa(), ref)
     finally:
-        lens_sample.bilinear_sample_fields_xwin = sound
+        lens_sample.trace_planes = sound
     print(f"lensing accuracy (8 planes, 256^2, 128^2 rays, window {w}): "
           f"card kappa vs the CPU trace {err:.3e} of max |kappa| (tol "
-          f"{LENS_MAPS_TOL:g}); planted fault (sampler half a cell off in "
-          f"x): {fault:.3e}; launches {json.dumps(counts)}")
+          f"{LENS_MAPS_TOL:g}); planted fault (impact positions half a cell "
+          f"off in x): {fault:.3e}; launches {json.dumps(counts)}")
     check("lensing accuracy", w > 0, "no window: the windowed route was "
           "not taken")
     check("lensing accuracy", err <= LENS_MAPS_TOL,
@@ -2238,12 +2365,12 @@ def lens_user_phase(eng, device, card):
 
 def lensing_phase(eng, device, card):
     """Paths 2-5 of the lensing phase (each with the launch counts reset
-    just before it and read just after), then K6/K7 against their plain
-    version at the shapes of path 2. Returns (kernel records, launches
-    summed over the paths)."""
+    just before it and read just after), then K6/K7 and the trace kernel
+    against their plain versions at the shapes of path 2. Returns (kernel
+    records, launches summed over the paths)."""
     params = eng.config.cosmology_params()
-    total, inputs = timed("lensing bench", lens_bench_phase, params, device,
-                          card)
+    total, inputs, traces = timed("lensing bench", lens_bench_phase, params,
+                                  device, card)
     for counts in (timed("lensing accuracy", lens_accuracy_phase, params,
                          device),
                    timed("lensing Limber", lens_limber_phase, params, device,
@@ -2253,10 +2380,12 @@ def lensing_phase(eng, device, card):
         for k in total:
             total[k] += counts[k]
     print(f"lensing launches on paths 2-5: {json.dumps(total)}")
-    check("lensing", all(v > 0 for v in total.values()),
-          "K6 or K7 was not launched on the lensing paths")
+    check("lensing", total["lens_trace"] > 0 and total["lens_trace_xwin"] > 0,
+          "the trace kernel did not run on both routes on the lensing paths")
     rec = timed("lensing kernels K6/K7", lens_kernel_phase, inputs, device,
                 card)
+    rec.update(timed("lensing trace kernel", trace_kernel_phase, traces,
+                     params, device, card))
     return rec, total
 
 
@@ -2505,6 +2634,21 @@ def rd_oracle(pos, mass, targets, box, rs, soft):
     return torch.cat(out)
 
 
+def rd_bound(rmass, counts, tables, k_rod: int):
+    """(K8's bound ms, what bounds it, the pair tests this data needs):
+    each live row against the slots its chunk's 27 entries cover, 44 float
+    operations a test, against the rods' and tables' bytes."""
+    import torch
+    from lambda_cdm_tpu_torch.ops import short_range_rd as rd
+    _, nt, _ = rd._decode(tables)
+    live_rows = torch.clamp(counts[:, None] - rd.CH * torch.arange(
+        k_rod // rd.CH, device=counts.device)[None], 0, rd.CH)
+    pairs = float((live_rows.double() * nt.sum(-1).double() * 128).sum())
+    b_ms, b_by = bound(28.0 * rmass.numel() + 4.0 * tables.numel(),
+                       FLOPS["short_range_rd"] * pairs)
+    return b_ms, b_by, pairs
+
+
 def rd_phase(device, card):
     """Phase 15: row 13 at bench_short_range_rd.py's geometry: rd_pack and
     rd_window_tables on the card, then the path short_range_rd (counts
@@ -2542,19 +2686,21 @@ def rd_phase(device, card):
     torch.cuda.synchronize()
     launches = {"short_range_rd": read_counts()["short_range_rd"]}
     check("K8", launches["short_range_rd"] == 1, "K8 was not launched")
+    again = rd.short_range_rd(rpos, rmass, counts, tables, **geo)
+    same = bool(torch.equal(acc, again))
+    live = torch.arange(k_rod, device=device)[None] < counts[:, None]
+    dead_zero = bool(torch.all(acc[~live] == 0))
+    plan = rd.rd_plan(counts, k_rod=k_rod)
+    n_items = int(plan[0])
+    plan_ok = torch.equal(torch.sort(plan[2:2 + n_items].long()).values,
+                          torch.sort(rd.rd_plan_plain(counts,
+                                                      k_rod=k_rod)).values)
 
     rows = sample_rows(counts, k_rod, 4096, seed=9)
     ref = rd.short_range_rd_plain(rpos, rmass, counts, tables, rows=rows,
                                   **geo)
     err, rel = rel_err(acc.reshape(-1, 3)[rows], ref)
-    # the pair tests this data needs: each live row against the slots its
-    # chunk's 27 entries cover
-    zsel, nt, _ = rd._decode(tables)
-    live_rows = torch.clamp(counts[:, None] - rd.CH * torch.arange(
-        k_rod // rd.CH, device=device)[None], 0, rd.CH)
-    pairs = float((live_rows.double() * nt.sum(-1).double() * 128).sum())
-    b_ms, b_by = bound(28.0 * rmass.numel() + 4.0 * tables.numel(),
-                       FLOPS["short_range_rd"] * pairs)
+    b_ms, b_by, pairs = rd_bound(rmass, counts, tables, k_rod)
     ms = cuda_ms(lambda: rd.short_range_rd(rpos, rmass, counts, tables,
                                            **geo), 10)
     pms = cuda_ms(lambda: rd.short_range_rd_plain(
@@ -2595,6 +2741,10 @@ def rd_phase(device, card):
           f"ncell {ncell}, rods {ncell * ncell}, k_rod {k_rod}, rs {rs:.4f}, "
           f"window r_cut {r_cut:.4f}): rd_pack {pack_ms:.3f} ms, "
           f"rd_window_tables {tab_ms:.3f} ms on {card}")
+    print(f"K8 plan: {n_items} work items of {rd.GROUP} chunks, "
+          f"{'equal to' if plan_ok else 'differs from'} rd_plan_plain's; two "
+          f"calls {'equal' if same else 'differ'}; dead slots "
+          f"{'0' if dead_zero else 'not 0'}")
     print(f"K8 short_range_rd (4096 rows): max_abs_err {err:.3e} (rel "
           f"{rel:.3e}, tol {TOL['short_range']:g}); kernel {ms:.4f} ms, "
           f"plain {pms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {pairs:.4e} "
@@ -2606,6 +2756,9 @@ def rd_phase(device, card):
           f"(they take different pairs between r_cut and 6 rs)")
     failures = []
     check("K8", rel <= TOL["short_range"], f"rel err {rel} > tol", failures)
+    check("K8", same, "two calls differ", failures)
+    check("K8", dead_zero, "a dead slot is not 0", failures)
+    check("K8", plan_ok, "its plan differs from rd_plan_plain's", failures)
     check("K8", k8_err <= RD_ORACLE_TOL, f"oracle error {k8_err}", failures)
     check("K3 vpu3", k3_err <= RD_ORACLE_TOL, f"oracle error {k3_err}",
           failures)
@@ -2931,6 +3084,13 @@ def main() -> int:
                "lens_sample_xwin": (
                    "csrc/lens_sample.cu",
                    "lambda_cdm_tpu/ops/pallas_lens_sample.py:165"),
+               # trace_rays's loop on the card: the K6 route (wrapped
+               # impact positions) and the K7 route (unwrapped)
+               "lens_trace": ("csrc/lens_sample.cu",
+                              "lambda_cdm_tpu/ops/pallas_lens_sample.py:84"),
+               "lens_trace_xwin": (
+                   "csrc/lens_sample.cu",
+                   "lambda_cdm_tpu/ops/pallas_lens_sample.py:165"),
                "short_range_vpu": (
                    "csrc/short_range.cu",
                    "lambda_cdm_tpu/ops/pallas_short_range.py:944"),
@@ -2952,12 +3112,15 @@ def main() -> int:
     # launches: K1-K3 and K5 on the CLI run of treepm_1m, K4 and K4s on
     # the direct_10k run (0 for K4s: no path of the port runs it; the JAX
     # package drives its kernel only from bench.py); K4 and K4s report
-    # their v1 and sym variants; K6/K7 summed over the lensing paths 2-5;
+    # their v1 and sym variants; K6/K7's public entries and the trace
+    # kernel's two routes summed over the lensing paths 2-5 (trace_rays
+    # takes the trace kernel, so no path calls the public entries);
     # K3's row-7 split forms on the row-7 path (phase 14), K8 on the
     # row-13 path (phase 15), K9 on the science run (its ledger samples),
     # K10 on its own entry point (phase 19). No single PyTorch call
-    # computes K1-K5's or K8-K10's functions (library_ms null); K6/K7's
-    # yardstick is grid_sample on the wrapped, padded stack
+    # computes K1-K5's, K8-K10's or the trace's functions (library_ms
+    # null); K6/K7's yardstick is grid_sample on the wrapped, padded
+    # stack
     launches = dict(launches, direct=k4_launches["direct"],
                     direct_sym=k4_launches["direct_sym"], **lens_launches,
                     **row7_launches, **rd_launches, **alias_launches,

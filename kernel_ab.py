@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time K1-K5 and K9 of several checkouts of the PyTorch port on one
-card, on the same inputs, in turns (for a before/after comparison).
+"""Time K1-K9 of several checkouts of the PyTorch port on one card, on
+the same inputs, in turns (for a before/after comparison).
 
     python3 kernel_ab.py --root OLD --root . --root . --root OLD \\
-        [--record RECORD.npz] [--only pm,k9,k4,k5]
+        [--record RECORD.npz] [--only pm,k9,k4,k5,lens,k8]
 
 Needs one CUDA card and nvcc. The inputs are made once, with the port in
 this script's directory, and written to a temporary directory as npz
@@ -36,10 +36,17 @@ end):
   fof_1m       the same positions (and seeded velocities) for fof_labels
                and find_halos;
   fof_science  with --record: the science run's final state for
-               find_halos on the science run's own FoF plan.
+               find_halos on the science run's own FoF plan;
+  lens_256,    chip_smoke.py's lensing bench geometry (bench.py's: 16
+  lens_256_jac planes of 0.2 unit normals from seed 2, chi 400 -> 1900,
+  lens_512     65,536 grid-ordered rays), 256^2 with the Jacobian off and
+               on, and 512^2;
+  rd_1m        row 13's geometry (benchmarks/bench_short_range_rd.py: 1M
+               uniform particles from seed 0 in 100 Mpc/h, 24^2 rods).
 
 --only keeps some groups: pm (the bucket states: K1-K3), k9, k4, k5 (K5
-states, fof_1m and fof_science).
+states, fof_1m and fof_science), lens (K6/K7 and trace_rays), k8 (K8
+and its packing and tables).
 
 Each bucket state also carries the potential of its plain deposit (at
 its plan's 192^3 mesh and split scale) for K2.
@@ -51,13 +58,22 @@ events; K1 and K2 twice, as eager wrapper calls between CUDA events (what
 the stepper pays, host work included) and as device time from a CUDA
 graph of the same calls (each call's memset included); K9, K4 (v1 and
 v2) and K5 (one sweep) with CUDA events; fof_labels and find_halos with
-the host clock around calls that end in a synchronise. It prints one
-JSON line with each result's SHA-256 (K2 and K3: the raw bytes of the
+the host clock around calls that end in a synchronise; on the lens
+inputs K6 and K7 (the last plane's fields at its impact positions,
+wrapped for K6) as eager wrapper calls between CUDA events and as a CUDA
+graph of calls, beside one grid_sample of the same points (the wrapped,
+padded stack), and trace_rays (lens_plane_fields and auto_sample_window
+made once) on the host clock around 20 traces that end in a synchronise,
+with the device launches of one trace (torch.profiler); on rd_1m rd_pack,
+rd_window_tables and K8 (short_range_rd) with CUDA events, two K8 calls
+compared byte for byte. It prints one JSON line with each result's
+SHA-256 (K2 and K3: the raw bytes of the
 [3, C, K] output; K9: U as a float64; K1: its grid where two calls give
 equal bytes, else none; K4: the [N, 3] accelerations; K5: the [C, K]
-labels; fof_labels and find_halos: the particle labels) and the static
-instruction mix of K1's, K2's, K3's, K4's, K5's and K9's functions in
-its library (cuobjdump -sass: FRND and MUFU against FADD, FMUL and FFMA;
+labels; fof_labels and find_halos: the particle labels; K6/K7: the
+samples; trace_rays: kappa; rd_window_tables: the tables; K8: its
+output) and the static instruction mix of K1's, K2's, K3's, K4's, K5's,
+K6/K7's, K8's and K9's functions in its library (cuobjdump -sass: FRND and MUFU against FADD, FMUL and FFMA;
 global reductions and atomics, shared atomics, shared and global loads).
 A line a result then says which roots gave the first root's bytes (K5:
 and whether they are the plain version's, fof_hook_plain on the whole
@@ -85,11 +101,14 @@ K9_REPS = {"k9_131k": 3, "k9_1m": 1}
 K4_REPS = {"k4_10k": 50, "k4_100k": 5}
 K5_REPS = 10
 PM_REPS = 20
-GROUPS = ("pm", "k9", "k4", "k5")
+GROUPS = ("pm", "k9", "k4", "k5", "lens", "k8")
+LENS_REPS = 20
+K8_REPS = 10
 # the kernel functions whose instruction mix each root reports
 SASS_KERNELS = ("pair_potential_kernel", "short_range_kernel",
                 "direct_kernel", "cic_deposit_kernel", "fd4_gather_kernel",
-                "fof_hook_kernel")
+                "fof_hook_kernel", "short_range_rd_kernel", "lens_sample",
+                "lens_trace")
 # SASS mnemonics counted together
 SASS_FAMILIES = {"FADD": "FP32", "FMUL": "FP32", "FFMA": "FP32",
                  "FRND": "FRND", "MUFU": "MUFU", "RED": "RED", "REDG": "RED",
@@ -297,8 +316,61 @@ def make_inputs(out: str, record: str | None, groups) -> list:
         del eng
     if "k5" in groups:
         names += _fof_inputs(out, final, g, device)
+    if "lens" in groups:
+        names += _lens_inputs(out, device)
+    if "k8" in groups:
+        names += _k8_inputs(out, device)
     torch.cuda.empty_cache()
     return names
+
+
+LENS_INPUTS = {"lens_256": (256, False), "lens_256_jac": (256, True),
+               "lens_512": (512, False)}
+
+
+def _lens_inputs(out, device) -> list:
+    """chip_smoke.py's lensing bench geometry at each LENS_INPUTS shape."""
+    import numpy as np
+    import torch
+    import chip_smoke
+    for name, (ng, jac) in LENS_INPUTS.items():
+        planes, chis, a_l, theta0 = chip_smoke.lens_bench_geometry(
+            ng, 16, 256, torch.linspace(400.0, 1900.0, 16),
+            torch.linspace(0.9, 0.55, 16), 2, device)
+        np.savez(os.path.join(out, f"{name}.npz"),
+                 planes=planes.cpu().numpy(), chis=chis.cpu().numpy(),
+                 a_l=a_l.cpu().numpy(), theta0=theta0.cpu().numpy(),
+                 geo=json.dumps(dict(ng=ng, jacobian=jac,
+                                     box_size=chip_smoke.LENS_BOX,
+                                     d_chi=100.0, chi_source=2500.0)))
+    return list(LENS_INPUTS)
+
+
+def _k8_inputs(out, device) -> list:
+    """Row 13's particles and K8's bound there: the pair tests of each live
+    row against its chunk's covered slots, 44 float operations each,
+    against the rods' and tables' bytes (chip_smoke.py's rd_phase)."""
+    import numpy as np
+    import torch
+    import chip_smoke
+    from lambda_cdm_tpu_torch.ops import short_range_rd as rd
+    n, ncell, box = chip_smoke.RD_N, chip_smoke.RD_NCELL, chip_smoke.RD_BOX
+    rs = 1.25 * box / chip_smoke.RD_PM
+    pos = np.random.default_rng(0).uniform(0.0, box, (n, 3)).astype(
+        np.float32)
+    k_rod = rd.rd_geometry(n, ncell)
+    _, rmass, counts, rzq, _, _ = rd.rd_pack(
+        torch.from_numpy(pos).to(device), torch.ones(n, device=device), box,
+        ncell=ncell, k_rod=k_rod)
+    tables = rd.rd_window_tables(rzq, counts, ncell=ncell, k_rod=k_rod,
+                                 box_size=box, window=4.5 * rs)
+    b_ms, b_by, pairs = chip_smoke.rd_bound(rmass, counts, tables, k_rod)
+    np.savez(os.path.join(out, "rd_1m.npz"), pos=pos,
+             geo=json.dumps(dict(ncell=ncell, k_rod=k_rod, box_size=box,
+                                 rs=rs, softening=chip_smoke.RD_SOFT,
+                                 window=4.5 * rs)),
+             bound=json.dumps([b_ms, b_by, pairs]))
+    return ["rd_1m"]
 
 
 def _fof_inputs(out, final, g, device) -> list:
@@ -360,16 +432,104 @@ def _fof_inputs(out, final, g, device) -> list:
     return names
 
 
-def _graph_ms():
-    """chip_smoke.graph_ms of this script's checkout: device milliseconds
-    a call from one CUDA graph of calls (K1 and K2 take less than their
-    wrappers' host time, so an eager loop would time the host)."""
+def _chip_smoke():
+    """This script's checkout's chip_smoke module: its timers (graph_ms:
+    device milliseconds a call from one CUDA graph of calls, for calls
+    that take less than their wrappers' host time) and yardsticks."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "kernel_ab_chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.graph_ms
+    return mod
+
+
+def lens_calls(res, name, z, geo, device) -> None:
+    """trace_rays on one lensing bench input (and at 256^2 K6, K7 and
+    grid_sample at its last plane) into res."""
+    import time
+    import torch
+    import torch.nn.functional as F
+    from lambda_cdm_tpu_torch.ops import cuda_build
+    from lambda_cdm_tpu_torch.ops import lens_sample as ls
+    from lambda_cdm_tpu_torch.physics.cosmology import CosmologyParams
+    from lambda_cdm_tpu_torch.raytracing import lensing
+    cs = _chip_smoke()
+    params = CosmologyParams()
+    planes, chis, a_l, theta0 = (torch.from_numpy(z[k]).to(device)
+                                 for k in ("planes", "chis", "a_l",
+                                           "theta0"))
+    ng, jac, box = geo["ng"], geo["jacobian"], geo["box_size"]
+    fl = lensing.lens_plane_fields(params, planes, chis, a_l, geo["d_chi"],
+                                   box, geo["chi_source"], ng=ng,
+                                   jacobian=jac)
+    w = lensing.auto_sample_window(fl, chis, theta0, box, ng=ng)
+
+    def trace():
+        return lensing.trace_rays(params, planes, chis, a_l, geo["d_chi"],
+                                  box, theta0, geo["chi_source"], ng=ng,
+                                  jacobian=jac, window=w, fields_l=fl)
+    kappa = trace().kappa
+    launches = cs.device_launches(trace)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LENS_REPS):
+        trace()
+    torch.cuda.synchronize()
+    res[f"{name}/trace_rays"] = {
+        "ms": 1e3 * (time.perf_counter() - t0) / LENS_REPS, "window": w,
+        "launches": launches, "planes": planes.shape[0],
+        "sha256": _sha(kappa)}
+    if name != "lens_256":
+        return
+    ext = torch.tensor(box, device=device)
+    f3, xy = fl[-1], theta0 * chis[-1]
+    wrapped = torch.remainder(xy, ext)
+    calls = {"K6": lambda: ls.bilinear_sample_fields(f3, wrapped, ext),
+             "K7": lambda: ls.bilinear_sample_fields_xwin(
+                 f3, xy, ext, window=ng // 2)}
+    pad, grid = cs.grid_sample_inputs(f3, wrapped, box)
+    calls["grid_sample"] = lambda: F.grid_sample(
+        pad, grid, mode="bilinear", padding_mode="border",
+        align_corners=False)
+    for key, fn in calls.items():
+        res[f"{name}/{key}"] = {
+            "ms": cuda_build.cuda_ms(fn, 50), "graph_ms": cs.graph_ms(fn),
+            "launches": cs.device_launches(fn),
+            "sha256": None if key == "grid_sample" else _sha(fn())}
+
+
+def k8_calls(res, name, z, geo, device) -> None:
+    """rd_pack, rd_window_tables and K8 at row 13 into res."""
+    import torch
+    from lambda_cdm_tpu_torch.ops import cuda_build
+    from lambda_cdm_tpu_torch.ops import short_range_rd as rd
+    pos = torch.from_numpy(z["pos"]).to(device)
+    mass = torch.ones(pos.shape[0], device=device)
+    ncell, k_rod, box = geo["ncell"], geo["k_rod"], geo["box_size"]
+
+    def pack():
+        return rd.rd_pack(pos, mass, box, ncell=ncell, k_rod=k_rod)
+    rpos, rmass, counts, rzq, _, _ = pack()
+
+    def tables_of():
+        return rd.rd_window_tables(rzq, counts, ncell=ncell, k_rod=k_rod,
+                                   box_size=box, window=geo["window"])
+    tables = tables_of()
+    kw = dict(ncell=ncell, k_rod=k_rod, box_size=box, rs=geo["rs"],
+              softening=geo["softening"])
+
+    def k8():
+        return rd.short_range_rd(rpos, rmass, counts, tables, **kw)
+    acc, again = k8(), k8()
+    res[f"{name}/rd_pack"] = {"ms": cuda_build.cuda_ms(pack, 5),
+                              "sha256": None}
+    res[f"{name}/rd_window_tables"] = {
+        "ms": cuda_build.cuda_ms(tables_of, 5), "sha256": _sha(tables)}
+    res[f"{name}/K8"] = {"ms": cuda_build.cuda_ms(k8, K8_REPS),
+                         "sha256": _sha(acc),
+                         "two_calls_equal": bool(torch.equal(acc, again)),
+                         "bound": json.loads(str(z["bound"]))}
 
 
 def pm_kernels(res, name, z, bpos, bmass, counts, device) -> None:
@@ -378,7 +538,7 @@ def pm_kernels(res, name, z, bpos, bmass, counts, device) -> None:
     K1's where two calls agree."""
     import torch
     from lambda_cdm_tpu_torch.ops import cuda_build, pm_rods
-    graph_ms = _graph_ms()
+    graph_ms = _chip_smoke().graph_ms
     pm = json.loads(str(z["pm"]))
     phi = torch.from_numpy(z["phi"]).to(device)
 
@@ -496,6 +656,12 @@ def worker(root: str, out: str, names: list) -> dict:
         if name.startswith("fof_"):
             fof_calls(res, name, z, geo, device)
             continue
+        if name.startswith("lens_"):
+            lens_calls(res, name, z, geo, device)
+            continue
+        if name == "rd_1m":
+            k8_calls(res, name, z, geo, device)
+            continue
         if name in K9_REPS:
             pos = torch.from_numpy(z["pos"]).to(device)
             mass = torch.from_numpy(z["mass"]).to(device)
@@ -527,7 +693,8 @@ def main() -> int:
     ap.add_argument("--root", action="append", default=[])
     ap.add_argument("--record", default=None)
     ap.add_argument("--only", default=",".join(GROUPS),
-                    help="comma-separated groups of inputs: pm, k9, k4, k5")
+                    help="comma-separated groups of inputs: pm, k9, k4, "
+                    "k5, lens, k8")
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--names", default="", help=argparse.SUPPRESS)
@@ -581,6 +748,15 @@ def main() -> int:
         if "plain" in have[0][key]:
             same = ", ".join(r["root"] for r in have if r[key]["plain"])
             line += f"; the plain version's bytes: {same}"
+        if "launches" in have[0][key]:
+            line += "; device launches a call " + ", ".join(
+                f"{r['root']} {r[key]['launches']}" for r in have)
+            if "planes" in have[0][key]:
+                line += (f" ({have[0][key]['planes']} planes, window "
+                         f"{have[0][key]['window']})")
+        if "two_calls_equal" in have[0][key]:
+            line += "; two calls equal: " + ", ".join(
+                f"{r['root']} {r[key]['two_calls_equal']}" for r in have)
         if "bound" in have[0][key]:
             line += (f"; bound {have[0][key]['bound'][0]:.4f} ms "
                      f"({have[0][key]['bound'][1]})")

@@ -326,14 +326,7 @@ def plan_units(plan, counts, ncell: int):
                                                 max=UNIT_ROWS)], dim=1)
 
 
-@functools.lru_cache(maxsize=None)
-def _device_coeffs(variant: str, rs: float, device: str):
-    """The split's coefficients as a device tensor (K8 reads them so)."""
-    return torch.tensor(_split_params(variant, rs)[0], dtype=torch.float32,
-                        device=device)
-
-
-MAX_COEFFS = 12   # kMaxCoeffs in short_range.cu
+MAX_COEFFS = 12   # kMaxCoeffs in short_range.cu and short_range_rd.cu
 
 
 @functools.lru_cache(maxsize=None)

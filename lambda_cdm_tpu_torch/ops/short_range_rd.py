@@ -28,16 +28,21 @@ broadcast compare; the counts are equal).
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
 from . import cuda_build
-from .short_range import _device_coeffs, _poly_even_coeffs, pair_weight
+from .short_range import _host_coeffs, _poly_even_coeffs, pair_weight
 
 CH = 16          # i rows a chunk (one table row)
 SEGS = 3         # table entries per (chunk, neighbour rod)
 ENT = 9 * SEGS
+TILE = 128       # j slots a table tile
+# chunks a work item of K8, a warp each: kGroup in csrc/short_range_rd.cu,
+# which refuses another value (it sizes the plan)
+GROUP = 8
 
 launches = {"short_range_rd": 0}
 
@@ -164,11 +169,20 @@ def rd_window_tables(rzq, counts, *, ncell: int, k_rod: int,
     z_lo = zmin - wq                        # [R, NCH] (may be < 0)
     z_hi = zmax + wq                        # (may be > qmax)
 
-    def rank_lt(nzq, nn, bound):
-        """#live slots with zq < bound, [R, NCH]: the rods are z-sorted
-        with a sentinel tail above every bound that counts."""
-        c = torch.searchsorted(nzq, bound.to(nzq.dtype).contiguous())
-        return torch.minimum(c, nn[:, None].to(c.dtype))
+    # the 9 neighbour rods of every rod at once: one searchsorted over the
+    # [9R, K_rod] stack of their z-sorted, sentinel-tailed quantized z for
+    # the four bounds of every chunk, each count capped at the rod's live
+    # slots (#live slots with zq < bound)
+    nbr = _neighbour_rods(ncell, rzq.device).reshape(-1)      # [9R]
+    nn = counts[nbr].to(torch.int64)[:, None]                 # [9R, 1]
+    bounds = torch.cat([torch.clamp(z_lo, min=0),
+                        torch.clamp(z_hi, max=qmax) + 1, z_hi - qmax,
+                        z_lo + qmax + 1], dim=1)              # [R, 4 NCH]
+    rank = torch.searchsorted(
+        rzq[nbr].contiguous(),
+        bounds.to(rzq.dtype).repeat(9, 1).contiguous())       # [9R, 4 NCH]
+    s1, e1, e2, s3 = torch.minimum(rank, nn).reshape(
+        9, nrods, 4, nch).unbind(2)                           # [9, R, NCH]
 
     def seg_entry(start, end):
         st = torch.div(start, 128, rounding_mode="floor")
@@ -176,22 +190,17 @@ def rd_window_tables(rzq, counts, *, ncell: int, k_rod: int,
                          - st, min=0)
         return st, torch.where(end > start, nt, 0)
 
-    entries = []
-    for nbr in _neighbour_rods(ncell, rzq.device):
-        nzq = rzq[nbr].contiguous()          # [R, K_rod]
-        nn = counts[nbr]                     # [R]
-        s1 = rank_lt(nzq, nn, torch.clamp(z_lo, min=0))
-        e1 = rank_lt(nzq, nn, torch.clamp(z_hi, max=qmax) + 1)
-        st1, nt1 = seg_entry(s1, e1)
-        e2 = torch.where(z_hi > qmax, rank_lt(nzq, nn, z_hi - qmax), 0)
-        st2, nt2 = seg_entry(torch.zeros_like(s1), e2)
-        s3 = rank_lt(nzq, nn, z_lo + qmax + 1)
-        e3 = torch.where(z_lo < 0, nn[:, None].to(s3.dtype), 0)
-        st3, nt3 = seg_entry(s3, e3)
-        entries.extend([torch.where(has_live, st1 * 1024 + nt1 * 4, 0),
-                        torch.where(has_live, st2 * 1024 + nt2 * 4 + 1, 1),
-                        torch.where(has_live, st3 * 1024 + nt3 * 4 + 2, 2)])
-    return torch.stack(entries, dim=-1).to(torch.int32)
+    st1, nt1 = seg_entry(s1, e1)
+    st2, nt2 = seg_entry(torch.zeros_like(s1),
+                         torch.where(z_hi > qmax, e2, 0))
+    st3, nt3 = seg_entry(s3, torch.where(z_lo < 0, nn.reshape(9, nrods, 1),
+                                         0))
+    entries = torch.stack([torch.where(has_live, st1 * 1024 + nt1 * 4, 0),
+                           torch.where(has_live, st2 * 1024 + nt2 * 4 + 1, 1),
+                           torch.where(has_live, st3 * 1024 + nt3 * 4 + 2, 2)],
+                          dim=-1)                             # [9, R, NCH, 3]
+    return entries.permute(1, 2, 0, 3).reshape(nrods, nch, ENT).to(
+        torch.int32)
 
 
 def _validate(rpos, rmass, counts, tables, ncell, k_rod, softening):
@@ -286,11 +295,44 @@ def short_range_rd_plain(rpos, rmass, counts, tables, *, ncell: int,
     return out
 
 
+def rd_plan_plain(counts, *, k_rod: int):
+    """Plain PyTorch version of K8's plan: the work items (int64, r * (K_rod
+    / (16 GROUP)) + g) of every group of GROUP consecutive 16-row chunks
+    of a rod holding a live row, the full groups first, then the partial
+    ones by live rows, most first (ties by item). The kernel's plan lists
+    the same items in that order of live rows (ties in no fixed order)."""
+    rows = GROUP * CH
+    gpr = k_rod // rows
+    c = torch.clamp(counts.to(torch.int64), max=k_rod)
+    g = torch.arange(gpr, device=counts.device)
+    live_rows = torch.clamp(c[:, None] - rows * g[None], 0, rows)  # [R, G]
+    item = torch.arange(c.numel() * gpr, device=counts.device)
+    keep = live_rows.reshape(-1) > 0
+    key = (rows - live_rows.reshape(-1)) * item.numel() + item
+    return item[keep][torch.argsort(key[keep])]
+
+
+def rd_plan(counts, *, k_rod: int):
+    """K8's plan for CUDA counts (no host sync): int32 [2 + R K_rod / (16
+    GROUP)], the header [items, 0] then the items of rd_plan_plain (in the
+    same order of live rows; ties in no fixed order), the rest unwritten.
+    CPU counts take rd_plan_plain (the items alone)."""
+    if counts.device.type == "cpu":
+        return rd_plan_plain(counts, k_rod=k_rod)
+    cuda_build.require_cuda("rd_plan", counts, dtypes=(torch.int32,))
+    plan = torch.empty((2 + counts.numel() * (k_rod // (CH * GROUP)),),
+                       dtype=torch.int32, device=counts.device)
+    cuda_build.launch("lcdm_short_range_rd_plan", counts.data_ptr(),
+                      plan.data_ptr(), counts.numel(), k_rod, GROUP)
+    return plan
+
+
 def short_range_rd(rpos, rmass, counts, tables, *, ncell: int, k_rod: int,
                    box_size: float, rs: float, softening: float):
     """Short-range accelerations (unit G) for every rod slot -> [R, K_rod,
     3], 0 on dead slots. CUDA tensors launch K8 (csrc/short_range_rd.cu,
-    replacing pallas_short_range_rd's _rd_kernel); CPU tensors take
+    replacing pallas_short_range_rd's _rd_kernel: its plan of work items,
+    then the pair kernel on GROUP chunks a block); CPU tensors take
     short_range_rd_plain."""
     _validate(rpos, rmass, counts, tables, ncell, k_rod, softening)
     if rpos.device.type == "cpu":
@@ -301,13 +343,15 @@ def short_range_rd(rpos, rmass, counts, tables, *, ncell: int, k_rod: int,
                             dtypes=(torch.float32, torch.float32,
                                     torch.int32, torch.int32))
     _, v_scale, c1 = _poly_even_coeffs(float(rs))
-    # [R, K_rod] float4 (x, y, z, m c1): one 16-byte load a j slot
+    # [R, K_rod] float4 (x, y, z, m c1): one 16-byte copy a j slot
     pts = torch.cat([rpos, (rmass * c1)[..., None]], dim=-1).contiguous()
-    coeffs = _device_coeffs("vpu3", float(rs), str(rpos.device))
+    coeffs = _host_coeffs("vpu3", float(rs))
+    plan = rd_plan(counts, k_rod=k_rod)
     out = torch.zeros_like(rpos)
     launches["short_range_rd"] += 1
     cuda_build.launch("lcdm_short_range_rd", pts.data_ptr(),
                       counts.data_ptr(), tables.data_ptr(),
-                      coeffs.data_ptr(), out.data_ptr(), ncell, k_rod,
-                      float(box_size), float(softening) ** 2, v_scale)
+                      ctypes.addressof(coeffs), plan.data_ptr(),
+                      out.data_ptr(), ncell, k_rod, GROUP, float(box_size),
+                      float(softening) ** 2, v_scale)
     return out

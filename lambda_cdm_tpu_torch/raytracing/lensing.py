@@ -270,68 +270,31 @@ def trace_rays(params: CosmologyParams, delta_planes, chi_planes, a_planes,
     gamma, magnification mu = 1/det(A), rotation omega and
     kappa_jac = 1 - tr(A)/2.
 
-    Sampling: on the card, `window > 0` takes the windowed entry (K7)
-    with the unwrapped impact positions theta * chi_l, as the JAX package
-    does on the TPU (the caller supplies a window honouring
-    auto_sample_window's bound), and window 0 the full entry (K6) with
-    the positions wrapped into the box. On the CPU the window is ignored
-    and the positions are wrapped, as in the JAX package's CPU branch.
-    `fields_l` optionally passes precomputed lens_plane_fields.
+    Sampling: on the card each plane is one launch of the sampler
+    kernel's plane step (ops/lens_sample.trace_planes: the impact
+    position, the samples, the deflection, kappa and the Jacobian in one
+    pass). `window > 0` samples the unwrapped impact positions theta *
+    chi_l (K7's route), as the JAX package does on the TPU (the caller
+    supplies a window honouring auto_sample_window's bound), and window 0
+    the positions wrapped into the box (K6's). On the CPU the window is
+    ignored and the positions are wrapped, as in the JAX package's CPU
+    branch. `fields_l` optionally passes precomputed lens_plane_fields.
     """
     dev = theta0.device
     chi_planes = as_f32(chi_planes).to(dev)
     a_planes = as_f32(a_planes).to(dev)
     chi_source = _f32(chi_source, dev)
-    box = _f32(box_size, dev)
     if fields_l is None:
         fields_l = lens_plane_fields(params, delta_planes, chi_planes,
                                      a_planes, d_chi, box_size, chi_source,
                                      ng=ng, jacobian=jacobian)
-    on_card = _on_card(theta0)
-    fast_ch = 3 if jacobian else 0
-    n_rays = theta0.shape[0]
-    theta = theta0
-    kap = torch.zeros(n_rays, dtype=torch.float32, device=dev)
-    if jacobian:
-        a00 = torch.ones(n_rays, dtype=torch.float32, device=dev)
-        a11 = torch.ones_like(a00)
-        a01 = torch.zeros_like(a00)
-        a10 = torch.zeros_like(a00)
-    for idx in range(fields_l.shape[0]):
-        chi_l = chi_planes[idx]
-        if on_card and window > 0:
-            sampled = lens_sample.bilinear_sample_fields_xwin(
-                fields_l[idx], theta * chi_l, box, window=window,
-                fast_channels=fast_ch)
-        else:
-            xy = torch.remainder(theta * chi_l, box)
-            sampled = (lens_sample.bilinear_sample_fields(
-                fields_l[idx], xy, box, fast_channels=fast_ch) if on_card
-                else bilinear_sample_matmul(fields_l[idx], xy, box))
-        ax, ay, dl = sampled[0], sampled[1], sampled[2]
-        # the comoving potential u solves lap_x(u) = 2 kappa; the angular
-        # deflection is grad_x(u) / chi_l
-        theta = theta + (-torch.stack([ax, ay], dim=-1) / chi_l)
-        w = lensing_efficiency(params, chi_l, chi_source, a_planes[idx])
-        kap = kap + dl * w * d_chi
-        if jacobian:
-            # A <- (I - U) A, elementwise
-            uxx, uxy, uyy = sampled[3], sampled[4], sampled[5]
-            a00, a01, a10, a11 = (a00 - (uxx * a00 + uxy * a10),
-                                  a01 - (uxx * a01 + uxy * a11),
-                                  a10 - (uxy * a00 + uyy * a10),
-                                  a11 - (uxy * a01 + uyy * a11))
-    beta = theta * chi_source
-    if not jacobian:
-        return RayBundle(theta=theta, beta=beta, kappa=kap)
-    # A = [[1-k-g1, -g2+w], [-g2-w, 1-k+g1]]
-    g1 = 0.5 * (a11 - a00)
-    g2 = -0.5 * (a01 + a10)
-    det = a00 * a11 - a01 * a10
-    return RayBundle(theta=theta, beta=beta, kappa=kap,
-                     gamma=torch.stack([g1, g2], dim=-1), mu=1.0 / det,
-                     omega=0.5 * (a10 - a01),
-                     kappa_jac=1.0 - 0.5 * (a00 + a11))
+    # every plane's lensing weight at once (elementwise: each keeps the
+    # bits of its own call)
+    weights = lensing_efficiency(params, chi_planes, chi_source, a_planes)
+    out = lens_sample.trace_planes(
+        fields_l, theta0, chi_planes, weights, d_chi, box_size, chi_source,
+        jacobian=jacobian, window=window if _on_card(theta0) else 0)
+    return RayBundle(**out)
 
 
 # ---------------------------------------------------------------------------

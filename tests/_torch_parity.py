@@ -123,3 +123,26 @@ def cuda_device():
         pytest.skip("needs a CUDA card (on the GPU host: python -m pytest "
                     "tests/test_torch_cuda.py -m cuda --noconftest)")
     return torch.device("cuda", 0)
+
+
+# K8's schedule as csrc/short_range_rd.cu compiles it, for the tests that
+# emulate it or must reach its streaming: partial sums a lane (kIlp) and
+# the 128-slot tiles one stage buffer holds (kStageTiles)
+K8_ILP = 4
+K8_STAGE_TILES = 32
+
+
+def k8_union_tiles(tables, counts, k_rod, group):
+    """[R, K_rod / (16 group)] tiles in the union K8 stages for each work
+    item (group consecutive 16-row chunks of a rod): for each of the 27
+    entries, the span of the live chunks' tile ranges, summed."""
+    ent = tables.cpu().to(torch.int64)
+    nrods, nch = ent.shape[0], ent.shape[1]
+    ent = ent.reshape(nrods, nch // group, group, 27)
+    st, nt = ent >> 10, (ent >> 2) & 255
+    chunk = torch.arange(nch).reshape(1, nch // group, group, 1)
+    live = chunk * 16 < counts.cpu().to(torch.int64).reshape(-1, 1, 1, 1)
+    has = live & (nt > 0)
+    lo = torch.where(has, st, 1 << 30).amin(dim=2)
+    hi = torch.where(has, st + nt, 0).amax(dim=2)
+    return torch.clamp(hi - lo, min=0).sum(dim=-1)

@@ -18,8 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import clustered_particles, cuda_device, \
-    half_box_lattice, tt, uniform_particles  # noqa: F401  (a fixture)
+from _torch_parity import K8_STAGE_TILES, clustered_particles, \
+    cuda_device, half_box_lattice, k8_union_tiles, tt, \
+    uniform_particles  # noqa: F401  (a fixture)
 
 from lambda_cdm_tpu_torch.analysis import halo_finder
 from lambda_cdm_tpu_torch.forces.direct import potential_energy
@@ -686,8 +687,9 @@ def test_lens_sample_xwin_kernel(cuda_device):
 @pytest.mark.parametrize("window", [0, 40])
 def test_trace_rays_on_card_matches_cpu(cuda_device, window):
     """The bench accuracy geometry cut to 4 planes and 64^2 rays: the
-    card's trace (K6, or K7 with a window) against the CPU's, kappa within
-    1e-3 of its largest value (the maps bar); one launch a plane."""
+    card's trace (the trace kernel on K6's route, or K7's with a window)
+    against the CPU's, kappa within 1e-3 of its largest value (the maps
+    bar); one launch of the trace kernel a trace."""
     from lambda_cdm_tpu_torch.raytracing import lensing
     rng = np.random.default_rng(4)
     ng, box, L = 256, 100.0, 4
@@ -700,11 +702,209 @@ def test_trace_rays_on_card_matches_cpu(cuda_device, window):
     p = CosmologyParams()
     ref = lensing.trace_rays(p, planes, chis, a_l, 100.0, box, theta0,
                              2500.0, ng=ng, jacobian=True)
-    name = "lens_sample_xwin" if window else "lens_sample"
+    name = "lens_trace_xwin" if window else "lens_trace"
     before = lens_sample.launches[name]
     got = lensing.trace_rays(p, planes.to(cuda_device), chis, a_l, 100.0,
                              box, theta0.to(cuda_device), 2500.0, ng=ng,
                              jacobian=True, window=window)
-    assert lens_sample.launches[name] == before + L
+    assert lens_sample.launches[name] == before + 1
     assert _rel(got.kappa.cpu(), ref.kappa) < 1e-3
     assert _rel(got.kappa_jac.cpu(), ref.kappa_jac) < 1e-3
+
+
+def _device_launches(fn, tries=4):
+    """Device activities (kernels, copies, fills) of one fn() call as
+    torch.profiler records them (a window with none recorded is taken
+    again)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                for e in prof.events())
+        if n:
+            return n
+    return 0
+
+
+@pytest.mark.parametrize("windowed", [False, True])
+def test_lens_sample_one_launch(cuda_device, windowed):
+    """K6 and K7 are one device launch a call (the kernel forms the grid
+    coordinates), with the extent a 0-d tensor or a number, and equal
+    their plain version bit for bit."""
+    rng = np.random.default_rng(12)
+    ng, ext = 256, 100.0
+    fields = tt(rng.standard_normal((3, ng, ng))).to(cuda_device)
+    xy = rng.uniform(0, ext, (65536, 2))
+    if windowed:
+        xy[:, 0] = xy[:, 0] * 1.4 - 20.0
+    xy = tt(xy).to(cuda_device)
+    ref = lens_sample.bilinear_sample_fields_plain(fields, xy, ext)
+    for extent in (torch.tensor(ext, device=cuda_device), ext):
+        def call():
+            if windowed:
+                return lens_sample.bilinear_sample_fields_xwin(
+                    fields, xy, extent, window=64)
+            return lens_sample.bilinear_sample_fields(fields, xy, extent)
+        assert torch.equal(call(), ref)
+        assert _device_launches(call) == 1
+
+
+def _trace_inputs(device, ng=128, L=16, side=64, jacobian=True):
+    """The lensing bench's geometry cut to 128^2 planes and 64^2 rays."""
+    from lambda_cdm_tpu_torch.raytracing import lensing
+    rng = np.random.default_rng(ng + L)
+    planes = tt(0.2 * rng.standard_normal((L, ng, ng))).to(device)
+    chis = torch.linspace(400.0, 1900.0, L, device=device)
+    a_l = torch.linspace(0.9, 0.55, L, device=device)
+    ang = (np.arange(side) + 0.5) * (100.0 / 2000.0) / side
+    theta0 = tt(np.stack(np.meshgrid(ang, ang, indexing="ij"),
+                         -1).reshape(-1, 2)).to(device)
+    p = CosmologyParams()
+    fl = lensing.lens_plane_fields(p, planes, chis, a_l, 100.0, 100.0,
+                                   2500.0, ng=ng, jacobian=jacobian)
+    return p, planes, chis, a_l, theta0, fl
+
+
+@pytest.mark.parametrize("jacobian", [False, True])
+@pytest.mark.parametrize("window", [0, 40])
+def test_trace_kernel_matches_plain(cuda_device, jacobian, window):
+    """The trace kernel (one launch a trace) against its plain version run
+    on the card from the same arrays: every output bit for bit; theta0 is
+    not written; a planted x offset reaches the kernel."""
+    from lambda_cdm_tpu_torch.raytracing import lensing
+    p, _, chis, a_l, theta0, fl = _trace_inputs(cuda_device,
+                                                jacobian=jacobian)
+    chi_s = torch.tensor(2500.0, device=cuda_device)
+    w = lensing.lensing_efficiency(p, chis, chi_s, a_l)
+    before = theta0.clone()
+    kw = dict(jacobian=jacobian, window=window)
+    got = lens_sample.trace_planes(fl, theta0, chis, w, 100.0, 100.0, chi_s,
+                                   **kw)
+    ref = lens_sample.trace_planes_plain(
+        fl, theta0, chis, w, 100.0, torch.tensor(100.0, device=cuda_device),
+        chi_s, **kw)
+    torch.cuda.synchronize()
+    assert set(got) == set(ref)
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+    assert torch.equal(theta0, before)
+    moved = lens_sample.trace_planes(fl, theta0, chis, w, 100.0, 100.0,
+                                     chi_s, x_offset=0.4, **kw)
+    moved_ref = lens_sample.trace_planes_plain(
+        fl, theta0, chis, w, 100.0, 100.0, chi_s, x_offset=0.4, **kw)
+    assert torch.equal(moved["kappa"], moved_ref["kappa"])
+    assert _rel(moved["kappa"], got["kappa"]) > 1e-3
+
+
+@pytest.mark.parametrize("jacobian", [False, True])
+@pytest.mark.parametrize("window", [0, 40])
+def test_trace_kernel_zero_planes(cuda_device, jacobian, window):
+    """No lens planes: the trace kernel still launches once and writes
+    the unlensed bundle (theta0, kappa 0, A = I) into new buffers, equal
+    to trace_planes_plain bit for bit."""
+    p, _, chis, a_l, theta0, fl = _trace_inputs(cuda_device,
+                                                jacobian=jacobian)
+    fl, chis = fl[:0], chis[:0]
+    w = torch.zeros(0, device=cuda_device)
+    kw = dict(jacobian=jacobian, window=window)
+    name = "lens_trace_xwin" if window else "lens_trace"
+    before = lens_sample.launches[name]
+    got = lens_sample.trace_planes(fl, theta0, chis, w, 100.0, 100.0, 2500.0,
+                                   **kw)
+    assert lens_sample.launches[name] == before + 1
+    ref = lens_sample.trace_planes_plain(fl, theta0, chis, w, 100.0, 100.0,
+                                         2500.0, **kw)
+    torch.cuda.synchronize()
+    assert set(got) == set(ref)
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+    assert got["theta"].data_ptr() != theta0.data_ptr()
+    assert bool(torch.all(got["kappa"] == 0))
+
+
+@pytest.mark.parametrize("jacobian", [False, True])
+def test_trace_rays_launches_a_plane(cuda_device, jacobian):
+    """trace_rays given its plane fields (16 planes) issues at most 3
+    device launches a plane, the trace kernel once."""
+    from lambda_cdm_tpu_torch.raytracing import lensing
+    p, planes, chis, a_l, theta0, fl = _trace_inputs(cuda_device,
+                                                     jacobian=jacobian)
+    w = lensing.auto_sample_window(fl, chis, theta0, 100.0, ng=128)
+    name = "lens_trace_xwin" if w else "lens_trace"
+
+    def trace():
+        return lensing.trace_rays(p, planes, chis, a_l, 100.0, 100.0, theta0,
+                                  2500.0, ng=128, jacobian=jacobian,
+                                  window=w, fields_l=fl)
+    before = lens_sample.launches[name]
+    trace()
+    assert lens_sample.launches[name] == before + 1
+    n = _device_launches(trace)
+    assert 0 < n <= 3 * planes.shape[0]
+
+
+def _rd_inputs(device, scenario):
+    """K8 on 20,000 particles in 4^2 rods (r_cut 9, rods 16 wide): with z
+    edges half of them in thin z slabs at both faces; with a full rod,
+    rod (0, 0) filled past its 2,048 slots."""
+    box, ncell, rs = 64.0, 4, 2.0
+    pos, m = uniform_particles(20000, box, 6)
+    rng = np.random.default_rng(6)
+    if scenario == "edges":
+        z = rng.uniform(0.0, 3.0, 10000)
+        pos[:10000, 2] = np.where(np.arange(10000) % 2 == 0, z, box - z)
+    if scenario == "full":
+        pos[:3000, :2] = rng.uniform(1.0, 15.0, (3000, 2))
+    k_rod = short_range_rd.rd_geometry(20000, ncell)
+    rpos, rmass, counts, rzq, _, _ = short_range_rd.rd_pack(
+        tt(pos).to(device), tt(m).to(device), box, ncell=ncell, k_rod=k_rod)
+    tables = short_range_rd.rd_window_tables(rzq, counts, ncell=ncell,
+                                             k_rod=k_rod, box_size=box,
+                                             window=4.5 * rs)
+    kw = dict(ncell=ncell, k_rod=k_rod, box_size=box, rs=rs, softening=0.1)
+    return rpos, rmass, counts, tables, kw
+
+
+@pytest.mark.parametrize("scenario", ["edges", "full"])
+def test_short_range_rd_kernel_schedules(cuda_device, scenario):
+    """K8 on the z-edge case and a full rod, whose groups' unions take
+    more than one stage buffer (the passes stream through both): two
+    calls equal byte for byte, within 1e-4 of the plain version, dead
+    slots 0."""
+    rpos, rmass, counts, tables, kw = _rd_inputs(cuda_device, scenario)
+    if scenario == "full":
+        assert int(counts.max()) == kw["k_rod"]
+    tiles = k8_union_tiles(tables, counts, kw["k_rod"], short_range_rd.GROUP)
+    assert int(tiles.max()) > K8_STAGE_TILES
+    got = short_range_rd.short_range_rd(rpos, rmass, counts, tables, **kw)
+    again = short_range_rd.short_range_rd(rpos, rmass, counts, tables, **kw)
+    ref = short_range_rd.short_range_rd_plain(rpos, rmass, counts, tables,
+                                              **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _rel(got, ref) < 1e-4
+    live = torch.arange(kw["k_rod"], device=cuda_device)[None] \
+        < counts[:, None]
+    assert bool(torch.all(got[~live] == 0))
+
+
+@pytest.mark.parametrize("scenario", ["edges", "full"])
+def test_rd_plan_kernel(cuda_device, scenario):
+    """K8's plan on the card lists rd_plan_plain's items, in its order of
+    live rows, with the work counter at 0."""
+    _, _, counts, _, kw = _rd_inputs(cuda_device, scenario)
+    k_rod = kw["k_rod"]
+    plan = short_range_rd.rd_plan(counts, k_rod=k_rod).cpu()
+    ref = short_range_rd.rd_plan_plain(counts.cpu(), k_rod=k_rod)
+    group = short_range_rd.GROUP
+    n = int(plan[0])
+    items = plan[2:2 + n].long()
+    assert n == ref.numel() and int(plan[1]) == 0
+    assert torch.equal(torch.sort(items).values, torch.sort(ref).values)
+    rows = group * 16
+    gpr = k_rod // rows
+    c = counts.cpu().long()
+    live_rows = torch.clamp(c[items // gpr] - rows * (items % gpr), 0, rows)
+    assert bool(torch.all(live_rows[1:] <= live_rows[:-1]))

@@ -13,13 +13,23 @@ emulated on the CPU in the order their CUDA kernels take them:
   not below the unit's largest minimum, a j skipped when no row's
   minimum is above its label. Labels are integers: the emulation must
   equal fof_hook_plain exactly, on a first sweep and on a late round.
+* K8: work items of GROUP consecutive 16-row chunks of a rod
+  (ops/short_range_rd.rd_plan_plain); the union of the group's tile
+  ranges an entry, staged `cap` tiles at a time in the group's list
+  order; each warp sums its own chunk's coverage from the stage, entry by
+  entry, lane l the j of parity l / 16 into K8_ILP partial sums (partial
+  u the j = l / 16 + 2u mod 2 K8_ILP), the partials added in order, then
+  the two halves. Against short_range_rd_plain at 1e-5 of the largest
+  |a| (float32 sums in another order), dead slots exactly 0; the stage
+  size splits the group's list of tiles but keeps every sum's order.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import max_rel, tt, uniform_particles
+from _torch_parity import K8_ILP, K8_STAGE_TILES, k8_union_tiles, max_rel, \
+    tt, uniform_particles
 
 import jax.numpy as jnp
 
@@ -28,6 +38,7 @@ from lambda_cdm_tpu_torch.analysis import halo_finder as thf
 from lambda_cdm_tpu_torch.forces.direct import min_image
 from lambda_cdm_tpu_torch.ops import direct as tops
 from lambda_cdm_tpu_torch.ops import fof_hook, short_range
+from lambda_cdm_tpu_torch.ops import short_range_rd as rd
 
 TOL = 1e-5
 WARPS = tops.THREADS // 32
@@ -249,3 +260,170 @@ def test_k5_schedule_matches_plain(late):
     assert torch.equal(got, ref)
     assert int((ref != lab).sum()) > 0
     assert batches > 0 and voted > 0 and tested > 0
+
+
+# -- K8 ----------------------------------------------------------------------
+
+K8_BOX, K8_NCELL, K8_RS, K8_SOFT = 64.0, 4, 2.0, 0.1
+
+
+def _k8_inputs(scenario, n=5000, seed=8):
+    """Rod-dense K8 inputs: uniform; half the particles in thin z slabs at
+    both faces (every rod's wrap segments in use); or rod (0, 0) filled
+    past its capacity (counts == k_rod there). The last 20 rows are dead."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0.0, K8_BOX, (n, 3))
+    if scenario == "edges":
+        dz = rng.uniform(0.0, 3.0, n // 2)
+        pos[:n // 2, 2] = np.where(np.arange(n // 2) % 2 == 0, dz,
+                                   K8_BOX - dz)
+    if scenario == "full":
+        pos[:1500, :2] = rng.uniform(1.0, 15.0, (1500, 2))
+    m = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    m[-20:] = 0.0
+    k_rod = rd.rd_geometry(n, K8_NCELL)
+    rpos, rmass, counts, rzq, _, _ = rd.rd_pack(
+        tt(pos.astype(np.float32)), tt(m), K8_BOX, ncell=K8_NCELL,
+        k_rod=k_rod)
+    tables = rd.rd_window_tables(rzq, counts, ncell=K8_NCELL, k_rod=k_rod,
+                                 box_size=K8_BOX, window=4.5 * K8_RS)
+    return rpos, rmass, counts, tables, k_rod
+
+
+def _k8_emulated(rpos, rmass, counts, tables, k_rod, cap):
+    """K8's sum in the kernel's order (see the module docstring)."""
+    _, v_scale, c1 = short_range._poly_even_coeffs(K8_RS)
+    pts = torch.cat([rpos, (rmass * c1)[..., None]], dim=-1)  # [R, K, 4]
+    nc, box, tile = K8_NCELL, K8_BOX, rd.TILE
+    group, ilp = rd.GROUP, K8_ILP
+    nch = k_rod // rd.CH
+    gpr = nch // group
+    soft2 = K8_SOFT ** 2
+    out = torch.zeros_like(rpos)
+    for item in rd.rd_plan_plain(counts, k_rod=k_rod).tolist():
+        r, g = divmod(item, gpr)
+        cnt = int(counts[r])
+        ents = tables[r, g * group:(g + 1) * group].to(torch.int64)
+        live = [(g * group + w) * rd.CH < cnt for w in range(group)]
+        st, nt, zsel = ents >> 10, (ents >> 2) & 255, ents & 3
+        nt = torch.where(torch.tensor(live)[:, None], nt, 0)
+        # the union an entry, its offset in the group's list, its rod
+        u_st, u_off, u_rod, u_shift = [], [0], [], []
+        for e in range(rd.ENT):
+            has = nt[:, e] > 0
+            lo = int(st[has, e].min()) if bool(has.any()) else 0
+            hi = int((st + nt)[has, e].max()) if bool(has.any()) else 0
+            u_st.append(lo)
+            u_off.append(u_off[-1] + max(hi - lo, 0))
+            nb = e // 3
+            rx, ry = r // nc + nb // 3 - 1, r % nc + nb % 3 - 1
+            u_rod.append(((rx + nc) % nc) * nc + (ry + nc) % nc)
+            u_shift.append(((-box if rx < 0 else box if rx >= nc else 0.0),
+                            (-box if ry < 0 else box if ry >= nc else 0.0)))
+        total = u_off[-1]
+        # each warp's j, in the order it sums them: (slot values, shifts)
+        seq = [[] for _ in range(group)]
+        for p0 in range(0, total, cap):
+            p1 = min(total, p0 + cap)
+            stage = torch.zeros(((p1 - p0) * tile, 4))
+            for e in range(rd.ENT):
+                k0, k1 = max(u_off[e], p0), min(u_off[e + 1], p1)
+                if k0 < k1:
+                    a = (u_st[e] + k0 - u_off[e]) * tile
+                    stage[(k0 - p0) * tile:(k1 - p0) * tile] = \
+                        pts[u_rod[e], a:a + (k1 - k0) * tile]
+            for w in range(group):
+                for e in range(rd.ENT):
+                    if int(nt[w, e]) == 0:
+                        continue
+                    a0 = u_off[e] + int(st[w, e]) - u_st[e]
+                    k0, k1 = max(a0, p0), min(a0 + int(nt[w, e]), p1)
+                    if k0 < k1:
+                        zs = int(zsel[w, e])
+                        seq[w].append((stage[(k0 - p0) * tile:
+                                             (k1 - p0) * tile],
+                                       u_shift[e],
+                                       -box if zs == 1 else
+                                       box if zs == 2 else 0.0))
+        for w in range(group):
+            t = g * group + w
+            if not live[w]:
+                continue
+            rows = torch.arange(t * rd.CH, (t + 1) * rd.CH)
+            pi = pts[r, rows]                                  # [16, 4]
+            terms = []
+            for sp, (sx, sy), zs in seq[w]:
+                dx = (sp[None, :, 0] + sx) - pi[:, 0, None]
+                dy = (sp[None, :, 1] + sy) - pi[:, 1, None]
+                dz = sp[None, :, 2] - (pi[:, 2, None] + zs)
+                r2 = dx * dx + (dy * dy + (dz * dz + soft2))
+                wgt = sp[None, :, 3] * short_range.pair_weight(r2, "vpu3",
+                                                               K8_RS)
+                terms.append(torch.stack([wgt * dx, wgt * dy, wgt * dz],
+                                         -1))
+            terms = torch.cat(terms, dim=1).numpy()         # [16, n, 3]
+            assert terms.shape[1] % (2 * ilp) == 0
+            halves = []
+            for h in (0, 1):
+                parts = [np.cumsum(terms[:, h + 2 * u::2 * ilp],
+                                   axis=1, dtype=np.float32)[:, -1]
+                         for u in range(ilp)]
+                tot = parts[0]
+                for part in parts[1:]:
+                    tot = tot + part
+                halves.append(tot)
+            acc = torch.from_numpy(halves[0] + halves[1])
+            keep = rows < cnt
+            out[r, rows[keep]] = acc[keep]
+    return out
+
+
+@pytest.mark.parametrize("scenario", ["uniform", "edges", "full"])
+@pytest.mark.parametrize("cap", [K8_STAGE_TILES, 3])
+def test_k8_schedule_matches_plain(scenario, cap):
+    """The emulated K8 at the kernel's stage (uniform and z-edge groups
+    whose unions take two passes) and at 3 tiles a pass (every group
+    streams) against short_range_rd_plain."""
+    rpos, rmass, counts, tables, k_rod = _k8_inputs(scenario)
+    if scenario == "full":
+        assert int(counts.max()) == k_rod
+    else:
+        tiles = k8_union_tiles(tables, counts, k_rod, rd.GROUP)
+        assert int(tiles.max()) > K8_STAGE_TILES
+    if scenario == "edges":
+        zsel, nt, _ = rd._decode(tables)
+        assert bool(torch.any((zsel > 0) & (nt > 0)))
+    geo = dict(ncell=K8_NCELL, k_rod=k_rod, box_size=K8_BOX, rs=K8_RS,
+               softening=K8_SOFT)
+    ref = rd.short_range_rd_plain(rpos, rmass, counts, tables, **geo)
+    got = _k8_emulated(rpos, rmass, counts, tables, k_rod, cap)
+    assert max_rel(got, ref) < TOL
+    live = torch.arange(k_rod)[None] < counts[:, None]
+    assert bool(torch.all(got[~live] == 0))
+
+
+@pytest.mark.parametrize("scenario", ["edges", "full"])
+def test_k8_stage_size_keeps_the_sum(scenario):
+    """The passes split the group's entry-major list of tiles, so a warp
+    meets its j in the same order at any stage size: the emulated K8 at 3
+    tiles a pass equals it at the kernel's stage bit for bit."""
+    rpos, rmass, counts, tables, k_rod = _k8_inputs(scenario)
+    assert torch.equal(
+        _k8_emulated(rpos, rmass, counts, tables, k_rod, 3),
+        _k8_emulated(rpos, rmass, counts, tables, k_rod, K8_STAGE_TILES))
+
+
+@pytest.mark.parametrize("scenario", ["uniform", "full"])
+def test_k8_plan_covers_live_groups(scenario):
+    """rd_plan_plain: every group holding a live row exactly once, the full
+    groups first, then by live rows, most first."""
+    _, _, counts, _, k_rod = _k8_inputs(scenario)
+    items = rd.rd_plan_plain(counts, k_rod=k_rod)
+    rows = rd.GROUP * rd.CH
+    gpr = k_rod // rows
+    r, g = items // gpr, items % gpr
+    live_rows = torch.clamp(counts[r] - g * rows, 0, rows)
+    assert bool(torch.all(live_rows > 0))
+    assert bool(torch.all(live_rows[1:] <= live_rows[:-1]))
+    want = sum(-(-int(c) // rows) for c in counts)
+    assert items.numel() == want == torch.unique(items).numel()

@@ -317,6 +317,135 @@ def test_trace_rays(jacobian):
         tl.trace_rays(TP, *targs, ng=ng))["gamma"] is None
 
 
+def _loop_body_before(fields, theta, kap, amat, chi_l, chi_source, a_l,
+                      d_chi, box, wrap):
+    """trace_rays's plane loop body as it stood before the plane step moved
+    into ops/lens_sample (the CPU route: the samplers' plain versions;
+    wrap False is the windowed route's unwrapped impact positions)."""
+    if wrap:
+        sampled = lens_sample.bilinear_sample_fields(
+            fields, torch.remainder(theta * chi_l, box), box)
+    else:
+        sampled = lens_sample.bilinear_sample_fields_xwin(
+            fields, theta * chi_l, box, window=8)
+    ax, ay, dl = sampled[0], sampled[1], sampled[2]
+    theta = theta + (-torch.stack([ax, ay], dim=-1) / chi_l)
+    w = tl.lensing_efficiency(TP, chi_l, chi_source, a_l)
+    kap = kap + dl * w * d_chi
+    if amat is not None:
+        uxx, uxy, uyy = sampled[3], sampled[4], sampled[5]
+        a00, a01, a10, a11 = amat
+        amat = (a00 - (uxx * a00 + uxy * a10),
+                a01 - (uxx * a01 + uxy * a11),
+                a10 - (uxy * a00 + uyy * a10),
+                a11 - (uxy * a01 + uyy * a11))
+    return theta, kap, amat
+
+
+def _trace_inputs(L=5, ng=32, box=100.0, side=12, span=1.6):
+    """Planes, their fields (Jacobian channels included), distances, scale
+    factors, and a bundle whose impact positions leave the box on both
+    sides (span x the box at the first plane, centred on its edge)."""
+    delta = _planes(L, ng, 0.1, 21)
+    chis = np.linspace(700.0, 1700.0, L).astype(np.float32)
+    a_l = np.linspace(0.75, 0.55, L).astype(np.float32)
+    theta0 = _grid_rays(side, span * box / chis[0]) - 0.5 * span * box \
+        / chis[0]
+    fl = tl.lens_plane_fields(TP, tt(delta), tt(chis), tt(a_l), 40.0, box,
+                              2800.0, ng=ng, jacobian=True)
+    return delta, fl, tt(chis), tt(a_l), tt(theta0)
+
+
+@pytest.mark.parametrize("jacobian", [False, True])
+@pytest.mark.parametrize("wrap", [True, False])
+def test_plane_step_plain_is_the_loop_body(jacobian, wrap):
+    """The plane step's plain version, plane by plane and as the whole
+    trace_planes_plain, equals the loop body as trace_rays wrote it bit
+    for bit on the CPU (the weights one vector over the planes)."""
+    _, fl, chis, a_l, theta0 = _trace_inputs()
+    chi_s, box = torch.tensor(2800.0), torch.tensor(100.0)
+    weights = tl.lensing_efficiency(TP, chis, chi_s, a_l)
+    n = theta0.shape[0]
+    amat0 = (torch.ones(n), torch.zeros(n), torch.zeros(n),
+             torch.ones(n)) if jacobian else None
+    old = (theta0, torch.zeros(n), amat0)
+    new = old
+    for idx in range(fl.shape[0]):
+        old = _loop_body_before(fl[idx], *old, chis[idx], chi_s, a_l[idx],
+                                40.0, box, wrap)
+        new = lens_sample.plane_step_plain(fl[idx], *new, chis[idx],
+                                           weights[idx], 40.0, box,
+                                           wrap=wrap)
+        for a, b in zip(old[:2] + (old[2] or ()), new[:2] + (new[2] or ())):
+            assert torch.equal(a, b), idx
+    got = lens_sample.trace_planes(fl, theta0, chis, weights, 40.0, 100.0,
+                                   chi_s, jacobian=jacobian,
+                                   window=0 if wrap else 8)
+    ref = lens_sample.finish_plain(*old, chi_s)
+    assert set(got) == set(ref)
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+
+
+@pytest.mark.parametrize("chi_source", [2800.0, "tensor"])
+def test_lensing_efficiency_vector_bits(chi_source):
+    """The weights of all planes at once equal the per-plane calls bit for
+    bit (the function is elementwise)."""
+    chis = tt(np.linspace(300.0, 2700.0, 37))
+    a_l = tt(np.linspace(0.95, 0.4, 37))
+    chi_s = torch.tensor(2800.0) if chi_source == "tensor" else chi_source
+    vec = tl.lensing_efficiency(TP, chis, torch.as_tensor(
+        chi_s, dtype=torch.float32), a_l)
+    for i in range(37):
+        one = tl.lensing_efficiency(TP, chis[i], torch.as_tensor(
+            chi_s, dtype=torch.float32), a_l[i])
+        assert torch.equal(vec[i], one), i
+
+
+@pytest.mark.parametrize("jacobian", [False, True])
+def test_trace_rays_wrapping_bundle(jacobian):
+    """A bundle whose impact positions leave the box on both sides (the
+    wrap of every plane in use), twelve planes: the port's trace against
+    the JAX package's CPU route at test_trace_rays' bars."""
+    ng, box, L = 32, 100.0, 12
+    delta, _, chis, a_l, theta0 = _trace_inputs(L=L, side=14)
+    bj = jl.trace_rays(JP, jnp.asarray(delta), jnp.asarray(nn(chis)),
+                       jnp.asarray(nn(a_l)), 40.0, box,
+                       jnp.asarray(nn(theta0)), 2800.0, ng=ng,
+                       jacobian=jacobian)
+    bt = tl.trace_rays(TP, tt(delta), chis, a_l, 40.0, box, theta0, 2800.0,
+                       ng=ng, jacobian=jacobian)
+    assert float(theta0.min()) < 0 and float(
+        (theta0 * chis[-1]).max()) > box
+    for f in ("theta", "beta", "kappa"):
+        assert max_rel(getattr(bt, f), getattr(bj, f)) <= TOL, f
+    if jacobian:
+        jac = ("gamma", "mu", "omega", "kappa_jac")
+        _assert_jacobian({f: getattr(bt, f) for f in jac},
+                         {f: getattr(bj, f) for f in jac})
+
+
+def test_trace_planes_offset_and_contract():
+    """x_offset 0 is the plain trace; half a cell moves kappa past the
+    maps bar (the planted fault the card's accuracy check must see); a
+    window reaching ng raises on the windowed route, as the sampler's."""
+    _, fl, chis, a_l, theta0 = _trace_inputs()
+    chi_s = torch.tensor(2800.0)
+    w = tl.lensing_efficiency(TP, chis, chi_s, a_l)
+    kw = dict(jacobian=False, window=0)
+    base = lens_sample.trace_planes(fl, theta0, chis, w, 40.0, 100.0, chi_s,
+                                    **kw)
+    same = lens_sample.trace_planes(fl, theta0, chis, w, 40.0, 100.0, chi_s,
+                                    x_offset=0.0, **kw)
+    assert torch.equal(base["kappa"], same["kappa"])
+    moved = lens_sample.trace_planes(fl, theta0, chis, w, 40.0, 100.0,
+                                     chi_s, x_offset=0.5 * 100.0 / 32, **kw)
+    assert max_rel(moved["kappa"], base["kappa"]) > 1e-3
+    with pytest.raises(ValueError, match="window"):
+        lens_sample.trace_planes(fl, theta0, chis, w, 40.0, 100.0, chi_s,
+                                 jacobian=False, window=32)
+
+
 # -- whole pipelines -------------------------------------------------------
 
 def test_build_lightcone():
