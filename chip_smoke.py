@@ -72,12 +72,15 @@ fatal on failure and each printing its seconds:
      uniform particles; the bound counts the
      n(n-1)/2 unordered pairs the sum needs;
   9. K4 phase: 100,000 particles uniform in a 100 Mpc/h box (unit
-     masses, softening 0.05: the JAX package's bench.py direct figure),
-     K4 (v1, v2) and K4s (sym, sym2) against their plain versions, two
+     masses, softening 0.05: the JAX package's bench.py direct figure);
+     K4s's path first (sym and sym2 through pairwise_accelerations, the
+     counts reset just before: its launches in the kernels line), then K4
+     (v1, v2) and K4s (sym, sym2) against their plain versions, two
      calls equal bit for bit, and timed; K4 also at two and three ragged
-     tiles and without the minimum image; the image's range flag clear
-     (no path of the port runs K4s: its launches are read from the
-     direct_10k run, and are 0);
+     tiles and without the minimum image; K4s at n = 1, 2, 31, 33, 255,
+     257 with zero-mass rows, with a tile's k cut into runs, on the
+     half-box lattice and on positions over three boxes; the image's
+     range flag clear;
  10. direct_10k phase: examples/configs/direct_10k.json at full size
      (10,648 particles, direct solver) through the CLI's engine for its
      500 steps with its energy and momentum observers; K4 must have
@@ -131,8 +134,11 @@ Then this slice's paths:
 
  19. K10 phase: the alias probe's entry point (python -m
      lambda_cdm_tpu_torch.ops.alias_probe, both modes), then the sequential
-     mode against its plain version (1..8 in column 0) and the blocks
-     mode's column 0 as the card gives it, timed as a CUDA graph;
+     mode against its plain version (1..8 in column 0; and bit for bit
+     from a random buffer) and the blocks mode's column 0 as the card
+     gives it, timed as a CUDA graph beside an empty kernel's launch at
+     each mode's shape (the floor) and one that reads and writes a float a
+     thread;
  20. science phase: python -m lambda_cdm_tpu_torch.science_run's main at
      the 1M geometry (100^3 particles, 100 Mpc/h, 192^3 PM, buckets of
      capacity 8192 on 16^3 cells) from z = 24 to z = 0: 2LPT ICs, the
@@ -1245,9 +1251,13 @@ def alias_probe_phase(device, card):
     """K10 on its own path: the entry point python -m
     lambda_cdm_tpu_torch.ops.alias_probe (both modes, counts reset just
     before), then each mode against its plain version on an [8, 128] zero
-    buffer: the sequential mode must equal it (1..8 in column 0), the
-    blocks mode's column 0 is what the card gives; timed as a CUDA graph
-    of launches and eagerly."""
+    buffer: the sequential mode must equal it (1..8 in column 0), and
+    from a random buffer too, the blocks mode's column 0 is what the card
+    gives; timed as a CUDA graph of launches and eagerly, beside the floor
+    kernel at each mode's shape (rows x 128 threads for blocks, 1 x 128
+    for sequential) in the same kind of graph: empty, and adding 1 to one
+    float a thread."""
+    import numpy as np
     import torch
     from lambda_cdm_tpu_torch.ops import alias_probe
     reset_counts()
@@ -1258,6 +1268,14 @@ def alias_probe_phase(device, card):
           f"launches {launches['alias_probe']} (expected 2)")
     n_bytes = 2.0 * 4 * ALIAS_ROWS * ALIAS_COLS
     b_ms, b_by = bound(n_bytes, ALIAS_ROWS * ALIAS_COLS)
+    shapes = {"blocks": (ALIAS_ROWS, ALIAS_COLS), "sequential": (1,
+                                                                 ALIAS_COLS)}
+    floor = {mode: graph_ms(lambda: alias_probe.launch_floor(*shape))
+             for mode, shape in shapes.items()}
+    scratch = torch.zeros(ALIAS_ROWS * ALIAS_COLS, device=device)
+    touch = {mode: graph_ms(lambda: alias_probe.launch_floor(*shape,
+                                                             scratch))
+             for mode, shape in shapes.items()}
     rec = {}
     for mode in alias_probe.MODES:
         cols = []
@@ -1281,13 +1299,25 @@ def alias_probe_phase(device, card):
         pms = 10.0 * (time.perf_counter() - t0)
         print(f"K10 alias_probe {mode}: column 0 over 5 launches "
               f"{cols}; against plain {ref[:, 0].tolist()}: max_abs_err "
-              f"{err:g}; {1e3 * ms:.3f} us a launch (CUDA graph), eager "
-              f"{1e3 * eager:.3f} us, plain {1e3 * pms:.3f} us, bound "
-              f"{1e3 * b_ms:.6f} us ({b_by}) on {card}")
+              f"{err:g}; {1e3 * ms:.3f} us a launch (CUDA graph; at "
+              f"{shapes[mode][0]} x {shapes[mode][1]} an empty kernel "
+              f"{1e3 * floor[mode]:.3f} us, one read and write a thread "
+              f"{1e3 * touch[mode]:.3f} us), eager {1e3 * eager:.3f} us, "
+              f"plain {1e3 * pms:.3f} us, bound {1e3 * b_ms:.6f} us "
+              f"({b_by}) on {card}")
         if mode == "sequential":
             check("K10", err == 0.0 and cols[-1] == [float(i) for i in
                                                      range(1, 9)],
                   f"sequential mode {cols[-1]}")
+            rnd = np.random.default_rng(19).normal(size=(
+                ALIAS_ROWS, ALIAS_COLS)).astype(np.float32)
+            got = alias_probe.alias_probe(torch.from_numpy(rnd).to(device),
+                                          mode)
+            same = bool(torch.equal(got.cpu(), alias_probe.alias_probe_plain(
+                torch.from_numpy(rnd), True)))
+            print(f"K10 sequential from a random buffer: bit for bit the "
+                  f"plain version's: {same}")
+            check("K10", same, "sequential mode from a random buffer")
             rec["alias_probe"] = (err, 0.0, ms, pms, b_ms, b_by)
         else:
             check("K10", all(c[0] == 1.0 and max(c) <= 8.0 for c in cols),
@@ -1480,19 +1510,38 @@ def direct_inputs(n: int, box: float, seed: int, device):
 
 
 def k4_phase(device, card):
-    """K4 (v1, v2) and K4s (sym, sym2) at 100k against their plain
-    versions, two calls equal, timed; K4 at ragged tiles and without the
-    minimum image; the range flag clear."""
+    """K4s's path first: pairwise_accelerations with variant sym and sym2
+    at 100k, counts reset just before and read just after. Then K4 (v1,
+    v2) and K4s (sym, sym2) at 100k against their plain versions, two
+    calls equal, timed; K4 at ragged tiles and without the minimum image;
+    K4s at small n (1, 2, 31, 33, one tile +- 1, two zero-mass rows),
+    where a tile's k are cut into runs, on the half-box lattice and on
+    positions spread over three boxes (its exact image); the range flag
+    clear. Returns (the kernels' records, K4s's launches on its path)."""
     import torch
     from lambda_cdm_tpu_torch.ops import direct
     n, box, soft = 100_000, 100.0, 0.05
     pos, mass = direct_inputs(n, box, 41, device)
     failures = []
     out = {}
+    reset_counts()
+    path = {v: direct.pairwise_accelerations(pos, mass, box, soft, variant=v)
+            for v in ("sym", "sym2")}
+    torch.cuda.synchronize()
+    launches = {"direct_sym": read_counts()["direct_sym"]}
+    print(f"K4s path (sym, sym2 at N={n}): {launches['direct_sym']} "
+          f"launches of direct_sym, {direct.sym_tiles(n)} tiles x "
+          f"{direct.sym_runs(n)} runs = "
+          f"{direct.sym_tiles(n) * direct.sym_runs(n)} blocks")
+    check("K4s", launches["direct_sym"] == 2,
+          f"{launches['direct_sym']} launches on its path (expected 2)",
+          failures)
     for variant in direct.VARIANTS:
         kw = dict(periodic=True, variant=variant)
         name = "direct_sym" if variant.startswith("sym") else "direct"
-        got = direct.pairwise_accelerations(pos, mass, box, soft, **kw)
+        got = path.get(variant)
+        if got is None:
+            got = direct.pairwise_accelerations(pos, mass, box, soft, **kw)
         again = direct.pairwise_accelerations(pos, mass, box, soft, **kw)
         ref = direct.pairwise_accelerations_plain(pos, mass, box, soft, **kw)
         err, rel = rel_err(got, ref)
@@ -1511,23 +1560,54 @@ def k4_phase(device, card):
         check(f"K4 {variant}", rel <= DIRECT_TOL[variant],
               f"rel err {rel} > tol", failures)
         out[variant] = (err, rel, ms, pms, b_ms, b_by)
+
+    def compare(label, variant, p, m, b, periodic=True, zero=()):
+        kw = dict(periodic=periodic, variant=variant)
+        got = direct.pairwise_accelerations(p, m, b, soft, **kw)
+        _, rel = rel_err(got, direct.pairwise_accelerations_plain(
+            p, m, b, soft, **kw))
+        zeros = bool(torch.all(got[list(zero)] == 0)) if zero else True
+        print(f"K4 {variant} {label} periodic={periodic}: rel {rel:.3e} "
+              f"(tol {DIRECT_TOL[variant]:g})"
+              + (f", zero-mass rows 0: {zeros}" if zero else ""))
+        check(f"K4 {variant} {label}", rel <= DIRECT_TOL[variant]
+              and bool(torch.isfinite(got).all()) and zeros,
+              f"rel err {rel} > tol, or a zero-mass row not 0", failures)
+
     # ragged tiles (two and three of K4's 128) and no minimum image
     for m_n, periodic in ((200, True), (333, True), (4096, False)):
         p, m = direct_inputs(m_n, 20.0, m_n, device)
         for variant in ("v1", "sym"):
-            kw = dict(periodic=periodic, variant=variant)
-            _, rel = rel_err(direct.pairwise_accelerations(p, m, 20.0, soft,
-                                                           **kw),
-                             direct.pairwise_accelerations_plain(
-                                 p, m, 20.0, soft, **kw))
-            print(f"K4 {variant} N={m_n} periodic={periodic}: rel "
-                  f"{rel:.3e} (tol {DIRECT_TOL[variant]:g})")
-            check(f"K4 {variant} N={m_n}", rel <= DIRECT_TOL[variant],
-                  f"rel err {rel} > tol", failures)
+            compare(f"N={m_n}", variant, p, m, 20.0, periodic)
+    # K4s around a warp's columns and one tile, two zero-mass rows
+    for m_n in (1, 2, 31, 33, direct.SYM_TILE - 1, direct.SYM_TILE + 1):
+        p, m = direct_inputs(m_n, 20.0, m_n + 5, device)
+        zero = (0, m_n - 1) if m_n > 2 else ()
+        m[list(zero)] = 0.0
+        for variant in ("sym", "sym2"):
+            for periodic in (True, False):
+                compare(f"N={m_n}", variant, p, m, 20.0, periodic, zero)
+    # a tile's five k cut into runs of 1, 2 and 2 (SYM_BLOCKS 27 at 2100)
+    keep = direct.SYM_BLOCKS
+    direct.SYM_BLOCKS = 27
+    try:
+        p, m = direct_inputs(2100, 20.0, 2100, device)
+        for variant in ("sym", "sym2"):
+            compare(f"N=2100 in {direct.sym_runs(2100)} runs a tile",
+                    variant, p, m, 20.0)
+    finally:
+        direct.SYM_BLOCKS = keep
+    # pairs one ulp past half a box; positions over three boxes
+    lat, lm = (torch.from_numpy(a).to(device)
+               for a in half_box_lattice(50.0, 8))
+    compare("half-box lattice", "sym", lat, lm, 50.0)
+    p, m = direct_inputs(3000, 20.0, 3000, device)
+    for variant in ("sym", "sym2"):
+        compare("over three boxes", variant, 3.0 * p - 20.0, m, 20.0)
     direct.check_range()
     if failures:
         raise AssertionError("K4 phase: " + "; ".join(failures))
-    return out
+    return out, launches
 
 
 def direct_phase(device, card):
@@ -3043,7 +3123,7 @@ def main() -> int:
     launches = timed("CLI phase", cli_phase, device, card)
     timed("reference check", reference_check, device)
     timed("K9 phase", pair_potential_phase, device, card)
-    k4 = timed("K4 phase", k4_phase, device, card)
+    k4, k4s_launches = timed("K4 phase", k4_phase, device, card)
     k4_launches, k4_10k = timed("direct_10k phase", direct_phase, device,
                                 card)
     stateless_ms = timed("stateless pm/treepm phase", stateless_phase, device,
@@ -3109,10 +3189,10 @@ def main() -> int:
                                   "lambda_cdm_tpu/forces/direct.py:96"),
                "alias_probe": ("csrc/alias_probe.cu",
                                "benchmarks/probe_alias.py:26")}
-    # launches: K1-K3 and K5 on the CLI run of treepm_1m, K4 and K4s on
-    # the direct_10k run (0 for K4s: no path of the port runs it; the JAX
-    # package drives its kernel only from bench.py); K4 and K4s report
-    # their v1 and sym variants; K6/K7's public entries and the trace
+    # launches: K1-K3 and K5 on the CLI run of treepm_1m, K4 on the
+    # direct_10k run, K4s on its own path (sym and sym2 at 100k in the K4
+    # phase; no engine path runs it, the JAX package drives its kernel only
+    # from bench.py); K4 and K4s report their v1 and sym variants; K6/K7's public entries and the trace
     # kernel's two routes summed over the lensing paths 2-5 (trace_rays
     # takes the trace kernel, so no path calls the public entries);
     # K3's row-7 split forms on the row-7 path (phase 14), K8 on the
@@ -3122,7 +3202,7 @@ def main() -> int:
     # null); K6/K7's yardstick is grid_sample on the wrapped, padded
     # stack
     launches = dict(launches, direct=k4_launches["direct"],
-                    direct_sym=k4_launches["direct_sym"], **lens_launches,
+                    direct_sym=k4s_launches["direct_sym"], **lens_launches,
                     **row7_launches, **rd_launches, **alias_launches,
                     pair_potential=science_launches["pair_potential"])
     kernels = [{"name": name, "route": "cuda",
@@ -3133,9 +3213,9 @@ def main() -> int:
                 "library_ms": lens[name]["library_ms"] if name in lens
                 else None}
                for name, (src, rep) in sources.items()]
-    print(f"direct_sym (K4s): {launches['direct_sym']} launches in the "
-          f"direct_10k run: no path of the port runs it; its times and error "
-          f"are the K4 phase's")
+    print(f"direct_sym (K4s): {launches['direct_sym']} launches on its path "
+          f"(the K4 phase), {k4_launches['direct_sym']} in the direct_10k "
+          f"run")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

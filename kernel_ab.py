@@ -27,7 +27,8 @@ end):
   k4_10k       examples/configs/direct_10k.json's state after
                initialize() (10,648 particles: K4's j slices);
   k4_100k      chip_smoke.direct_inputs(100_000, 100.0, 41), softening
-               0.05 (K4 at one slice);
+               0.05 (K4 at one slice; bench.py's direct geometry, which
+               times K4s);
   k5_first     chip_smoke.fof_state(1_000_000, seed=21) bucketed on its
                fof_plan, labels the particle indices, every cell active:
                fof_labels' first sweep;
@@ -57,7 +58,7 @@ bucket state: K3 (vpu3; vpu, vpu2 and mxu on treepm_1m) with CUDA
 events; K1 and K2 twice, as eager wrapper calls between CUDA events (what
 the stepper pays, host work included) and as device time from a CUDA
 graph of the same calls (each call's memset included); K9, K4 (v1 and
-v2) and K5 (one sweep) with CUDA events; fof_labels and find_halos with
+v2), K4s (sym and sym2) and K5 (one sweep) with CUDA events; fof_labels and find_halos with
 the host clock around calls that end in a synchronise; on the lens
 inputs K6 and K7 (the last plane's fields at its impact positions,
 wrapped for K6) as eager wrapper calls between CUDA events and as a CUDA
@@ -74,7 +75,10 @@ labels; fof_labels and find_halos: the particle labels; K6/K7: the
 samples; trace_rays: kappa; rd_window_tables: the tables; K8: its
 output) and the static instruction mix of K1's, K2's, K3's, K4's, K5's,
 K6/K7's, K8's and K9's functions in its library (cuobjdump -sass: FRND and MUFU against FADD, FMUL and FFMA;
-global reductions and atomics, shared atomics, shared and global loads).
+global reductions and atomics, shared atomics, shared and global loads,
+shuffles, FSET / FSEL / LOP3). --sass-out DIR writes those functions'
+whole SASS, one file a root (ROOT's path with / as _, .sass), to read a
+loop body by hand.
 A line a result then says which roots gave the first root's bytes (K5:
 and whether they are the plain version's, fof_hook_plain on the whole
 state), with the bound of K4 and K5 beside their times; the last line
@@ -106,27 +110,29 @@ LENS_REPS = 20
 K8_REPS = 10
 # the kernel functions whose instruction mix each root reports
 SASS_KERNELS = ("pair_potential_kernel", "short_range_kernel",
-                "direct_kernel", "cic_deposit_kernel", "fd4_gather_kernel",
+                "direct_kernel", "direct_sym", "cic_deposit_kernel", "fd4_gather_kernel",
                 "fof_hook_kernel", "short_range_rd_kernel", "lens_sample",
                 "lens_trace")
 # SASS mnemonics counted together
 SASS_FAMILIES = {"FADD": "FP32", "FMUL": "FP32", "FFMA": "FP32",
                  "FRND": "FRND", "MUFU": "MUFU", "RED": "RED", "REDG": "RED",
                  "ATOM": "ATOM", "ATOMG": "ATOM", "ATOMS": "ATOMS",
-                 "LDS": "LDS", "LDG": "LDG"}
+                 "LDS": "LDS", "LDG": "LDG", "SHFL": "SHFL",
+                 "FSET": "FSET", "FSEL": "FSEL", "LOP3": "LOP3"}
 
 
-def sass_mix(lib: str) -> dict:
+def sass_mix(lib: str, dump: str | None = None) -> dict:
     """{function: {FRND, MUFU, FP32 (FADD + FMUL + FFMA), RED (global
     reductions), ATOM (global atomics), ATOMS (shared atomics), LDS, LDG,
-    all: static instruction counts}} of the SASS_KERNELS functions in the
-    shared library `lib` (cuobjdump -sass), or {} without cuobjdump."""
+    SHFL, FSET, FSEL, LOP3, all: static instruction counts}} of the
+    SASS_KERNELS functions in the shared library `lib` (cuobjdump -sass),
+    or {} without cuobjdump; their SASS also goes to the file `dump`."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return {}
     text = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    out, cur = {}, None
+    out, cur, kept = {}, None, []
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
@@ -135,6 +141,9 @@ def sass_mix(lib: str) -> dict:
             if cur:
                 out[cur] = dict.fromkeys(sorted(set(SASS_FAMILIES.values()))
                                          + ["all"], 0)
+        if cur:
+            kept.append(line)
+        if m:
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)",
                      line)
@@ -143,6 +152,9 @@ def sass_mix(lib: str) -> dict:
             if key:
                 out[cur][key] += 1
             out[cur]["all"] += 1
+    if dump:
+        with open(dump, "w") as f:
+            f.write("\n".join(kept) + "\n")
     return out
 
 
@@ -203,15 +215,17 @@ def _fullest_last(fs, kw):
 
 
 def _k4_state(path, pos, mass, box, soft, g):
-    """Save a direct-sum input and its K4 bound."""
+    """Save a direct-sum input and the bounds of K4 (n^2 ordered pairs)
+    and K4s (n^2 / 2 unordered pairs)."""
     import numpy as np
     import chip_smoke
     n = pos.shape[0]
-    b_ms, b_by = chip_smoke.bound(28.0 * n, chip_smoke.DIRECT_FLOPS["direct"]
-                                  * float(n) * n)
+    bounds = {name: chip_smoke.bound(28.0 * n, chip_smoke.DIRECT_FLOPS[name]
+                                     * float(n) * n / div)
+              for name, div in (("direct", 1), ("direct_sym", 2))}
     np.savez(path, pos=pos.cpu().numpy(), mass=mass.cpu().numpy(),
              geo=json.dumps(dict(box_size=box, softening=soft, g_const=g)),
-             bound=json.dumps([b_ms, b_by]))
+             bound=json.dumps(bounds))
 
 
 def _k5_state(path, bxyz, lab, counts, active, geo):
@@ -560,17 +574,45 @@ def pm_kernels(res, name, z, bpos, bmass, counts, device) -> None:
 
 
 def k4_kernels(res, name, z, geo, device) -> None:
-    """Time K4 (v1, v2) on one direct-sum input into res and hash it."""
+    """Time K4 (v1, v2) and K4s (sym, sym2) on one direct-sum input into
+    res and hash it."""
     import torch
     from lambda_cdm_tpu_torch.ops import cuda_build, direct
     pos = torch.from_numpy(z["pos"]).to(device)
     mass = torch.from_numpy(z["mass"]).to(device)
-    for v in ("v1", "v2"):
+    bounds = json.loads(str(z["bound"]))
+    for v in ("v1", "v2", "sym", "sym2"):
         acc = direct.pairwise_accelerations(pos, mass, variant=v, **geo)
         ms = cuda_build.cuda_ms(lambda: direct.pairwise_accelerations(
             pos, mass, variant=v, **geo), K4_REPS[name])
-        res[f"{name}/{v}"] = {"ms": ms, "sha256": _sha(acc),
-                              "bound": json.loads(str(z["bound"]))}
+        res[f"{name}/{v}"] = {"ms": ms, "sha256": _sha(acc), "bound": bounds[
+            "direct_sym" if v.startswith("sym") else "direct"]}
+        if v.startswith("sym"):
+            res[f"{name}/{v}"]["kernels_us"] = _kernel_split(
+                lambda: direct.pairwise_accelerations(pos, mass, variant=v,
+                                                      **geo))
+
+
+def _kernel_split(fn, tries: int = 4) -> dict:
+    """{kernel name: device microseconds} of one fn() call, as
+    torch.profiler records them (a window that recorded nothing is taken
+    again, up to `tries` times; {} if none recorded)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = getattr(e, "cuda_time_total", 0.0)
+            if us > 0:
+                out[e.key[:60]] = out.get(e.key[:60], 0.0) + float(us)
+        if out:
+            return out
+    return {}
 
 
 def k5_kernel(res, name, z, geo, device) -> None:
@@ -635,15 +677,20 @@ def fof_calls(res, name, z, geo, device) -> None:
                  "num_halos": int(cat.num_halos), "sha256": _sha(labels)}
 
 
-def worker(root: str, out: str, names: list) -> dict:
+def worker(root: str, out: str, names: list, sass_out=None) -> dict:
     """Time the kernels of the port under `root` on the inputs in
-    `out`."""
+    `out` (and write its kernels' SASS under `sass_out`)."""
     import numpy as np
     import torch
     sys.path.insert(0, os.path.abspath(root))
     from lambda_cdm_tpu_torch.ops import cuda_build, direct, short_range
     device = torch.device("cuda", 0)
-    res = {"root": root, "sass": sass_mix(cuda_build.build())}
+    dump = None
+    if sass_out:
+        os.makedirs(sass_out, exist_ok=True)
+        tag = os.path.normpath(root).replace(os.sep, "_").strip("_.") or "root"
+        dump = os.path.join(sass_out, f"{tag}.sass")
+    res = {"root": root, "sass": sass_mix(cuda_build.build(), dump)}
     for name in names:
         z = np.load(os.path.join(out, f"{name}.npz"))
         geo = json.loads(str(z["geo"]))
@@ -695,6 +742,8 @@ def main() -> int:
     ap.add_argument("--only", default=",".join(GROUPS),
                     help="comma-separated groups of inputs: pm, k9, k4, "
                     "k5, lens, k8")
+    ap.add_argument("--sass-out", default=None,
+                    help="directory for each root's kernel SASS")
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--names", default="", help=argparse.SUPPRESS)
@@ -705,7 +754,8 @@ def main() -> int:
         return 1
     if args.worker:
         print(json.dumps(worker(args.worker, args.out,
-                                args.names.split(","))), flush=True)
+                                args.names.split(","), args.sass_out)),
+              flush=True)
         return 0
     if not args.root:
         ap.error("give --root at least once")
@@ -718,7 +768,8 @@ def main() -> int:
         for root in args.root:
             proc = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--worker", root,
-                 "--out", out, "--names", ",".join(names)],
+                 "--out", out, "--names", ",".join(names)]
+                + (["--sass-out", args.sass_out] if args.sass_out else []),
                 capture_output=True, text=True, check=False)
             if proc.returncode != 0:
                 print(proc.stdout + proc.stderr, file=sys.stderr)
@@ -765,6 +816,10 @@ def main() -> int:
                 f"{r['root']} rounds {r[key]['rounds']}, fof_labels s "
                 f"{r[key]['fof_labels_s']}, find_halos s "
                 f"{r[key]['find_halos_s']}" for r in have)
+        if "kernels_us" in have[0][key]:
+            line += "; device us a call by kernel: " + "; ".join(
+                f"{r['root']} {json.dumps(r[key]['kernels_us'])}"
+                for r in have)
         if "U" in have[0][key]:
             ref = have[0][key]["U"]
             dev = max(abs(r[key]["U"] - ref) / abs(ref) for r in have)

@@ -62,32 +62,93 @@
 // The quotient costs two FMAs a component, no division (see quotient()).
 //
 // K4s replaces _direct_kernel_sym (variants sym and sym2): the same
-// accelerations, with K4's image, each unordered pair evaluated once
-// (Newton's third law). Tiles of kSymTile particles; P tiles, made odd,
-// so that the TPU's half-matrix wrap (tile p against q = (p + k) mod P,
-// k = 0..(P-1)/2) covers every unordered tile pair exactly once. Here that wrap is a
-// schedule: one block per (p, k). A block keeps the row forces
-// m_i m_j f d of its i tile in registers and writes them to a row
-// partial; for k >= 1 it reduces the column forces over its i (a warp
-// shuffle tree, then the warps in order through shared memory) and writes
-// them negated to a column partial of tile q. A second pass sums, for each
-// particle, its half + 1 row partials and half column partials in a fixed
-// order and divides by the mass once (zero mass gives 0). No atomics:
-// the result is deterministic. sym2 passes coordinates in box units with
-// box = 1. K4s keeps rintf for the image (wrap_rint): its schedule is not
-// redesigned, and K4's magic rounding made it slower (on the H100 at 100k,
-// sym 13.07 -> 13.37 ms: two FADDs on the FP32 pipe where the FRND ran on
-// its own).
+// accelerations, each unordered pair evaluated once (Newton's third law):
+// the pair force m_i m_j r^-3 d is added to row i and subtracted from
+// column j, and each particle's sum is divided by its mass once at the end
+// (zero mass gives 0). sym2 passes coordinates in box units with box = 1;
+// the two variants are one kernel. The image is that of the true quotient,
+// d - box * rint(d / box), as the plain version takes it.
 //
-// Bound on the H100: operations. About 22 float operations and one rsqrt
-// (on the SFUs) per ordered pair, n^2 pairs for K4 and n^2 / 2 for K4s,
-// against 67 TFLOP/s of FP32: 1e10 pairs at 100k particles is about
-// 3.3 ms for K4. Bytes are negligible (16 B a particle in, 12 B out; K4s
-// adds its partials, 24 B a particle per tile pair). The design keeps each
-// staged j in shared memory for a whole block of i and all sums in
-// registers; the Gram form of r^2 that would put the pairs on the tensor
-// cores loses the softened r^2 to cancellation in float32, so the pairs
-// stay on the FP32 units.
+// Design (the parent ran one block per (p, k) tile pair, one i row a
+// thread, and reduced the three column forces of every pair over the
+// warp: 15 SHFL and 15 FADD a lane a pair, 32 results a clock an SM on
+// the shuffle pipe, about 9 of its 13.07 ms at 100k on the H100):
+//
+// * The TPU's half-matrix wrap as a schedule: tiles of kSymTile
+//   particles, P of them, made odd, tile p against q = (p + k) mod P for
+//   k = 0..(P-1)/2 covers every unordered tile pair once. A block takes
+//   tile p against a run of consecutive k (ops/direct.sym_schedule:
+//   ops/direct.sym_runs(n) runs a tile, about SYM_BLOCKS blocks in all;
+//   at 100k 391 tiles x 26 runs = 10,166 blocks, 2 resident an SM).
+// * Register blocking: each of the 8 warps holds the whole i tile, kSymRows
+//   = 8 rows a lane (rows l, l + 32, ..., l + 224), and takes the 32
+//   columns 32w..32w+31 of each j tile, staged by the warp itself in its
+//   own shared buffer behind __syncwarp (the next tile's load in flight):
+//   no block barrier in the run, and each column read feeds 8 pairs.
+// * Column sums without per-pair reductions: at step s lane l takes
+//   column (l + s) mod 32 and adds its 8 rows' terms to the three sums it
+//   carries for that column; after the step every lane passes its sums to
+//   lane l - 1 (3 SHFL a step, 8 pairs). After 32 steps lane c holds
+//   column c's sums over the warp's 256 rows, added lane c, c - 1, ...,
+//   c - 31 in turn, and writes them negated to the column partial of
+//   (p, k). A column's sums are complete in one warp: nothing is reduced
+//   across warps for columns.
+// * Rows: each tile's 32 terms a row are summed apart, then added to the
+//   run's total in registers; at the run's end the 8 warps' totals are
+//   added in warp order through shared memory into one row partial a
+//   (p, run). The diagonal block (k = 0) holds both orderings of each
+//   pair: it adds rows only and writes no column partial.
+// * Partials: rows [P runs][3][kSymTile], columns [P half][3][kSymTile]
+//   (column slot p * half + k - 1, for tile (p + k) mod P). A second pass
+//   (direct_sym_reduce, one thread a particle and component) adds, in this
+//   order, the particle's row partials run by run, then its column
+//   partials k = 1..half, divides by the mass and scales. No atomics: two
+//   calls give equal bytes. A tile edge of 512 (the TPU's) would halve the
+//   column partials (234 -> 117 MB at 100k, ~0.07 ms of traffic) but needs
+//   2 x 8 rows a lane or a cross-warp column add every k; not taken.
+// * The image without FRND or a quotient: for |d| below 1.5 boxes,
+//   rint(d / box) is sign(d) when |d| exceeds T = the largest float whose
+//   quotient by box rounds to at most 0.5, else 0 (the quotient is
+//   monotone in d; its tie at 0.5 goes to even, 0). So d - box rint(d /
+//   box) is one FMA, d - f copysign(box, d) with f = (|d| > T) in {0, 1}:
+//   the bits of the quotient's image (ops/direct.image_thresholds computes
+//   T on the host). A warp takes that path for a tile when every |d| it
+//   can meet is at most T2 (the largest float whose quotient stays below
+//   1.5): each lane tests its column against the i tile's bounds, which
+//   the warp reduces once a block, and the warp votes. Otherwise (positions
+//   spread over more than 1.5 boxes) it takes the quotient and rintf,
+//   exact at any range. No range flag is needed.
+// * rsqrt_normal: r^2 >= eps^2, a normal float for the solvers' softening.
+//
+// Bound on the H100: operations. The JAX package's cost estimates count 22
+// float operations an ordered pair for K4 and 26 an unordered pair for K4s
+// (an FMA as two), against 67 TFLOP/s of FP32: 1e10 ordered pairs at 100k
+// particles is 3.28 ms for K4, 5e9 unordered pairs 1.94 ms for K4s. Bytes
+// are small: 16 B a particle in, 12 B out, and K4s's partials (234 MB of
+// columns at 100k, written and read once, ~0.14 ms). The Gram form of r^2
+// that would put the pairs on the tensor cores loses the softened r^2 to
+// cancellation in float32, so the pairs stay on the FP32 units, and what
+// limits them is the issue rate, one warp instruction a clock a scheduler
+// (132 x 128 lanes x 1.98 GHz = 3.35e13 lane instructions a second).
+//
+// K4s on the H100 80GB HBM3 at 700 W, 100k particles, softening 0.05
+// (kernel_ab.py --only k4, the parent in the same call): 5.37 ms for sym
+// and for sym2 (parent 13.08), of which the pair kernel 5.24 ms and the
+// reduce 0.12 ms. Its fast loop (cuobjdump -sass, kernel_ab.py
+// --sass-out) issues 223 instructions a step of 8 pairs, 27.9 a pair: 12
+// FFMA (image 3, r^2 3, sums 6), 4 FMUL (w), 3 FADD (d), 3 FSET and 3
+// LOP3 (image), 1 MUFU.RSQ, and the step's LDS.128, 3 SHFL and ~7 integer
+// and branch instructions. 5e9 pairs x 27.9 in 5.24 ms is 2.66e13 a
+// second, 79% of the issue rate. The step loop is not unrolled: unrolled
+// twice (the same 27.9 a pair, a function half as large again) it read
+// 5.71 ms, four times 5.48. Half the bound (3.88 ms) is out of reach for
+// the exact image: the bound is 13 FP32 instructions a pair, the image
+// alone is 9 and the column sums 3 more than a row-only sum, so even at
+// the full issue rate 27.9 take 4.16 ms. The quotient with rintf read 7.38
+// ms (FRND, a quarter-rate pipe, 3 a pair) and with the magic constant
+// 7.20 ms (+9 FP32 a pair) against 5.70 for the threshold, the same
+// bytes; sym2's d - rint(d) costs the same three instructions a component,
+// so sym2 reads as sym.
 //
 // K9 (pair_potential) is the pair sum of the potential energy, which the
 // JAX package leaves to XLA (lambda_cdm_tpu/forces/direct.py
@@ -138,14 +199,18 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 4;         // i rows a lane
 constexpr int kTileRows = 32 * kRows;  // i rows a block (TILE_ROWS)
 constexpr int kJTile = 128;      // j tile (= ops/direct.J_TILE), kWarps x 32
-constexpr int kSymTile = 256;   // must equal ops/direct.SYM_TILE
-constexpr int kSymWarps = kSymTile / 32;
+constexpr int kSymTile = 256;    // must equal ops/direct.SYM_TILE
+constexpr int kSymThreads = 256;  // a block of K4s
+constexpr int kSymWarps = kSymThreads / 32;
+constexpr int kSymRows = kSymTile / 32;  // i rows a lane: a warp holds the tile
 constexpr int kPairThreads = 128;
 constexpr int kPairRows = 4;     // i rows a thread
 constexpr int kPairTile = kPairThreads * kPairRows;  // = ops/direct.PAIR_TILE
 constexpr float kMagic = 12582912.0f;  // 1.5 * 2^23
 
 static_assert(kJTile == kWarps * 32, "a warp takes 32 j of each tile");
+static_assert(kSymWarps * 32 == kSymTile,
+              "K4s's warp w takes columns 32w..32w+31 of each j tile");
 
 // d / box rounded as a true division rounds it, without dividing: with
 // inv_box the correctly rounded 1/box, q = d * inv_box lies within about
@@ -176,6 +241,18 @@ __device__ __forceinline__ float wrap(float d, float box, float inv_box) {
 __device__ __forceinline__ float wrap_rint(float d, float box,
                                            float inv_box) {
   return d - box * rintf(quotient(d, box, inv_box));
+}
+
+// K4s's image for |d| <= T2 (see the design note): rint(d / box) is
+// sign(d) (|d| > half_t), so the image is d - box or d + box rounded once,
+// or d; fma(-1, s, d) rounds d - s once, fma(-0, s, d) is d. PTX set gives
+// f as 1.0f or 0.0f in one FSET (a C ?: compiled to FSETP, SEL and an
+// int-to-float conversion).
+__device__ __forceinline__ float wrap_near(float d, float box,
+                                           float half_t) {
+  float f;
+  asm("set.gt.f32.f32 %0, %1, %2;" : "=f"(f) : "f"(fabsf(d)), "f"(half_t));
+  return __fmaf_rn(-f, copysignf(box, d), d);
 }
 
 // whether a staged position lies where round_magic may be inexact: every
@@ -304,110 +381,231 @@ __global__ void direct_reduce(const float* __restrict__ partial,
   out[k] = v * oscale;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;                              // lane 0 holds the sum
+// K4s: one pair's terms with the image kImg (0 none, 1 wrap_near, 2
+// wrap_rint): the row's sums take +w d, the column's kCols sums too (the
+// column partial is written negated)
+template <int kImg, bool kCols>
+__device__ __forceinline__ void sym_pair(float4 pj, float4 pi, float box,
+                                         float inv_box, float soft2,
+                                         float half_t, float& tx, float& ty,
+                                         float& tz, float& cx, float& cy,
+                                         float& cz) {
+  float dx = pj.x - pi.x;
+  float dy = pj.y - pi.y;
+  float dz = pj.z - pi.z;
+  if (kImg == 1) {
+    dx = wrap_near(dx, box, half_t);
+    dy = wrap_near(dy, box, half_t);
+    dz = wrap_near(dz, box, half_t);
+  } else if (kImg == 2) {
+    dx = wrap_rint(dx, box, inv_box);
+    dy = wrap_rint(dy, box, inv_box);
+    dz = wrap_rint(dz, box, inv_box);
+  }
+  const float r2 = dx * dx + (dy * dy + (dz * dz + soft2));
+  const float inv_r = rsqrt_normal(r2);
+  const float w = (pj.w * pi.w) * (inv_r * inv_r * inv_r);
+  tx = __fmaf_rn(w, dx, tx);
+  ty = __fmaf_rn(w, dy, ty);
+  tz = __fmaf_rn(w, dz, tz);
+  if (kCols) {
+    cx = __fmaf_rn(w, dx, cx);
+    cy = __fmaf_rn(w, dy, cy);
+    cz = __fmaf_rn(w, dz, cz);
+  }
 }
 
-// Partials are [slot][3][kSymTile]: row slot p * (half + 1) + k, column
-// slot p * half + (k - 1) (targeting tile (p + k) mod P).
-template <bool kPeriodic>
-__global__ void direct_sym_pairs(const float4* __restrict__ pts,
-                                 float* __restrict__ rowpart,
-                                 float* __restrict__ colpart, int n,
-                                 int ntiles, int half, float box,
-                                 float soft2) {
-  __shared__ float4 tile[kSymTile];
-  __shared__ float colbuf[kSymWarps][3][kSymTile];
-  const float inv_box = __frcp_rn(box);
-  const int p = blockIdx.x / (half + 1);
-  const int k = blockIdx.x % (half + 1);
-  const int q = (p + k) % ntiles;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int i = p * kSymTile + tid;
-  const bool active = i < n;
-  const float4 pi = active ? pts[i] : make_float4(0.f, 0.f, 0.f, 0.f);
-  const int j = q * kSymTile + tid;
-  if (j < n) tile[tid] = pts[j];
-  __syncthreads();
-  const int nt = max(0, min(kSymTile, n - q * kSymTile));
+// K4s: the warp's 8 rows a lane against its 32 staged columns. kCols
+// (k >= 1): lane l takes column (l + s) mod 32 at step s and passes its
+// column sums to lane l - 1 after it (see the design note); the diagonal
+// block (!kCols) runs its nt real columns in order, rows only.
+struct SymArgs {
+  const float4* tile;                    // the warp's 32 staged columns
+  const float4* pi;                      // the lane's kSymRows rows
+  int lane, nt;                          // nt: real columns (!kCols)
+  float box, inv_box, soft2, half_t;
+};
 
-  float fx = 0.f, fy = 0.f, fz = 0.f;
-  for (int t = 0; t < nt; ++t) {
-    const float4 pj = tile[t];
-    float dx = pj.x - pi.x;
-    float dy = pj.y - pi.y;
-    float dz = pj.z - pi.z;
-    if (kPeriodic) {
-      dx = wrap_rint(dx, box, inv_box);
-      dy = wrap_rint(dy, box, inv_box);
-      dz = wrap_rint(dz, box, inv_box);
+template <int kImg, bool kCols>
+__device__ __forceinline__ void sym_sub_tile(const SymArgs& a, float* tx,
+                                             float* ty, float* tz, float& cx,
+                                             float& cy, float& cz) {
+  const unsigned full = 0xffffffffu;
+  if (kCols) {
+    const int src = (a.lane + 1) & 31;
+#pragma unroll 1                     // see the design note
+    for (int s = 0; s < 32; ++s) {
+      const float4 pj = a.tile[(a.lane + s) & 31];
+#pragma unroll
+      for (int r = 0; r < kSymRows; ++r)
+        sym_pair<kImg, true>(pj, a.pi[r], a.box, a.inv_box, a.soft2,
+                             a.half_t, tx[r], ty[r], tz[r], cx, cy, cz);
+      cx = __shfl_sync(full, cx, src);
+      cy = __shfl_sync(full, cy, src);
+      cz = __shfl_sync(full, cz, src);
     }
-    const float r2 = dx * dx + (dy * dy + (dz * dz + soft2));
-    const float inv_r = rsqrtf(r2);
-    const float w = active ? (pj.w * pi.w) * (inv_r * inv_r * inv_r) : 0.f;
-    const float tx = w * dx, ty = w * dy, tz = w * dz;
-    fx += tx;
-    fy += ty;
-    fz += tz;
-    if (k > 0) {                         // uniform across the block
-      const float cx = warp_sum(tx);
-      const float cy = warp_sum(ty);
-      const float cz = warp_sum(tz);
-      if (lane == 0) {
-        colbuf[warp][0][t] = cx;
-        colbuf[warp][1][t] = cy;
-        colbuf[warp][2][t] = cz;
-      }
+  } else {
+#pragma unroll 2
+    for (int t = 0; t < a.nt; ++t) {
+      const float4 pj = a.tile[t];
+#pragma unroll
+      for (int r = 0; r < kSymRows; ++r)
+        sym_pair<kImg, false>(pj, a.pi[r], a.box, a.inv_box, a.soft2,
+                              a.half_t, tx[r], ty[r], tz[r], cx, cy, cz);
     }
   }
-  float* row = rowpart + (long long)blockIdx.x * 3 * kSymTile;
-  row[tid] = fx;
-  row[kSymTile + tid] = fy;
-  row[2 * kSymTile + tid] = fz;
-  if (k > 0) {
-    __syncthreads();
-    float* col = colpart + ((long long)p * half + (k - 1)) * 3 * kSymTile;
+}
+
+// K4s: block (p, run) of ops/direct.sym_schedule; see the design note.
+// rowpart [P runs][3][kSymTile], colpart [P half][3][kSymTile].
+template <bool kPeriodic>
+__global__ void __launch_bounds__(kSymThreads, 2)
+direct_sym_pairs(const float4* __restrict__ pts, float* __restrict__ rowpart,
+                 float* __restrict__ colpart, int n, int ntiles, int runs,
+                 float box, float soft2, float half_t, float span_t) {
+  __shared__ float4 stage[kSymWarps][32];
+  __shared__ float sums[kSymWarps][3][kSymTile];
+  const unsigned full = 0xffffffffu;
+  const float inf = __int_as_float(0x7f800000);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int half = (ntiles - 1) / 2;
+  const int p = blockIdx.x / runs, run = blockIdx.x % runs;
+  const int i0 = p * kSymTile;
+  if (i0 >= n) return;                  // the odd count's pad tile
+  const int k0 = (int)((long long)run * (half + 1) / runs);
+  const int k1 = (int)((long long)(run + 1) * (half + 1) / runs);
+  const float inv_box = __frcp_rn(box);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  // the i tile (every warp holds all of it; padding rows: mass 0 at the
+  // origin, terms exactly 0) and its real rows' bounds
+  float4 pi[kSymRows];
+  float lo[3] = {inf, inf, inf}, hi[3] = {-inf, -inf, -inf};
+  float ax[kSymRows], ay[kSymRows], az[kSymRows];
+#pragma unroll
+  for (int r = 0; r < kSymRows; ++r) {
+    const int i = i0 + 32 * r + lane;
+    pi[r] = i < n ? pts[i] : zero;
+    ax[r] = ay[r] = az[r] = 0.f;
+    if (i < n) {
+      lo[0] = fminf(lo[0], pi[r].x); hi[0] = fmaxf(hi[0], pi[r].x);
+      lo[1] = fminf(lo[1], pi[r].y); hi[1] = fmaxf(hi[1], pi[r].y);
+      lo[2] = fminf(lo[2], pi[r].z); hi[2] = fmaxf(hi[2], pi[r].z);
+    }
+  }
+  if (kPeriodic) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      float s = 0.f;
-      if (tid < nt) {
 #pragma unroll
-        for (int w = 0; w < kSymWarps; ++w) s += colbuf[w][c][tid];
+      for (int off = 16; off > 0; off >>= 1) {
+        lo[c] = fminf(lo[c], __shfl_xor_sync(full, lo[c], off));
+        hi[c] = fmaxf(hi[c], __shfl_xor_sync(full, hi[c], off));
       }
-      col[c * kSymTile + tid] = -s;
     }
+  }
+  float4* tile = stage[warp];
+  int q = (p + k0) % ntiles;
+  int j = q * kSymTile + 32 * warp + lane;
+  float4 next = j < n ? pts[j] : zero;   // padding columns: mass 0
+  for (int k = k0; k < k1; ++k) {
+    const int jb = q * kSymTile + 32 * warp;  // this warp's columns
+    const float4 pj = next;
+    tile[lane] = pj;
+    __syncwarp();
+    const int qn = q + 1 == ntiles ? 0 : q + 1;
+    if (k + 1 < k1) {
+      j = qn * kSymTile + 32 * warp + lane;
+      next = j < n ? pts[j] : zero;
+    }
+    const int nt = min(32, n - jb);
+    if (nt > 0) {                        // uniform across the warp
+      // the near image holds where every |d| this column meets is at most
+      // span_t; padding columns add nothing either way
+      const bool near = !kPeriodic || jb + lane >= n ||
+          (fmaxf(hi[0] - pj.x, pj.x - lo[0]) <= span_t &&
+           fmaxf(hi[1] - pj.y, pj.y - lo[1]) <= span_t &&
+           fmaxf(hi[2] - pj.z, pj.z - lo[2]) <= span_t);
+      const bool exact = kPeriodic && !__all_sync(full, near);
+      float tx[kSymRows], ty[kSymRows], tz[kSymRows];  // this tile's sums
+#pragma unroll
+      for (int r = 0; r < kSymRows; ++r) tx[r] = ty[r] = tz[r] = 0.f;
+      float cx = 0.f, cy = 0.f, cz = 0.f;
+      const SymArgs a{tile, pi, lane, nt, box, inv_box, soft2, half_t};
+      if (k == 0) {                      // the diagonal block: rows only
+        if (!kPeriodic)
+          sym_sub_tile<0, false>(a, tx, ty, tz, cx, cy, cz);
+        else if (!exact)
+          sym_sub_tile<1, false>(a, tx, ty, tz, cx, cy, cz);
+        else
+          sym_sub_tile<2, false>(a, tx, ty, tz, cx, cy, cz);
+      } else {
+        if (!kPeriodic)
+          sym_sub_tile<0, true>(a, tx, ty, tz, cx, cy, cz);
+        else if (!exact)
+          sym_sub_tile<1, true>(a, tx, ty, tz, cx, cy, cz);
+        else
+          sym_sub_tile<2, true>(a, tx, ty, tz, cx, cy, cz);
+        float* col = colpart + ((long long)p * half + (k - 1)) * 3 * kSymTile
+                     + 32 * warp + lane;
+        col[0] = -cx;
+        col[kSymTile] = -cy;
+        col[2 * kSymTile] = -cz;
+      }
+#pragma unroll
+      for (int r = 0; r < kSymRows; ++r) {
+        ax[r] += tx[r];
+        ay[r] += ty[r];
+        az[r] += tz[r];
+      }
+    }
+    __syncwarp();                        // the staged columns are consumed
+    q = qn;
+  }
+  // the run's row partial: the warps' totals of each row in warp order
+#pragma unroll
+  for (int r = 0; r < kSymRows; ++r) {
+    sums[warp][0][32 * r + lane] = ax[r];
+    sums[warp][1][32 * r + lane] = ay[r];
+    sums[warp][2][32 * r + lane] = az[r];
+  }
+  __syncthreads();
+  const int row = threadIdx.x;
+  float* dst = rowpart + ((long long)p * runs + run) * 3 * kSymTile + row;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float v = sums[0][c][row];
+#pragma unroll
+    for (int w = 1; w < kSymWarps; ++w) v += sums[w][c][row];
+    dst[c * kSymTile] = v;
   }
 }
 
+// K4s's second pass, one thread a particle i of tile t and component c
+// (blockIdx.y): its row partials in run order, then its column partials
+// k = 1..half (written by tile (t - k) mod P, the pad tile writing none),
+// divided by the mass (0 for zero mass) and scaled
 __global__ void direct_sym_reduce(const float4* __restrict__ pts,
                                   const float* __restrict__ rowpart,
                                   const float* __restrict__ colpart,
                                   float* __restrict__ out, int n,
-                                  int ntiles, int half, float oscale) {
-  const int t = blockIdx.x, tid = threadIdx.x;
+                                  int ntiles, int runs, float oscale) {
+  const int t = blockIdx.x, c = blockIdx.y, tid = threadIdx.x;
   const int i = t * kSymTile + tid;
   if (i >= n) return;
-  float f[3] = {0.f, 0.f, 0.f};
-  for (int k = 0; k <= half; ++k) {
-    const float* row = rowpart + ((long long)t * (half + 1) + k) * 3
-                                     * kSymTile;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) f[c] += row[c * kSymTile + tid];
-  }
+  const int half = (ntiles - 1) / 2;
+  const float* row = rowpart + (long long)t * runs * 3 * kSymTile
+                     + c * kSymTile + tid;
+  float f = 0.f;
+  for (int r = 0; r < runs; ++r) f += row[(long long)r * 3 * kSymTile];
+  const float* col = colpart + c * kSymTile + tid;
+#pragma unroll 4
   for (int k = 1; k <= half; ++k) {
-    const int p = (t - k + ntiles) % ntiles;
-    const float* col = colpart + ((long long)p * half + (k - 1)) * 3
-                                     * kSymTile;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) f[c] += col[c * kSymTile + tid];
+    const int p = t >= k ? t - k : t - k + ntiles;
+    if (p * kSymTile < n)
+      f += col[((long long)p * half + (k - 1)) * 3 * kSymTile];
   }
   const float m = pts[i].w;
   const float inv_m = m > 0.f ? 1.0f / m : 0.f;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) out[3 * i + c] = f[c] * inv_m * oscale;
+  out[3 * i + c] = f * inv_m * oscale;
 }
 
 // K9: the minimum image of one component, d - box * rint(d * (1/box)):
@@ -530,24 +728,29 @@ extern "C" int lcdm_direct(const float4* pts, float* out, float* partial,
   return (int)cudaGetLastError();
 }
 
+// K4s: ntiles = ops/direct.sym_tiles(n) (odd), runs = sym_runs(n) runs of
+// k a tile; rowpart [ntiles runs][3][kSymTile] and colpart [ntiles half][3]
+// [kSymTile] floats; half_t and span_t from ops/direct.image_thresholds
 extern "C" int lcdm_direct_sym(const float4* pts, float* rowpart,
                                float* colpart, float* out, int n,
-                               int ntiles, int periodic, float box,
-                               float soft2, float oscale, void* stream) {
-  const int half = (ntiles - 1) / 2;
+                               int ntiles, int runs, int periodic, float box,
+                               float soft2, float oscale, float half_t,
+                               float span_t, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (ntiles < 1 || ntiles % 2 == 0 || runs < 1 || runs > (ntiles + 1) / 2)
+    return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
-  const int pair_blocks = ntiles * (half + 1);
+  const int blocks = ntiles * runs;
   if (periodic)
-    direct_sym_pairs<true><<<pair_blocks, kSymTile, 0, s>>>(
-        pts, rowpart, colpart, n, ntiles, half, box, soft2);
+    direct_sym_pairs<true><<<blocks, kSymThreads, 0, s>>>(
+        pts, rowpart, colpart, n, ntiles, runs, box, soft2, half_t, span_t);
   else
-    direct_sym_pairs<false><<<pair_blocks, kSymTile, 0, s>>>(
-        pts, rowpart, colpart, n, ntiles, half, box, soft2);
+    direct_sym_pairs<false><<<blocks, kSymThreads, 0, s>>>(
+        pts, rowpart, colpart, n, ntiles, runs, box, soft2, half_t, span_t);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  direct_sym_reduce<<<ntiles, kSymTile, 0, s>>>(pts, rowpart, colpart, out,
-                                                n, ntiles, half, oscale);
+  direct_sym_reduce<<<dim3(ntiles, 3), kSymTile, 0, s>>>(
+      pts, rowpart, colpart, out, n, ntiles, runs, oscale);
   return (int)cudaGetLastError();
 }
 

@@ -62,6 +62,20 @@ def alias_probe(x, mode: str = "sequential"):
     return x
 
 
+def launch_floor(blocks: int, threads: int, x=None) -> None:
+    """Launch the floor kernel of csrc/alias_probe.cu on the current
+    stream at a launch shape (not K10, so not counted): empty, or with `x`
+    (a CUDA float32 tensor of at least blocks * threads elements) adding 1
+    to one element a thread, one read and one dependent write."""
+    if x is not None:
+        cuda_build.require_cuda("launch_floor", x, dtypes=(torch.float32,))
+        if x.numel() < blocks * threads:
+            raise ValueError(f"launch_floor: x holds {x.numel()} floats, "
+                             f"fewer than {blocks} x {threads}")
+    cuda_build.launch("lcdm_launch_floor", 0 if x is None else x.data_ptr(),
+                      int(blocks), int(threads))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")

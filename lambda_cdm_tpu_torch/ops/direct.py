@@ -28,10 +28,14 @@ K4 rounds the image with a magic constant, exact while every position
 lies within 2^21 boxes of the origin. It checks that on the card without
 a readback: a position past it sets a flag on the device, and
 check_range() (called by the engine at each chunk end, where it
-synchronises anyway) raises if it is set.
+synchronises anyway) raises if it is set. K4s needs no flag: it takes the
+image from thresholds on |d| (image_thresholds) where a tile's positions
+span at most 1.5 boxes, and the quotient with rintf elsewhere, both exact.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -45,6 +49,9 @@ J_TILE = 128      # j tile of K4; its slices are whole tiles (kJTile)
 # (17 slices at 10,648 particles; 1 from 782 i tiles, about 100k, up)
 TARGET_BLOCKS = 11 * 132
 SYM_TILE = 256    # tile edge of K4s (kSymTile in direct.cu)
+# K4s's grid: about this many (i tile, run of k) blocks, 2 resident an H100
+# SM and ~38 rounds of them (391 tiles x 26 runs at 100k particles)
+SYM_BLOCKS = 10_000
 PAIR_TILE = 512   # tile edge of K9 (kPairTile in direct.cu)
 # K4 and K9 round d / box with the magic constant 1.5 * 2^23, exact while
 # |d / box| < 2^22: positions must lie within 2^21 boxes of the origin
@@ -120,6 +127,50 @@ def sym_tiles(n: int) -> int:
     wrap covers every unordered tile pair once."""
     p = max(1, (n + SYM_TILE - 1) // SYM_TILE)
     return p if p % 2 else p + 1
+
+
+def sym_runs(n: int) -> int:
+    """K4s's runs of k a tile: about SYM_BLOCKS blocks in all, at least 1
+    and at most one a k (half + 1 of them)."""
+    ntiles = sym_tiles(n)
+    return max(1, min((ntiles + 1) // 2, -(-SYM_BLOCKS // ntiles)))
+
+
+def sym_schedule(n: int):
+    """K4s's blocks as the kernel decodes blockIdx: [(p, k0, k1)], block b
+    = p runs + r takes i tile p against the j tiles (p + k) mod P for k0 <=
+    k < k1, with P = sym_tiles(n), runs = sym_runs(n) and run r's k0 =
+    floor(r K / runs), K = (P - 1) // 2 + 1. The block with k = 0 (q = p)
+    adds rows only; the others write a column partial for each k. Blocks
+    of the odd count's pad tile (p * SYM_TILE >= n) return at once."""
+    ntiles, runs = sym_tiles(n), sym_runs(n)
+    kk = (ntiles - 1) // 2 + 1
+    return [(p, r * kk // runs, (r + 1) * kk // runs)
+            for p in range(ntiles) for r in range(runs)]
+
+
+@functools.lru_cache(maxsize=64)
+def image_thresholds(box: float):
+    """(T, T2) for K4s's image, float32 numbers computed with float32
+    division as the plain version divides: T the largest x >= 0 whose
+    quotient fl(x / box) is at most 0.5 (so rint(d / box) is sign(d) for
+    T < |d| and 0 below), T2 the largest x whose quotient stays below 1.5
+    (the range where that holds). Cached: a call at 10k particles takes
+    ~80 us on the card, less than these float loops on the host."""
+    import numpy as np
+    b = np.float32(box)
+    up, down = np.float32(np.inf), np.float32(0)
+
+    def last(limit, ok):
+        x = np.float32(limit) * b
+        while not ok(x):
+            x = np.nextafter(x, down)
+        while ok(np.nextafter(x, up)):
+            x = np.nextafter(x, up)
+        return float(x)
+
+    return (last(0.5, lambda x: x / b <= np.float32(0.5)),
+            last(1.5, lambda x: x / b < np.float32(1.5)))
 
 
 def pair_tiles(n: int) -> int:
@@ -226,16 +277,20 @@ def pairwise_accelerations(positions, masses, box_size, softening=0.01,
                           int(variant == "v2"), int(bool(periodic)),
                           box_size, soft2, oscale, PAIR_POSITION_LIMIT * box)
         return out
-    ntiles = sym_tiles(n)
+    ntiles, runs = sym_tiles(n), sym_runs(n)
     half = (ntiles - 1) // 2
-    rowpart = torch.empty((ntiles * (half + 1), 3, SYM_TILE),
+    rowpart = torch.empty((ntiles * runs, 3, SYM_TILE),
                           dtype=torch.float32, device=pts.device)
     colpart = torch.empty((max(ntiles * half, 1), 3, SYM_TILE),
                           dtype=torch.float32, device=pts.device)
+    if variant == "sym2":
+        box = 1.0
+    half_t, span_t = image_thresholds(box)
     launches["direct_sym"] += 1
     cuda_build.launch("lcdm_direct_sym", pts.data_ptr(), rowpart.data_ptr(),
-                      colpart.data_ptr(), out.data_ptr(), n, ntiles,
-                      int(bool(periodic)), box, soft2, oscale)
+                      colpart.data_ptr(), out.data_ptr(), n, ntiles, runs,
+                      int(bool(periodic)), box, soft2, oscale, half_t,
+                      span_t)
     return out
 
 

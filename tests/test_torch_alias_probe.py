@@ -83,3 +83,29 @@ def test_entry_point(capsys):
     out = capsys.readouterr().out.splitlines()
     assert out == ["cpu blocks: [1. 1. 1. 1. 1. 1. 1. 1.]",
                    "cpu sequential: [1. 2. 3. 4. 5. 6. 7. 8.]"]
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (5, 300), (1, 7)])
+def test_sequential_register_chain(shape):
+    """The card's sequential kernel carries row 0 of a column in a
+    register and writes v + 1, (v + 1) + 1, ... to rows 0, 1, ...: those
+    float32 additions, emulated in numpy, equal the plain version bit for
+    bit (and, at the probe's shape, the TPU kernel run in order)."""
+    x = np.random.default_rng(shape[1]).standard_normal(shape).astype(
+        np.float32) * np.float32(1e3)
+    v = x[0].copy()
+    chain = np.empty_like(x)
+    for i in range(shape[0]):
+        v = v + np.float32(1.0)
+        chain[i] = v
+    got = tprobe.alias_probe(torch.tensor(x), "sequential")
+    np.testing.assert_array_equal(got.numpy(), chain)
+    if shape == (8, 128):
+        np.testing.assert_array_equal(chain,
+                                      _tpu_probe(x, pltpu.InterpretParams()))
+
+
+def test_launch_floor_needs_the_card():
+    """The floor kernel is timed on the card only: a CPU buffer raises."""
+    with pytest.raises(ValueError, match="cuda"):
+        tprobe.launch_floor(8, 128, torch.zeros(8 * 128))

@@ -527,6 +527,83 @@ def test_direct_kernel_half_box_image(cuda_device, variant):
     assert _rel(got.cpu(), ref) < DIRECT_TOL
 
 
+@pytest.mark.parametrize("variant", ["sym", "sym2"])
+@pytest.mark.parametrize("n", [1, 2, 31, 33, direct.SYM_TILE - 1,
+                               direct.SYM_TILE + 1])
+def test_direct_sym_small(cuda_device, n, variant):
+    """K4s below one warp's columns, around one tile (257: two tiles and
+    the odd count's pad), periodic and not, one launch a call, with two
+    zero-mass rows (their result exactly 0) where n allows."""
+    box = 20.0
+    pos, m = uniform_particles(n, box, n + 7)
+    if n > 2:
+        m[[0, n - 1]] = 0.0
+    p, mm = tt(pos).to(cuda_device), tt(m).to(cuda_device)
+    for periodic in (True, False):
+        before = direct.launches["direct_sym"]
+        got = direct.pairwise_accelerations(p, mm, box, 0.05, 2.0,
+                                            periodic=periodic,
+                                            variant=variant)
+        assert direct.launches["direct_sym"] == before + 1
+        ref = direct.pairwise_accelerations_plain(p, mm, box, 0.05, 2.0,
+                                                  periodic=periodic,
+                                                  variant=variant)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        if n > 2:
+            assert bool(torch.all(got[[0, n - 1]] == 0))
+        if n == 1:
+            assert bool(torch.all(got == 0))
+        else:
+            assert _rel(got, ref) < DIRECT_TOL
+
+
+@pytest.mark.parametrize("variant", ["sym", "sym2"])
+@pytest.mark.parametrize("n, blocks", [(2100, 27), (5000, None),
+                                       (100_000, None)])
+def test_direct_sym_runs(cuda_device, n, blocks, variant, monkeypatch):
+    """K4s where a tile's k are cut into runs: 2100 particles in runs of
+    1, 2 and 2 k (SYM_BLOCKS 27), 5000 (one k a run), 100k (runs of 7 and
+    8), periodic and not, against the plain version; two calls give equal
+    bytes."""
+    if blocks is not None:
+        monkeypatch.setattr(direct, "SYM_BLOCKS", blocks)
+    assert direct.sym_runs(n) > 1
+    box = 20.0
+    pos, m = uniform_particles(n, box, n + 3)
+    p, mm = tt(pos).to(cuda_device), tt(m).to(cuda_device)
+    for periodic in (True, False):
+        kw = dict(periodic=periodic, variant=variant)
+        got = direct.pairwise_accelerations(p, mm, box, 0.05, 2.0, **kw)
+        again = direct.pairwise_accelerations(p, mm, box, 0.05, 2.0, **kw)
+        ref = direct.pairwise_accelerations_plain(p, mm, box, 0.05, 2.0,
+                                                  **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert _rel(got, ref) < DIRECT_TOL
+
+
+@pytest.mark.parametrize("variant", ["sym", "sym2"])
+@pytest.mark.parametrize("spread", ["all", "some"])
+def test_direct_sym_exact_image(cuda_device, variant, spread):
+    """Positions over three boxes (every warp), or the last 40 particles
+    two boxes out (the warps that meet them): K4s takes the quotient and
+    rintf where a tile's positions span more than 1.5 boxes, and holds its
+    plain version there too."""
+    n, box = 3000, 20.0
+    pos, m = uniform_particles(n, box, 17)
+    if spread == "all":
+        pos = pos * np.float32(3.0) - np.float32(box)
+    else:
+        pos[-40:] += np.float32(2.0 * box)
+    p, mm = tt(pos).to(cuda_device), tt(m).to(cuda_device)
+    got = direct.pairwise_accelerations(p, mm, box, 0.05, 2.0,
+                                        variant=variant)
+    ref = direct.pairwise_accelerations_plain(p, mm, box, 0.05, 2.0,
+                                              variant=variant)
+    assert _rel(got, ref) < DIRECT_TOL
+
+
 @pytest.mark.parametrize("n", [1, 200, 333, 5000])
 def test_pair_potential_kernel(cuda_device, n):
     """K9 against its plain version at 1e-6 (float32 pair terms, float64
@@ -601,6 +678,19 @@ def test_alias_probe_kernel(cuda_device):
     assert alias_probe.launches["alias_probe"] == before + 2
     assert float(y[0, 0]) == 1.0 and float(y.max()) <= 8.0
     assert float(y.min()) >= 1.0
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (5, 300), (1, 7)])
+def test_alias_probe_sequential_random(cuda_device, shape):
+    """K10's sequential mode from a random nonzero buffer (from zeros many
+    wrong kernels also give 1..8) equals alias_probe_plain bit for bit, at
+    the probe's shape and at ragged ones (300 columns: three blocks)."""
+    rng = np.random.default_rng(shape[1])
+    x = rng.normal(size=shape).astype(np.float32) * np.float32(1e3)
+    got = alias_probe.alias_probe(tt(x).to(cuda_device), "sequential")
+    ref = alias_probe.alias_probe_plain(tt(x), True)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref)
 
 
 def test_direct_solver_on_card(cuda_device):

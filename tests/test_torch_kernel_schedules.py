@@ -1,5 +1,6 @@
-"""The schedules of K4 (the direct sum) and K5 (the FoF hook sweep),
-emulated on the CPU in the order their CUDA kernels take them:
+"""The schedules of K4 and K4s (the direct sums), K5 (the FoF hook
+sweep) and K8 (the rod-dense pair sum), emulated on the CPU in the order
+their CUDA kernels take them:
 
 * K4: j slices (ops/direct.j_slices, slice_bounds) of whole j tiles; in a
   slice, warp w sums j 32w..32w+31 of every tile, each 32-j sub-tile
@@ -8,6 +9,15 @@ emulated on the CPU in the order their CUDA kernels take them:
   pallas_direct_accelerations in interpret mode at 1e-5 of the largest
   |a| (float32 sums in another order; the JAX package's own bar for its
   kernel).
+* K4s: the blocks of ops/direct.sym_schedule (tile p against a run of
+  tiles (p + k) mod P); in a block warp w takes columns 32w..32w+31 of
+  each tile, lane l rows l + 32 r; for k >= 1 lane l takes column (l + s)
+  mod 32 at step s and the column sums pass lane to lane; rows summed a
+  tile apart, the warps' in warp order; the reduce adds a particle's row
+  partials run by run, then its column partials k = 1..half. Against
+  the plain version and the JAX kernel in interpret mode at 1e-5 of the
+  largest |a|; a coverage check of the schedule; the threshold image
+  against min_image bit for bit.
 * K5: one warp a unit of ops/short_range.unit_plan over the counts of the
   active cells; a batch of 32 j skipped whole when its least label is
   not below the unit's largest minimum, a j skipped when no row's
@@ -28,14 +38,15 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import K8_ILP, K8_STAGE_TILES, k8_union_tiles, max_rel, \
-    tt, uniform_particles
+from _torch_parity import K8_ILP, K8_STAGE_TILES, half_box_lattice, \
+    k8_union_tiles, max_rel, tt, uniform_particles
 
 import jax.numpy as jnp
 
 from lambda_cdm_tpu.ops.pallas_direct import pallas_direct_accelerations
 from lambda_cdm_tpu_torch.analysis import halo_finder as thf
-from lambda_cdm_tpu_torch.forces.direct import min_image
+from lambda_cdm_tpu_torch.forces.direct import direct_accelerations, \
+    min_image
 from lambda_cdm_tpu_torch.ops import direct as tops
 from lambda_cdm_tpu_torch.ops import fof_hook, short_range
 from lambda_cdm_tpu_torch.ops import short_range_rd as rd
@@ -144,6 +155,243 @@ def test_check_range_without_launches():
     pos, m = uniform_particles(64, 10.0, seed=2)
     tops.pairwise_accelerations(tt(pos) + 3e7, tt(m), 10.0, 0.1)
     tops.check_range()
+
+
+# -- K4s ---------------------------------------------------------------------
+
+SYM_ROWS = tops.SYM_TILE // 32      # i rows a lane (kSymRows)
+
+
+def _sym_terms(pi, pj, mi, mj, box, soft2, periodic):
+    """[rows, cols, 3] pair forces m_i m_j r^-3 d with K4s's arithmetic
+    (coordinates in the variant's units, box 1 for sym2)."""
+    d = pj[None, :, :] - pi[:, None, :]
+    if periodic:
+        d = min_image(d, box)
+    dx, dy, dz = d.unbind(-1)
+    r2 = dx * dx + (dy * dy + (dz * dz + soft2))
+    inv_r = torch.rsqrt(r2)
+    w = (mj[None, :] * mi[:, None]) * (inv_r * inv_r * inv_r)
+    return w[..., None] * d
+
+
+def _k4s_emulated(pos, m, box, soft, g, variant, periodic=True):
+    """K4s's sum in the kernel's order: blocks of sym_schedule; in a block
+    warp w takes columns 32w..32w+31 of each tile q against the tile's
+    rows, lane l holding rows l + 32 r; for k >= 1 lane l takes column
+    (l + s) mod 32 at step s (its rows' tile sums) and column c's sums are
+    added lane c, c - 1, ... (rows r = 0..7 of each); the diagonal block
+    adds its columns in order to the rows only; each tile's row sums added
+    to the run's, the warps' in warp order; the reduce adds a particle's
+    row partials run by run, then its column partials k = 1..half."""
+    t_ = tops.SYM_TILE
+    scale = 1.0 / box if variant == "sym2" else 1.0
+    b = 1.0 if variant == "sym2" else box
+    soft2 = (soft * scale) ** 2
+    n = pos.shape[0]
+    ntiles, runs = tops.sym_tiles(n), tops.sym_runs(n)
+    half = (ntiles - 1) // 2
+    p = torch.zeros((ntiles * t_, 3))
+    p[:n] = tt(pos) * scale
+    mm = torch.zeros(ntiles * t_)
+    mm[:n] = tt(m)
+    lane_of = torch.arange(t_) % 32                  # the lane of each row
+    warp_col = 32 * torch.arange(t_ // 32)[None, :]  # [1, warps]
+    rows = torch.arange(t_)[:, None]
+    rowpart, colpart = {}, {}
+    for blk, (pt, k0, k1) in enumerate(tops.sym_schedule(n)):
+        if pt * t_ >= n:
+            continue
+        ri = slice(pt * t_, pt * t_ + t_)
+        total = torch.zeros((t_, t_ // 32, 3))        # [row, warp, 3]
+        for k in range(k0, k1):
+            q = (pt + k) % ntiles
+            terms = _sym_terms(p[ri], p[q * t_:q * t_ + t_], mm[ri],
+                               mm[q * t_:q * t_ + t_], b, soft2, periodic)
+            tile = torch.zeros((t_, t_ // 32, 3))
+            if k == 0:
+                for t in range(32):
+                    tile = tile + terms[:, warp_col[0] + t]
+            else:
+                for s in range(32):
+                    tile = tile + terms[rows, warp_col + (lane_of[:, None]
+                                                          + s) % 32]
+                carry = torch.zeros((t_, 3))           # [column, 3]
+                cols = torch.arange(t_)
+                for s in range(32):
+                    lane = (cols % 32 - s) % 32
+                    for r in range(SYM_ROWS):
+                        carry = carry + terms[32 * r + lane, cols]
+                colpart[(pt, k)] = -carry
+            total = total + tile
+        part = total[:, 0]
+        for w in range(1, t_ // 32):
+            part = part + total[:, w]
+        rowpart[blk] = part
+    out = torch.zeros((n, 3))
+    for t in range(ntiles):
+        i0, i1 = t * t_, min(n, t * t_ + t_)
+        if i0 >= n:
+            continue
+        f = torch.zeros((i1 - i0, 3))
+        for r in range(runs):
+            f = f + rowpart[t * runs + r][:i1 - i0]
+        for k in range(1, half + 1):
+            pt = (t - k) % ntiles
+            if pt * t_ < n:
+                f = f + colpart[(pt, k)][:i1 - i0]
+        mi = mm[i0:i1]
+        inv_m = torch.where(mi > 0, 1.0 / torch.where(mi > 0, mi, 1.0), 0.0)
+        out[i0:i1] = f * inv_m[:, None]
+    return (g * scale * scale) * out
+
+
+@pytest.mark.parametrize("blocks", [None, 10, 1])
+@pytest.mark.parametrize("n,variant", [(777, "sym"), (777, "sym2"),
+                                       (1100, "sym"), (1100, "sym2")])
+def test_k4s_schedule_matches_plain_and_pallas(n, variant, blocks,
+                                               monkeypatch):
+    """777 (a ragged tile and the odd count's pad tile) and 1100 (five
+    tiles): one run a k (the default at this size), runs of one and two k
+    (SYM_BLOCKS 10) and one run a tile (1); the emulated K4s against the
+    plain version and the JAX kernel in interpret mode, zero-mass rows 0."""
+    if blocks is not None:
+        monkeypatch.setattr(tops, "SYM_BLOCKS", blocks)
+    box, soft = 20.0, 0.05
+    pos, m = uniform_particles(n, box, seed=n + 2)
+    m[[3, n - 1]] = 0.0
+    assert tops.sym_tiles(n) == 5
+    assert tops.sym_runs(n) == {None: 3, 10: 2, 1: 1}[blocks]
+    got = _k4s_emulated(pos, m, box, soft, 2.0, variant)
+    assert torch.all(got[[3, n - 1]] == 0)
+    plain = tops.pairwise_accelerations_plain(tt(pos), tt(m), box, soft, 2.0,
+                                              variant=variant)
+    assert max_rel(got, plain) < TOL
+    ref = pallas_direct_accelerations(jnp.asarray(pos), jnp.asarray(m), box,
+                                      soft, 2.0, interpret=True,
+                                      variant=variant)
+    assert max_rel(got, ref) < TOL
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+def test_k4s_schedule_runs_cut(periodic, monkeypatch):
+    """Nine tiles (2100 particles), five k a tile cut into runs of 2, 1
+    and 2 (SYM_BLOCKS 27: three runs), periodic and not."""
+    monkeypatch.setattr(tops, "SYM_BLOCKS", 27)
+    n, box, soft = 2100, 30.0, 0.05
+    pos, m = uniform_particles(n, box, seed=5)
+    assert tops.sym_tiles(n) == 9 and tops.sym_runs(n) == 3
+    assert [k1 - k0 for p, k0, k1 in tops.sym_schedule(n)[:3]] == [1, 2, 2]
+    got = _k4s_emulated(pos, m, box, soft, 1.0, "sym", periodic)
+    plain = tops.pairwise_accelerations_plain(tt(pos), tt(m), box, soft,
+                                              periodic=periodic,
+                                              variant="sym")
+    assert max_rel(got, plain) < TOL
+
+
+@pytest.mark.parametrize("variant", ["sym", "sym2"])
+def test_k4s_schedule_half_box_lattice(variant):
+    """The lattice whose middle layer sits one ulp past half a box (box 50,
+    two tiles and the pad): the emulated K4s, whose image is the true
+    quotient's, holds the solver's direct_accelerations and the plain
+    version at 1e-5 (the box-unit variant rounds its own image: the plain
+    sym2)."""
+    box = 50.0
+    pos, m, flips = half_box_lattice(box, seed=3)
+    assert flips > 0
+    got = _k4s_emulated(pos, m, box, 0.1, 1.0, variant)
+    plain = tops.pairwise_accelerations_plain(tt(pos), tt(m), box, 0.1,
+                                              variant=variant)
+    assert max_rel(got, plain) < TOL
+    if variant == "sym":
+        oracle = direct_accelerations(tt(pos), tt(m), box, 0.1)
+        assert max_rel(got, oracle) < TOL
+
+
+@pytest.mark.parametrize("n,blocks", [(1, None), (2, None), (31, None),
+                                      (33, None), (256, None), (257, None),
+                                      (257, 1), (777, 2), (2100, None),
+                                      (2100, 27)])
+def test_k4s_schedule_covers_each_pair_once(n, blocks, monkeypatch):
+    """Every unordered tile pair is one block's (p, k) once; the force on
+    i from j (i != j) is added once: as a row of the diagonal block, or as
+    the row or the column of an off-diagonal one; and each particle's
+    partials are read by the reduce exactly once: its tile's row partials,
+    one a run, and the column partials the other tiles wrote for it."""
+    if blocks is not None:
+        monkeypatch.setattr(tops, "SYM_BLOCKS", blocks)
+    t_ = tops.SYM_TILE
+    ntiles, runs = tops.sym_tiles(n), tops.sym_runs(n)
+    half = (ntiles - 1) // 2
+    sched = tops.sym_schedule(n)
+    assert ntiles % 2 == 1 and len(sched) == ntiles * runs
+    assert 1 <= runs <= half + 1
+    tile_pairs = {}
+    for pt, k0, k1 in sched:
+        assert 0 <= k0 < k1 <= half + 1
+        for k in range(k0, k1):
+            key = frozenset((pt, (pt + k) % ntiles))
+            tile_pairs[key] = tile_pairs.get(key, 0) + 1
+    assert len(tile_pairs) == ntiles * (ntiles + 1) // 2
+    assert set(tile_pairs.values()) == {1}
+    tile = torch.arange(n) // t_
+    adds = torch.zeros((n, n), dtype=torch.int8)    # force on i from j
+    written = {}       # particle -> partial slots that hold its terms
+    for blk, (pt, k0, k1) in enumerate(sched):
+        if pt * t_ >= n:
+            continue
+        rows = tile == pt
+        for i in torch.nonzero(rows).flatten().tolist():
+            written.setdefault(i, []).append(("row", blk))
+        for k in range(k0, k1):
+            cols = tile == (pt + k) % ntiles
+            block = rows[:, None] & cols[None, :]
+            if k == 0:
+                adds += block & ~torch.eye(n, dtype=torch.bool)
+            else:
+                adds += block + block.T
+                for j in torch.nonzero(cols).flatten().tolist():
+                    written.setdefault(j, []).append(("col", pt, k))
+    assert bool(torch.all(adds == 1 - torch.eye(n, dtype=torch.int8)))
+    for i in range(n):
+        t = i // t_
+        read = [("row", t * runs + r) for r in range(runs)]
+        read += [("col", (t - k) % ntiles, k) for k in range(1, half + 1)
+                 if (t - k) % ntiles * t_ < n]
+        assert sorted(read) == sorted(written[i])
+        assert len(set(read)) == len(read)
+
+
+@pytest.mark.parametrize("box", [1.0, 0.7, 3.0, 20.0, 50.0, 100.0, 1e-3,
+                                 12345.678])
+def test_k4s_image_thresholds(box):
+    """T and T2 bracket the quotient's rounding: fl(T / box) <= 0.5 <
+    fl(next(T) / box), fl(T2 / box) < 1.5 <= fl(next(T2) / box); and on
+    |d| <= T2 the kernel's image d - (|d| > T) copysign(box, d), rounded
+    once, equals min_image's d - box rint(d / box) bit for bit (a sweep of
+    floats across both ties and random ones)."""
+    b = np.float32(box)
+    t1, t2 = (np.float32(x) for x in tops.image_thresholds(box))
+    up = np.float32(np.inf)
+    assert t1 / b <= np.float32(0.5) < np.nextafter(t1, up) / b
+    assert t2 / b < np.float32(1.5) <= np.nextafter(t2, up) / b
+    rng = np.random.default_rng(int(box * 1000) % 2 ** 32)
+    sweep = []                  # 8 floats either side of each threshold
+    for x in (t1, t2):
+        for _ in range(8):
+            x = np.nextafter(x, np.float32(0))
+        for _ in range(17):
+            sweep.append(x)
+            x = np.nextafter(x, up)
+    d = np.concatenate([np.array(sweep, np.float32),
+                        rng.uniform(0, float(t2), 4000).astype(np.float32)])
+    d = np.concatenate([d, -d, np.zeros(1, np.float32)])
+    d = d[np.abs(d) <= t2]
+    f = (np.abs(d) > t1).astype(np.float32)
+    got = (d.astype(np.float64) - f.astype(np.float64)
+           * np.copysign(np.float64(b), d)).astype(np.float32)
+    ref = min_image(torch.tensor(d), float(box)).numpy()
+    assert np.array_equal(got, ref)
 
 
 # -- K5 ----------------------------------------------------------------------
