@@ -20,8 +20,8 @@ fatal on failure and each printing its seconds:
      there too; K3's plan of units built on the card against its plain
      version on both states;
   3. stepper path: reset the launch counters, build the engine from
-     treepm_1m.json through SimulationBuilder (2LPT ICs from a seeded
-     torch.Generator) and run 32 steps; K1-K3 must have launched,
+     treepm_1m.json through SimulationBuilder (2LPT ICs from the JAX
+     package's key for the config's seed, utils/prng) and run 32 steps; K1-K3 must have launched,
      positions must be finite and the live mass must equal N * m; a
      LensingObserver fires at step 32;
   4. lensing phase, on paths each driven with the launch counts reset
@@ -94,9 +94,13 @@ fatal on failure and each printing its seconds:
      size for 10 steps each, with validate_force_accuracy;
  12. stateless reference check: a 4096-particle direct run of 8 steps on
      the card (K4) against the CPU (the solver's row-blocked sum) from
-     three seeds' 2LPT states, the same card run with two planted K4
-     faults (which the check must see), and pm and treepm accelerations
-     of one state on both.
+     three seeds' 2LPT states in chunks of one step (the rows of a pair
+     whose minimum image differs between the two runs at some step, a
+     pair about half a box apart, left out: at most 8, and only pairs
+     that K4's plain arithmetic on the CPU flips as well), the card's
+     chunks of 4 fused steps bit for bit its chunks of one, the same card
+     run with two planted K4 faults (which the check must see, under the
+     same cap), and pm and treepm accelerations of one state on both.
 
 Then the fast stepper's other options:
 
@@ -149,12 +153,42 @@ Then this slice's paths:
      K1-K3, K5 and K9 must have launched, overflow and drops 0, every
      check of its certificate must pass; then --analyze-only on the
      record (certificate and record in chiprun_out/chip_smoke_science/),
-     find_halos's split on the run's final state (as in phase 5), K9
+     find_halos's split on the run's final state (as in phase 5) and
+     its labels against the cKDTree oracle's on the same particles (the
+     groups of 20-31 and 32-63 particles beside the oracle's), K9
      against its plain version on the run's final 1M state (the
      kernels line's K9 numbers), and K3 against its plain version on that
      state bucketed by the run's plan (half the sampled rows from the
      fullest cell), with its plan against the plain one, and K1 and K2
-     against theirs on the same buckets, timed there.
+     against theirs on the same buckets, timed there. The ICs come from
+     PRNGKey(2026), the JAX run's key: the run prints its low-k
+     pk_table.ratio_over_growth, steps, HMF geometric mean and
+     Layzer-Irvine worst beside SCIENCE.json's (the TPU run).
+
+Then, before phase 20, the paths of the JAX package's random streams and
+tools:
+
+ 21. prng phase: treepm_10m.json's IC noise (216^3 normals) and 1M x 3
+     uniforms drawn with utils/prng on the card, bit for bit the CPU's,
+     the noise draw timed;
+ 22. accuracy phase: bench.py's accuracy geometry (2LPT at a = 0.35 from
+     PRNGKey(7), 1M, pm_grid 192, softening 0.05, capacity pre-sized, 512
+     targets from default_rng(0)): the treepm_fast forces (K1-K3) against
+     the float64 Ewald oracle on the card (RMS bar 5e-3, overflow and
+     drops 0) and min-image against Ewald, beside the TPU's readings;
+ 23. merger phase: that snapshot evolved 24 steps through the engine,
+     find_halos (K5) at three chunk ends, the MergerForest over them, and
+     match_halos on the card against numpy's bincount;
+ 24. trace phase: treepm_1m.json (8 steps) and direct_10k.json (50 steps)
+     under profiling.trace_dir (torch.profiler), read back by
+     trace_summary: the device-busy share and the top 5 kernels, with the
+     untraced ms/step beside the traced;
+ 25. warmup/aot phase: SimulationEngine.warmup on a fresh treepm_1m.json
+     engine (programs, seconds, state untouched, the first chunk after
+     it), a fresh process that compiles nothing, and CompiledForceEngine
+     at profiles (16,384, 131,072): its CUDA graphs' replays, into
+     outputs filled with NaN first, against K4 on the padded inputs and
+     after a save/load round trip, bit for bit.
 
 The CLI phase also validates the treepm_1m state's forces through the
 stateless treepm solver.
@@ -1386,6 +1420,7 @@ def science_phase(device, card):
     failed = [k for k, c in checks.items() if c["pass"] is False]
     check("science", rc == 0 and not failed and cert["passed"],
           f"failed checks {failed}")
+    science_vs_tpu(cert)
     t0 = time.perf_counter()
     rc = science_run.main(["--analyze-only", "--out", SCIENCE_OUT])
     with open(os.path.join(SCIENCE_OUT, "SCIENCE.json")) as f:
@@ -1400,19 +1435,68 @@ def science_phase(device, card):
     final = science_run.load_record(os.path.join(SCIENCE_OUT,
                                                  "science_record.npz"))
     g = science_run.geometry(False)
-    split, _ = find_halos_split(
+    split, labels = find_halos_split(
         *(torch.from_numpy(final[k]).to(device) for k in
           ("pos_f", "vel_f", "masses")), g["box"], 0.2)
     print_split("the science run's final state", split, card)
     check("science FoF split", split["rounds"] == cert["fof"]["rounds"]
           and split["plan"]["ncell"] == cert["fof"]["ncell"],
           f"the split differs from the run's FoF {cert['fof']}")
+    science_fof_oracle(final, labels, g["box"], split["overflow"])
     k9 = pair_potential_check(
         torch.from_numpy(final["pos_f"]).to(device),
         torch.from_numpy(final["masses"]).to(device), g["box"],
         g["softening"], "the science run's final clustered state", card)
     science_kernel_check(final, g, device, card)
     return launches, k9
+
+
+def science_fof_oracle(final, labels, box: float, overflow: int) -> None:
+    """The science run's final-state FoF groups (find_halos's labels, K5)
+    against the cKDTree oracle's on the same particles: the labels that
+    differ, and for both the groups of >= 20, 20-31 and 32-63 particles
+    (the small groups where the run's HMF and SCIENCE.json's part).
+    Without overflow the labels are exact FoF components and must equal
+    the oracle's."""
+    import numpy as np
+    pos = final["pos_f"]
+    oracle, links, asym = fof_oracle(pos, box, 0.2 * box
+                                     / len(pos) ** (1.0 / 3.0))
+    ours = labels.cpu().numpy()
+    differ = int((ours != oracle).sum())
+
+    def bands(lab):
+        sizes = np.unique(lab, return_counts=True)[1]
+        return [int(np.sum((sizes >= lo) & (sizes <= hi)))
+                for lo, hi in ((20, len(lab)), (20, 31), (32, 63))]
+
+    print(f"science FoF vs the cKDTree oracle on the final particles "
+          f"({links} links, {asym} pairs whose two directions disagree; "
+          f"overflow {overflow}): {differ} labels differ; groups of >= 20, "
+          f"20-31 and 32-63 particles: find_halos {bands(ours)}, oracle "
+          f"{bands(oracle)}")
+    check("science FoF oracle", overflow != 0 or differ == 0,
+          f"{differ} labels differ from the oracle's")
+
+
+def science_vs_tpu(cert: dict) -> None:
+    """The run (ICs from PRNGKey(2026), the JAX run's key) beside the JAX
+    package's TPU certificate SCIENCE.json: the low-k
+    pk_table.ratio_over_growth bins (the same noise gives the same linear
+    modes), the steps, the HMF geometric mean and the Layzer-Irvine worst
+    residual."""
+    with open(os.path.join(ROOT, "SCIENCE.json")) as f:
+        tpu = json.load(f)
+    k = cert["pk_table"]["k"][:6]
+    ours = cert["pk_table"]["ratio_over_growth"][:6]
+    theirs = tpu["pk_table"]["ratio_over_growth"][:6]
+    print("science vs SCIENCE.json (TPU v5e): low-k ratio_over_growth "
+          + "; ".join(f"k={a:.4f}: {b:.5f} vs {c:.5f}"
+                      for a, b, c in zip(k, ours, theirs)))
+    for name in ("hmf_band_gmean_vs_st", "layzer_irvine_worst_residual"):
+        print(f"science vs SCIENCE.json: {name} {cert['checks'][name]['value']}"
+              f" vs {tpu['checks'][name]['value']}")
+    print(f"science vs SCIENCE.json: steps {cert['steps']} vs {tpu['steps']}")
 
 
 def science_kernel_check(final, g, device, card):
@@ -1752,12 +1836,40 @@ def stateless_phase(device, card):
 # and one without the minimum image 1.7
 REF_SEEDS = (6, 7, 8)
 REF_TOL = {"pos": 1e-5, "vel": 1e-5}
+# a pair about half a box apart takes the minimum image that the last bit
+# of its positions decides, so two runs whose sums round otherwise can
+# take the two images of it at one step (seed 7's state, since the ICs
+# draw the JAX package's stream, does so at step 6). The rows of such
+# pairs are left out of the comparison, at most REF_MAX_FLIP_ROWS (a
+# sound run flips one pair; a faulty force moves every particle and flips
+# many), and only where K4's plain arithmetic run on the CPU (the
+# witness) flips the same pairs against the CPU sum: then the difference
+# is the minimum image's discontinuity, not the card
+REF_MAX_FLIP_ROWS = 8
 
 
-def _planted_fault(g_factor: float, periodic: bool):
-    """A `direct` solver builder whose K4 call carries a planted fault
-    (registered in place of the solver for one run: the config accepts
-    only the built-in names)."""
+def image_flip_pairs(traj_a, traj_b, box: float) -> list:
+    """[(i, j)], i < j: the pairs whose minimum image (round(d / box)
+    along an axis) differs between two runs' positions at some step."""
+    import torch
+    box_t = torch.tensor(box, dtype=torch.float32)
+    n = traj_a[0].shape[0]
+    flip = torch.zeros((n, n), dtype=torch.bool)
+    for pa, pb in zip(traj_a, traj_b):
+        for c in range(3):
+            flip |= (torch.round((pa[None, :, c] - pa[:, None, c]) / box_t)
+                     != torch.round((pb[None, :, c] - pb[:, None, c])
+                                    / box_t))
+    i, j = torch.nonzero(torch.triu(flip, 1), as_tuple=True)
+    return list(zip(i.tolist(), j.tolist()))
+
+
+def _k4_solver(g_factor: float, periodic: bool):
+    """A `direct` solver builder that calls K4's wrapper (ops/direct) with
+    G scaled by `g_factor` and the minimum image on or off, registered in
+    place of the solver for one run (the config accepts only the built-in
+    names): a planted fault on the card, or, at (1, True) on the CPU, K4's
+    plain arithmetic (the witness)."""
     def build(config):
         from lambda_cdm_tpu_torch.ops import direct
         box, soft = config.particles.box_size, config.forces.softening_length
@@ -1773,11 +1885,14 @@ def _planted_fault(g_factor: float, periodic: bool):
 
 def stateless_reference_check(device):
     """A 4096-particle direct run of 8 steps on the card (K4) against the
-    CPU (the solver's row-blocked sum) from three seeds' states, and two
-    planted K4 faults that the check must see; then pm and treepm
-    accelerations of one state on both."""
+    CPU (the solver's row-blocked sum) from three seeds' states, in chunks
+    of one step (the positions after every step find the pairs whose
+    image flips) and, bit for bit the same on the card, in chunks of 4
+    fused steps; where pairs flip, K4's plain arithmetic on the CPU as the
+    witness; two planted K4 faults that the check must see; then pm and
+    treepm accelerations of one state on both."""
     import torch
-    from lambda_cdm_tpu_torch import SimulationBuilder, forces
+    from lambda_cdm_tpu_torch import Observer, SimulationBuilder, forces
     from lambda_cdm_tpu_torch.core.config import SimulationConfig
     from lambda_cdm_tpu_torch.forces import create_force_computer, \
         register_force_computer
@@ -1789,41 +1904,74 @@ def stateless_reference_check(device):
         "particles": {"num_particles": 4096, "box_size": 50.0},
         "cosmology": {"initial_redshift": 9.0},
         "time": {"initial_timestep": 2e-5},
-        "simulation": {"output_frequency": 4, "checkpoint_frequency": 0},
+        "simulation": {"output_frequency": 1, "checkpoint_frequency": 0},
         "profiling": {"output_file": ""},
         "logging": {"performance_logging": False}})
     box = cfg.particles.box_size
     faults = {"G 0.1% high": (1.001, True), "no minimum image": (1.0, False)}
 
-    def run(dev, st0):
-        eng = (SimulationBuilder(device=dev).with_config(cfg)
-               .with_initial_state(st0).build())
-        st = eng.run(num_steps=8)
-        return st.positions.cpu(), st.velocities.cpu()
+    class Trajectory(Observer):
+        """The positions at the end of every chunk."""
+
+        def __init__(self):
+            self.positions = []
+
+        def on_step_end(self, engine, step):
+            self.positions.append(engine.state.positions.detach().cpu())
+
+    def run(dev, st0, chunk=1, solver=None):
+        traj = Trajectory()
+        cfg.simulation.output_frequency = chunk
+        default = forces._REGISTRY["direct"]
+        if solver is not None:
+            register_force_computer("direct")(solver)
+        try:
+            eng = (SimulationBuilder(device=dev).with_config(cfg)
+                   .with_initial_state(st0).with_observer(traj).build())
+            st = eng.run(num_steps=8)
+        finally:
+            register_force_computer("direct")(default)
+        return st.positions.cpu(), st.velocities.cpu(), traj.positions
 
     def errs(got, ref):
-        (gp, gv), (cp, cv) = got, ref
+        """(positions, velocities, velocities with no row left out, the
+        pairs whose image flips) of a run against the CPU's."""
+        (gp, gv, gt), (cp, cv, ct) = got, ref
+        pairs = image_flip_pairs(gt, ct, box)
+        keep = torch.ones(gp.shape[0], dtype=torch.bool)
+        keep[[k for pair in pairs for k in pair]] = False
+        keep = keep[:, None]
         d = torch.remainder(gp - cp + box / 2, box) - box / 2
-        return (float(d.abs().max()) / box,
-                float((gv - cv).abs().max() / cv.abs().max()))
+        vmax = cv.abs().max()
+        return (float(torch.where(keep, d.abs(), 0.0).max()) / box,
+                float(torch.where(keep, (gv - cv).abs(), 0.0).max() / vmax),
+                float((gv - cv).abs().max() / vmax), pairs)
+
+    def within(p, v, _, pairs):
+        rows = len({k for pair in pairs for k in pair})
+        return (p <= REF_TOL["pos"] and v <= REF_TOL["vel"]
+                and rows <= REF_MAX_FLIP_ROWS)
 
     ic = cfg.particles.initial_conditions
     ic.type, ic.grid_size = "2lpt", 16
-    sound, planted = {}, {}
+    sound, fused, witness, planted = {}, {}, {}, {}
     for seed in REF_SEEDS:
         ic.random_seed = seed
         st0 = generate_state(cfg, device="cpu")
         ref = run("cpu", st0)
-        sound[seed] = errs(run(device, st0), ref)
+        card = run(device, st0)
+        sound[seed] = errs(card, ref)
+        four = run(device, st0, chunk=4)
+        fused[seed] = (torch.equal(four[0], card[0])
+                       and torch.equal(four[1], card[1]))
+        if sound[seed][3]:
+            witness[seed] = errs(run("cpu", st0, solver=_k4_solver(1.0, True)),
+                                 ref)
         if seed == REF_SEEDS[0]:
             first = st0
-            solver = forces._REGISTRY["direct"]
             for name, args in faults.items():
-                register_force_computer("direct")(_planted_fault(*args))
-                try:
-                    planted[name] = errs(run(device, st0), ref)
-                finally:
-                    register_force_computer("direct")(solver)
+                planted[name] = errs(run(device, st0,
+                                         solver=_k4_solver(*args)), ref)
     acc = {}
     for kind in ("pm", "treepm"):
         cfg.forces.type = kind
@@ -1835,19 +1983,35 @@ def stateless_reference_check(device):
     print("stateless reference check (4096 particles, direct, 8 steps, "
           "card K4 vs CPU row-blocked sum): " + "; ".join(
               f"seed {k}: positions {p:.3e} of the box, velocities {v:.3e} "
-              f"of max |v|" for k, (p, v) in sound.items())
-          + f" (tol {REF_TOL['pos']:g} / {REF_TOL['vel']:g}); planted K4 "
-          "faults: " + "; ".join(
-              f"{k}: positions {p:.3e}, velocities {v:.3e}"
-              for k, (p, v) in planted.items())
+              f"of max |v| ({vall:.4e} with no row left out; the pairs whose "
+              f"image differs, their rows left out: {pairs}); chunks of 4 "
+              f"bit for bit those of 1: {fused[k]}"
+              for k, (p, v, vall, pairs) in sound.items())
+          + f" (tol {REF_TOL['pos']:g} / {REF_TOL['vel']:g}, at most "
+          f"{REF_MAX_FLIP_ROWS} rows left out)")
+    for k, (p, v, vall, pairs) in witness.items():
+        print(f"stateless reference witness, seed {k}: K4's plain arithmetic "
+              f"on the CPU against the CPU sum: velocities {vall:.4e} of max "
+              f"|v| with no row left out, {v:.3e} without the rows of its "
+              f"flipped pairs {pairs}, positions {p:.3e}; the card's "
+              f"flipped pairs {sound[k][3]}")
+    print("stateless reference planted K4 faults: " + "; ".join(
+              f"{k}: positions {p:.3e}, velocities {v:.3e}, "
+              f"{len(pairs)} flipped pairs"
+              for k, (p, v, _, pairs) in planted.items())
           + f"; one state's accelerations card vs CPU: pm {acc['pm']:.3e}, "
           f"treepm {acc['treepm']:.3e} (tol 1e-4)")
+    check("stateless reference", all(within(*r) for r in sound.values()),
+          "card and CPU direct runs disagree")
+    check("stateless reference", all(fused.values()),
+          f"chunks of 4 steps differ from chunks of 1 on the card: {fused}")
     check("stateless reference", all(
-        p <= REF_TOL["pos"] and v <= REF_TOL["vel"]
-        for p, v in sound.values()), "card and CPU direct runs disagree")
-    check("stateless reference", all(
-        p > REF_TOL["pos"] or v > REF_TOL["vel"]
-        for p, v in planted.values()), "a planted K4 fault passes the check")
+        within(*witness[k]) and set(sound[k][3]) <= set(witness[k][3])
+        for k in witness),
+        "the card's flipped pairs are not K4's arithmetic's on the CPU")
+    check("stateless reference", not any(
+        within(*r) for r in planted.values()),
+        "a planted K4 fault passes the check")
     check("stateless reference", max(acc.values()) <= 1e-4,
           "pm/treepm card and CPU accelerations disagree")
 
@@ -3076,6 +3240,346 @@ def gradient_phase(cfg, device, card):
     return out
 
 
+# -- this slice: the JAX package's random streams, its Ewald oracle, merger
+# trees, the profiler trace, warmup and CompiledForceEngine ---------------
+
+# bench.py's accuracy section on the TPU (BENCH_r05.json, TPU v5e, the same
+# particles): force RMS and max against Ewald, min-image against Ewald
+TPU_ACCURACY = {"rms": 2.844e-3, "max": 2.1704e-2, "minimage": 8.3371e-2}
+ACCURACY_BAR = 5e-3
+TENM_CONFIG = os.path.join(ROOT, "examples", "configs", "treepm_10m.json")
+TRACE_OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke_trace")
+# CompiledForceEngine's profiles and the sizes held against K4 in them
+# (direct_10k's 10,648 and bench.py's direct 100k)
+AOT_PROFILES = (16_384, 131_072)
+AOT_SIZES = (10_648, 100_000)
+
+
+def prng_phase(device, card):
+    """(a) utils/prng on the card: treepm_10m.json's IC noise (216^3
+    normals from its seed's split key, the grid the loader raises to
+    n_side) and 1M x 3 uniforms, each bit for bit the CPU's draw from the
+    same key; the noise draw timed with CUDA events."""
+    import torch
+    from lambda_cdm_tpu_torch.core.config import SimulationConfig
+    from lambda_cdm_tpu_torch.utils import prng
+    cfg = SimulationConfig.from_file(TENM_CONFIG)
+    ng = round(cfg.particles.num_particles ** (1.0 / 3.0))
+    key = prng.split(prng.PRNGKey(cfg.particles.initial_conditions
+                                  .random_seed))[1]
+    draws = {"normal": (prng.normal, (ng, ng, ng)),
+             "uniform": (prng.uniform, (1_000_000, 3))}
+    for name, (fn, shape) in draws.items():
+        got = fn(key, shape, device=device)
+        ref = fn(key, shape, device="cpu")
+        same = torch.equal(got.cpu().view(torch.int32),
+                           ref.view(torch.int32))
+        print(f"prng {name} {shape}: card == CPU bit for bit: {same}; mean "
+              f"{float(got.double().mean()):.3e} std "
+              f"{float(got.double().std()):.6f}")
+        check("prng", same, f"{name} on the card differs from the CPU")
+    ms = cuda_ms(lambda: prng.normal(key, (ng, ng, ng), device=device), 5)
+    print(f"prng: {ng}^3 normals ({ng ** 3:,}) in {ms:.3f} ms on {card}")
+
+
+def accuracy_phase(device, card):
+    """(b) bench.py's accuracy geometry: the 2LPT snapshot at a = 0.35 from
+    PRNGKey(7) (ng 200, n_side 100, box 100), the treepm_fast forces of
+    initialize_fast on the card (pm_grid 192, softening 0.05, capacity
+    pre-sized to the snapshot's fullest cell), 512 live targets chosen by
+    default_rng(0), against the float64 Ewald and min-image oracles on the
+    card. Fails above the 5e-3 RMS bar or with any overflow or drop.
+    Returns the snapshot (positions, velocities, mass, capacity)."""
+    import numpy as np
+    import torch
+    from lambda_cdm_tpu_torch.forces import ewald
+    from lambda_cdm_tpu_torch.ops.fast_treepm import (fast_plan,
+                                                      flatten_fast_state,
+                                                      initialize_fast)
+    from lambda_cdm_tpu_torch.physics.cosmology import CosmologyParams
+    from lambda_cdm_tpu_torch.physics.initial_conditions import \
+        lpt_displacements
+    from lambda_cdm_tpu_torch.utils.prng import PRNGKey
+    box = 100.0
+    pos, vel = lpt_displacements(
+        PRNGKey(7), CosmologyParams(), ng=200, n_side=100, box_size=box,
+        a_init=0.35, kick_mode="comoving", device=device)
+    n = pos.shape[0]
+    mass = torch.full((n,), 27.7536 * 0.31 * box ** 3 / n,
+                      dtype=torch.float32, device=device)
+    cap_req = 0
+    for _ in range(6):
+        plan = fast_plan(n, box, 192, capacity=cap_req)
+        nc = plan["ncell"]
+        cid = torch.clamp((pos / box * nc).long(), 0, nc - 1)
+        need = int(torch.bincount((cid[:, 0] * nc + cid[:, 1]) * nc
+                                  + cid[:, 2], minlength=nc ** 3).max())
+        if need <= plan["capacity"]:
+            break
+        cap_req = 128 * ((need + 127) // 128)
+    fs, kw = initialize_fast(pos, torch.zeros_like(pos), mass, 0.35,
+                             box_size=box, pm_grid=192, softening=0.05,
+                             capacity=cap_req)
+    overflow, dropped = int(fs.overflow), int(fs.dropped)
+    fpos, _, fmass = flatten_fast_state(fs)
+    facc = fs.acc.reshape(3, -1).T
+    live = (fmass > 0).cpu().numpy()
+    rows = np.random.default_rng(0).choice(np.nonzero(live)[0], size=512,
+                                           replace=False)
+    # the oracles over the live rows only (dead slots are inert, mass 0)
+    live_idx = torch.nonzero(fmass > 0)[:, 0]
+    where = torch.full((fmass.numel(),), -1, dtype=torch.int64,
+                       device=device)
+    where[live_idx] = torch.arange(live_idx.numel(), device=device)
+    tgt = where[torch.from_numpy(rows).to(device)]
+    src_pos, src_mass = fpos[live_idx], fmass[live_idx]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a_ref = ewald.ewald_accelerations(src_pos, src_mass, tgt, box, 0.05,
+                                      kw["g_const"])
+    torch.cuda.synchronize()
+    t_ewald = time.perf_counter() - t0
+    a_mi = ewald.min_image_accelerations(src_pos, src_mass, tgt, box, 0.05,
+                                         kw["g_const"])
+    torch.cuda.synchronize()
+    t_mi = time.perf_counter() - t0 - t_ewald
+    a_sol = facc[torch.from_numpy(rows).to(device)].double()
+    scale = torch.sqrt(torch.mean(torch.sum(a_ref ** 2, dim=-1)))
+
+    def rms(x, y):
+        return float(torch.sqrt(torch.mean(torch.sum((x - y) ** 2, -1)))
+                     / scale)
+
+    force_rms = rms(a_sol, a_ref)
+    force_max = float(torch.max(torch.linalg.norm(a_sol - a_ref, dim=-1))
+                      / scale)
+    mi_rms = rms(a_mi, a_ref)
+    print(f"accuracy (bench.py's geometry: 2LPT a=0.35 from PRNGKey(7), "
+          f"1M, pm 192, softening 0.05; plan ncell {kw['ncell']} capacity "
+          f"{kw['capacity']} variant {kw['variant']}, fullest cell {need}): "
+          f"overflow {overflow} dropped {dropped}")
+    print(f"accuracy: force vs Ewald rms {force_rms:.4e} (TPU "
+          f"{TPU_ACCURACY['rms']:.4e}), max {force_max:.4e} (TPU "
+          f"{TPU_ACCURACY['max']:.4e}) [bar {ACCURACY_BAR:g}]; min-image vs "
+          f"Ewald rms {mi_rms:.4e} (TPU {TPU_ACCURACY['minimage']:.4e}); "
+          f"oracles on the card: Ewald {t_ewald:.3f} s, min-image "
+          f"{t_mi:.3f} s (512 targets, {int(live_idx.numel()):,} sources) "
+          f"on {card}")
+    check("accuracy", overflow == 0 and dropped == 0,
+          f"overflow {overflow} dropped {dropped}")
+    check("accuracy", force_rms <= ACCURACY_BAR,
+          f"force rms {force_rms:.3e} above {ACCURACY_BAR:g}")
+    check("accuracy", 0.01 < mi_rms < 1.0,
+          f"min-image vs Ewald {mi_rms:.3e}: not the periodic systematic")
+    return pos, vel, mass, kw["capacity"]
+
+
+def merger_phase(snapshot, device, card):
+    """(c) the accuracy snapshot evolved by treepm_fast through the
+    engine (adaptive dt, 8 steps a chunk), FoF catalogues (K5) at three
+    chunk ends and the merger forest over them; match_halos on the card
+    against numpy's bincount of the same labels. Returns the launches."""
+    import numpy as np
+    import torch
+    from lambda_cdm_tpu_torch.analysis.halo_finder import find_halos
+    from lambda_cdm_tpu_torch.analysis.merger_trees import (MergerForest,
+                                                            match_halos)
+    from lambda_cdm_tpu_torch.core.config import SimulationConfig
+    from lambda_cdm_tpu_torch.core.engine import SimulationEngine
+    from lambda_cdm_tpu_torch.core.state import make_state
+    pos, vel, mass, capacity = snapshot
+    box, n = 100.0, pos.shape[0]
+    cfg = SimulationConfig()
+    cfg.particles.num_particles = n
+    cfg.particles.box_size = box
+    cfg.forces.type = "treepm_fast"
+    cfg.forces.softening_length = 0.05
+    cfg.forces.pm_grid_size = 192
+    cfg.forces.bucket_capacity = capacity
+    cfg.cosmology.initial_redshift = 1.0 / 0.35 - 1.0
+    cfg.cosmology.final_redshift = 0.0
+    cfg.integration.kick_mode = "comoving"
+    cfg.integration.adaptive_timestep = True
+    cfg.integration.max_dloga = 0.03
+    cfg.integration.min_timestep = 1e-9
+    cfg.integration.max_timestep = 1e-3
+    cfg.time.initial_timestep = 1e-4
+    cfg.time.final_time = 1e9
+    cfg.simulation.output_frequency = 8
+    cfg.simulation.checkpoint_frequency = 0
+    cfg.profiling.output_file = ""
+    reset_counts()
+    t0 = time.perf_counter()
+    eng = SimulationEngine(cfg, device=device)
+    eng.initialize(state=make_state(pos, vel, mass, scale_factor=0.35,
+                                    device=device))
+    cats, a_snap = [], []
+    for _ in range(3):
+        eng.run(num_steps=8)
+        st = eng.state
+        cats.append(find_halos(st.positions, st.velocities, st.masses, box))
+        a_snap.append(float(st.scale_factor))
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = read_counts()
+    h = max(int(c.n_particles.shape[0]) for c in cats)
+    forest = MergerForest.build(cats, a_snap, max_halos=h)
+    la = cats[1].particle_label.cpu().numpy().astype(np.int64)
+    lb = cats[2].particle_label.cpu().numpy().astype(np.int64)
+    shared = match_halos(cats[1].particle_label, cats[2].particle_label,
+                         max_halos=h)
+    keep = (la >= 0) & (lb >= 0)
+    ref = np.bincount(la[keep] * h + lb[keep], minlength=h * h)
+    same = np.array_equal(shared.cpu().numpy().reshape(-1), ref)
+    halos = [int(c.num_halos) for c in cats]
+    links = [int(np.sum(lk.descendant >= 0)) for lk in forest.links]
+    branches = [len(forest.main_branch(i)) for i in range(min(5, halos[-1]))]
+    mergers = int(sum(np.sum(lk.n_progenitors > 1) for lk in forest.links))
+    print(f"merger trees: {eng.statistics.total_steps} steps a = 0.35 -> "
+          f"{a_snap[-1]:.4f}, FoF at a = "
+          f"{', '.join(f'{a:.4f}' for a in a_snap)}: halos {halos}, links "
+          f"{links}, halos with mergers {mergers}, main branches of the 5 "
+          f"largest {branches}; match_halos == numpy bincount: {same}; "
+          f"{t_run:.2f} s on {card}; launches {json.dumps(launches)}")
+    check("merger", same, "match_halos differs from numpy's bincount")
+    check("merger", min(halos) > 0 and sum(links) > 0,
+          f"no halos or links: {halos}, {links}")
+    check("merger", launches["fof_hook"] > 0 and launches["short_range"] > 0,
+          "a kernel of the path was not launched")
+    return launches
+
+
+def trace_phase(device, card):
+    """(d) profiling.trace_dir on the engine's run loop: treepm_1m.json (8
+    steps untraced, then 8 traced) and direct_10k.json (10 untraced, then
+    50 traced), each trace read back by trace_summary: the device's busy
+    share of the traced window and its top 5 kernels. The untraced run's
+    ms/step beside the traced one's is the trace's own cost."""
+    import torch
+    from lambda_cdm_tpu_torch.core.config import SimulationConfig
+    from lambda_cdm_tpu_torch.core.engine import SimulationEngine
+    from lambda_cdm_tpu_torch.utils.profiling import trace_summary
+    shutil.rmtree(TRACE_OUT, ignore_errors=True)
+    out = {}
+    for name, path, warm, steps in (("treepm_1m", CONFIG, 8, 8),
+                                    ("direct_10k", DIRECT_CONFIG, 10, 50)):
+        cfg = SimulationConfig.from_file(path)
+        cfg.profiling.output_file = ""
+        eng = SimulationEngine(cfg, device=device)
+        eng.initialize()
+        eng.run(num_steps=warm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(num_steps=steps)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0) / steps
+        cfg.profiling.enabled = True
+        cfg.profiling.trace_dir = os.path.join(TRACE_OUT, name)
+        t0 = time.perf_counter()
+        eng.run(num_steps=steps)
+        torch.cuda.synchronize()
+        traced_ms = 1e3 * (time.perf_counter() - t0) / steps
+        s = trace_summary(cfg.profiling.trace_dir, top=5)
+        out[name] = s
+        print(f"trace {name}: {steps} steps, {plain_ms:.4f} ms/step "
+              f"untraced, {traced_ms:.4f} traced; window "
+              f"{s['window_ms']:.3f} ms, device busy {s['device_busy_ms']:.3f}"
+              f" ms = {s['device_busy_share']:.4f} of it "
+              f"({s['device_events']} device events) on {card}")
+        for k in s["top_kernels"]:
+            print(f"  trace {name} kernel {k['ms']:.4f} ms x{k['count']}: "
+                  f"{k['name'][:120]}")
+        check("trace", s["device_events"] > 0 and s["top_kernels"],
+              f"{name}: the trace holds no device activity")
+    return out
+
+
+def warmup_aot_phase(device, card):
+    """(e) SimulationEngine.warmup on a fresh treepm_1m.json engine (its
+    programs and seconds, then the first chunk's time), a fresh process
+    that finds the kernel library built (no nvcc); CompiledForceEngine at
+    profiles (16,384, 131,072): its CUDA graphs against K4 through
+    ops/direct on the same padded inputs (bit for bit), a save/load round
+    trip (bit for bit); each replay writes into an output filled with NaN
+    first, so an equal result is the replay's."""
+    import numpy as np
+    import torch
+    from lambda_cdm_tpu_torch.core.config import SimulationConfig
+    from lambda_cdm_tpu_torch.core.engine import SimulationEngine
+    from lambda_cdm_tpu_torch.ops import direct
+    from lambda_cdm_tpu_torch.utils.aot import CompiledForceEngine
+    cfg = SimulationConfig.from_file(CONFIG)
+    cfg.profiling.output_file = ""
+    eng = SimulationEngine(cfg, device=device)
+    eng.initialize()
+    before = eng._fstate.bpos.clone()
+    w = eng.warmup()
+    same = torch.equal(eng._fstate.bpos, before) \
+        and int(eng.state.step) == 0 and eng.statistics.total_steps == 0
+    chunk = cfg.simulation.output_frequency
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(num_steps=chunk)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    print(f"warmup (treepm_1m.json): {w['programs']} programs in "
+          f"{w['seconds']:.3f} s, state untouched: {same}; first chunk "
+          f"({chunk} steps) after it {first:.3f} s on {card}")
+    check("warmup", w["programs"] >= 2 and same,
+          f"{w} (state untouched: {same})")
+    probe = subprocess.run(
+        [sys.executable, "-c",
+         "import os, sys; sys.path.insert(0, sys.argv[1]); "
+         "from lambda_cdm_tpu_torch.ops import cuda_build as c; "
+         "built = os.path.exists(c.library_path()); c.library(); "
+         "print(built, repr(c.build_log))", ROOT],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    fresh = probe.stdout.strip()
+    print(f"warmup: a fresh process finds the library built, compiling "
+          f"nothing: {fresh}")
+    check("warmup", probe.returncode == 0 and fresh == "True ''",
+          f"fresh process: {fresh} {probe.stderr[-500:]}")
+    box, soft = 100.0, 0.05
+    aot = CompiledForceEngine(box, softening=soft, profiles=AOT_PROFILES,
+                              solver="cuda", device=device)
+    aot.build()
+    rng = np.random.default_rng(12)
+    results = {}
+    for n in AOT_SIZES:
+        pos = torch.from_numpy(rng.uniform(0, box, (n, 3)).astype(
+            np.float32)).to(device)
+        mass = torch.ones(n, device=device)
+        prof = next(p for p in aot.profiles if n <= p)
+        # NaN in the graph's output buffer: an equal result is the replay's
+        aot._programs[prof].out.fill_(math.nan)
+        got = aot.compute_forces(pos, mass)
+        ppos = torch.zeros((prof, 3), device=device)
+        pmass = torch.zeros(prof, device=device)
+        ppos[:n], pmass[:n] = pos, mass
+        ref = direct.pairwise_accelerations(ppos, pmass, box, soft)[:n]
+        ms = cuda_ms(lambda: aot.compute_forces(pos, mass), 10)
+        eager = cuda_ms(lambda: direct.pairwise_accelerations(
+            ppos, pmass, box, soft), 10)
+        results[n] = (pos, mass, got)
+        print(f"CompiledForceEngine n={n:,} (profile {prof:,}): replay "
+              f"into a NaN-filled output == K4 on the padded input: "
+              f"{torch.equal(got, ref)}; a call (copy in, replay, range "
+              f"check, copy out) {ms:.4f} ms, eager K4 on the padded input "
+              f"{eager:.4f} ms on {card}")
+        check("aot", torch.equal(got, ref), f"n={n}: graph differs from K4")
+    path = aot.save(os.path.join(TRACE_OUT, "compiled_force_engine.json"))
+    again = CompiledForceEngine.load(path, device=device)
+    for program in again._programs.values():
+        program.out.fill_(math.nan)
+    same = all(torch.equal(again.compute_forces(p, m), g)
+               for p, m, g in results.values())
+    print(f"CompiledForceEngine save/load: the loaded graphs' replays into "
+          f"NaN-filled outputs bit for bit the first engine's: {same}")
+    check("aot", same, "save/load round trip differs")
+    return w
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3137,6 +3641,12 @@ def main() -> int:
     alias_rec, alias_launches = timed("K10 phase", alias_probe_phase, device,
                                       card)
     rec.update(alias_rec)
+    timed("prng phase", prng_phase, device, card)
+    snapshot = timed("accuracy phase", accuracy_phase, device, card)
+    timed("merger phase", merger_phase, snapshot, device, card)
+    del snapshot
+    timed("trace phase", trace_phase, device, card)
+    timed("warmup/aot phase", warmup_aot_phase, device, card)
     science_launches, rec["pair_potential"] = timed(
         "science phase", science_phase, device, card)
 

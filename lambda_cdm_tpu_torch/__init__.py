@@ -13,9 +13,13 @@ force-computer registry, with the engine's fused KDK loop, the
 force-accuracy harness, EnergyMonitor and glass initial conditions --
 and the lensing raytracer: lens planes, Born maps, multi-plane ray tracing
 with Jacobians through its sampler kernel (K6/K7), the angular spectra
-and LensingObserver. The kernels' plain PyTorch versions run for CPU
-tensors. This package never
-imports JAX; the tests hold it against lambda_cdm_tpu.
+and LensingObserver -- and the JAX package's random streams
+(utils/prng: jax.random's Threefry keys, uniforms and normals, so a
+config gives the JAX package's particles), the float64 Ewald oracle,
+merger trees, the torch.profiler trace, the engine's warmup and
+CompiledForceEngine. The kernels' plain PyTorch versions run for CPU
+tensors. This package never imports JAX; the tests hold it against
+lambda_cdm_tpu.
 """
 
 __version__ = "0.1.0"
@@ -34,7 +38,7 @@ from .core.engine import (LifecycleState, SimulationBuilder,
                           SimulationEngine, SimulationStatistics)
 from .core.observers import (EnergyMonitor, MetricsRecorder, Observer,
                              ProgressObserver)
-from .core.state import SimState, make_state
+from .core.state import SimState, make_state, random_state
 from .physics.cosmology import PLANCK, CosmologyParams
 
 __all__ = [
@@ -45,7 +49,7 @@ __all__ = [
     "SnapshotObserver", "PowerSpectrumObserver", "HaloFinderObserver",
     "ConservationObserver", "ParticleStatisticsObserver", "LensingObserver",
     "build_observers_from_config",
-    "SimState", "make_state",
+    "SimState", "make_state", "random_state",
     "CosmologyParams", "PLANCK",
     "HaloCatalog", "find_halos", "PowerSpectrumData",
     "measure_power_spectrum",

@@ -23,9 +23,11 @@ snapshots and checkpoints (periodic ones at
 simulation.checkpoint_frequency, timed into statistics.io_time_s) and
 resume follow the JAX engine.
 
-Not ported yet (each raises NotImplementedError, see ROADMAP.md): the
-device mesh, warmup (AOT compilation), orbax checkpoints and the
-profiler trace.
+`warmup` builds the kernels and runs the run loop's programs once before
+the first step; `profiling.trace_dir` traces run() with torch.profiler
+(utils/profiling.trace_dir). Not ported yet (each raises
+NotImplementedError, see ROADMAP.md): the device mesh and orbax
+checkpoints.
 """
 
 from __future__ import annotations
@@ -156,8 +158,6 @@ class SimulationEngine:
             cfg.validate()
             if cfg.compute.mesh.enabled:
                 raise _not_ported("compute.mesh (multi-device runs)")
-            if cfg.profiling.enabled and cfg.profiling.trace_dir:
-                raise _not_ported("profiling.trace_dir")
             use_fast = cfg.forces.type in ("treepm_fast", "pm_fast")
             if state is None:
                 from ..physics.initial_conditions import generate_state
@@ -225,16 +225,14 @@ class SimulationEngine:
         synchronize(self._fstate.acc)
         self.statistics.compile_time_s += time.perf_counter() - t0
 
-    def _fast_chunk(self, n: int) -> None:
-        from ..ops.fast_treepm import (BucketOverflowError, fast_run,
-                                       next_rebucket_offset)
+    def _fast_cadence(self, n: int) -> int:
+        """The rebucket cadence of a fast chunk of `n` steps: the
+        configured (or halved) cadence, bounded by the drift guard and
+        snapped to a divisor of `n`."""
         from ..physics.integrators import drift_factor
-        cfg = self.config
-        params = cfg.cosmology_params()
         kw = self._fast_kw
-        dropped_before = int(self._fstate.dropped)
         rebucket_every = getattr(self, "_fast_rebucket_every", None) \
-            or cfg.forces.rebucket_every
+            or self.config.forces.rebucket_every
         # proactive drift guard: bound the steps between rebuckets by the
         # distance the fastest particle can drift into the deposit margin
         # (one vmax readback per chunk)
@@ -253,7 +251,15 @@ class SimulationEngine:
         d = max(1, min(rebucket_every, n))
         while n % d:
             d -= 1
-        rebucket_every = d
+        return d
+
+    def _fast_chunk(self, n: int) -> None:
+        from ..ops.fast_treepm import (BucketOverflowError, fast_run,
+                                       next_rebucket_offset)
+        params = self.config.cosmology_params()
+        kw = self._fast_kw
+        dropped_before = int(self._fstate.dropped)
+        rebucket_every = self._fast_cadence(n)
         since = getattr(self, "_fast_since_rebucket", 0)
         # grow-and-retry: re-plan with a doubled capacity from the intact
         # pre-rebucket state instead of zero-massing the overflow
@@ -380,9 +386,10 @@ class SimulationEngine:
         if self._acc is None and self._fstate is None:
             self._acc = self._accel_fn(self._state)
 
-    def _stateless_chunk(self, n: int) -> None:
-        """`n` fused KDK steps, one force evaluation each (the JAX
-        engine's jit(scan) chunk as a Python loop)."""
+    def _kdk_steps(self, st: SimState, acc, n: int):
+        """`n` fused KDK steps from (st, acc), one force evaluation each
+        (the JAX engine's jit(scan) chunk as a Python loop); returns the
+        new (state, acc)."""
         from ..physics.integrators import kdk_step_fused
         cfg = self.config
         cosmological = cfg.cosmology.model != "Newtonian"
@@ -394,13 +401,15 @@ class SimulationEngine:
             sf_method=cfg.integration.scale_factor_update,
             periodic=cfg.particles.periodic_boundaries,
             cosmological=cosmological)
-        self._ensure_acc()
-        st, acc = self._state, self._acc
         for _ in range(n):
             st, acc = kdk_step_fused(st, acc, self._accel_fn, params,
                                      self._dt, cfg.particles.box_size,
                                      **step_kw)
-        self._state, self._acc = st, acc
+        return st, acc
+
+    def _stateless_chunk(self, n: int) -> None:
+        self._ensure_acc()
+        self._state, self._acc = self._kdk_steps(self._state, self._acc, n)
 
     def _chunk(self, n: int) -> None:
         if self._fstate is not None:
@@ -409,7 +418,47 @@ class SimulationEngine:
             self._stateless_chunk(n)
 
     def warmup(self, chunk_len: int | None = None) -> dict:
-        raise _not_ported("warmup (ahead-of-time compilation, M15)")
+        """Build and run, once, the programs run() will request before its
+        first step (the JAX engine's AOT warmup, in eager PyTorch): on a
+        card, the CUDA kernels build (ops/cuda_build; the git-ignored
+        _build/ keeps the library, so a fresh process with unchanged
+        sources builds nothing, as the JAX persistent cache compiles
+        nothing); then, on the fast path, one segment at the rebucket
+        cadence run() takes for a chunk (`_fast_cadence`: every segment of
+        a chunk has that length) and the rebucket pass, or the stateless
+        solver's chunk of fused KDK steps. They run on the current state
+        and their results are dropped: the engine's state, step count and
+        statistics are left as they were. `chunk_len` defaults to the run
+        loop's chunk (simulation.output_frequency). Returns
+        {"programs": n, "seconds": s}."""
+        if self._dt is None:
+            raise RuntimeError("warmup() requires initialize() first")
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            from ..ops import cuda_build
+            cuda_build.library()
+        chunk = int(chunk_len or
+                    max(1, self.config.simulation.output_frequency))
+        if self._fstate is not None:
+            from ..ops.fast_treepm import _fast_segment, _rebucket
+            kw = self._fast_kw
+            seg_kw = {k: v for k, v in kw.items() if k != "n_rows"}
+            synchronize(_fast_segment(
+                self._fstate, self.config.cosmology_params(),
+                float(self._dt), n_steps=self._fast_cadence(chunk),
+                **seg_kw).bpos)
+            synchronize(_rebucket(self._fstate, box_size=kw["box_size"],
+                                  ncell=kw["ncell"],
+                                  capacity=kw["capacity"],
+                                  n_rows=kw.get("n_rows", 0)).bpos)
+            n_prog = 2
+        else:
+            acc = self._acc if self._acc is not None \
+                else self._accel_fn(self._state)
+            synchronize(self._kdk_steps(self._state, acc, chunk)[0]
+                        .positions)
+            n_prog = 1
+        return {"programs": n_prog, "seconds": time.perf_counter() - t0}
 
     def step(self, num_steps: int = 1) -> SimState:
         """Advance `num_steps` steps in one chunk."""
@@ -457,6 +506,11 @@ class SimulationEngine:
         self.observers.notify("on_simulation_start", self)
         t_start = time.perf_counter()
         steps_done = 0
+        trace_ctx = None
+        if cfg.profiling.enabled and cfg.profiling.trace_dir:
+            from ..utils.profiling import trace_dir
+            trace_ctx = trace_dir(cfg.profiling.trace_dir)
+            trace_ctx.__enter__()
         try:
             self._ensure_acc()
             if cfg.profiling.detailed_timing:
@@ -535,6 +589,8 @@ class SimulationEngine:
             self.observers.notify("on_error", self, exc)
             raise
         finally:
+            if trace_ctx is not None:
+                trace_ctx.__exit__(None, None, None)
             wall = time.perf_counter() - t_start
             st = self.statistics
             st.total_time_s += wall

@@ -16,8 +16,9 @@ import torch
 
 @dataclasses.dataclass
 class SimState:
-    """Full simulation state (the JAX SimState minus its PRNG key: the
-    port draws from explicit torch.Generators)."""
+    """Full simulation state (the JAX SimState minus its PRNG key, which
+    nothing in the run loop reads: the port's draws take explicit keys
+    from utils/prng)."""
 
     positions: torch.Tensor      # [N, 3] comoving, in [0, box)
     velocities: torch.Tensor     # [N, 3]
@@ -64,3 +65,20 @@ def make_state(positions, velocities, masses, scale_factor=1.0, time=0.0,
         time=host_scalar(time, dtype),
         step=host_scalar(step, torch.int32),
     )
+
+
+def random_state(key, num_particles: int, box_size: float,
+                 velocity_scale: float = 1.0, mass: float = 1.0,
+                 scale_factor: float = 1.0, device="cuda") -> SimState:
+    """Uniform random positions and Gaussian velocities on `device`, the
+    JAX package's random_state drawn from the same key (utils/prng: the
+    key split in three, positions from the first, velocities from the
+    second)."""
+    from ..utils import prng
+    kp, kv, _ = prng.split(key, 3)
+    pos = prng.uniform(kp, (num_particles, 3), 0.0, box_size, device=device)
+    vel = velocity_scale * prng.normal(kv, (num_particles, 3), device=device)
+    masses = torch.full((num_particles,), mass, dtype=torch.float32,
+                        device=device)
+    return make_state(pos, vel, masses, scale_factor=scale_factor,
+                      device=device)

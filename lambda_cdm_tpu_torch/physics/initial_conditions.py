@@ -2,9 +2,11 @@
 lambda_cdm_tpu/physics/initial_conditions.py): Gaussian random fields,
 Zel'dovich and 2LPT displacements, lattice, uniform and glass loads.
 
-The white noise comes from an explicit torch.Generator, or is passed in
-as a tensor or array (the parity tests hand in the JAX package's own
-noise field). Conventions as in the JAX package: box in Mpc/h, k in
+The white noise is drawn from a PRNG key with utils/prng, the JAX
+package's jax.random stream: `generate_state` derives its keys as the
+JAX package does, so a config gives the particles the JAX package gives
+it. The noise may also come from a torch.Generator, or be passed in as a
+tensor or array. Conventions as in the JAX package: box in Mpc/h, k in
 h/Mpc, delta_k in rfftn layout, P(k) drawn at z=0 and scaled back with
 the linear growth factor.
 """
@@ -20,6 +22,7 @@ from .cosmology import CosmologyParams, as_f32, growth_factor, growth_rate, \
 from .integrators import hubble_internal
 from .power_spectra import TRANSFERS, linear_power
 from ..core.state import SimState, make_state
+from ..utils import prng
 
 # critical density in (1e10 Msun/h) / (Mpc/h)^3 for H0=100 internal, G=43.007
 RHO_CRIT = 27.753662724570805
@@ -40,8 +43,13 @@ def fourier_grid(ng: int, box_size: float, device=None):
 
 
 def white_noise(noise, ng: int, device=None) -> torch.Tensor:
-    """[ng, ng, ng] float32 unit white noise: drawn from `noise` when it is
-    a torch.Generator, else `noise` itself (a tensor or numpy array)."""
+    """[ng, ng, ng] float32 unit white noise on `device`: prng.normal of
+    `noise` when it is a PRNG key (jax.random.normal's numbers; drawn on
+    the card when no device is named), drawn from `noise` when it is a
+    torch.Generator, else `noise` itself (a tensor or numpy array)."""
+    if prng.is_key(noise):
+        return prng.normal(noise, (ng, ng, ng),
+                           device="cuda" if device is None else device)
     if isinstance(noise, torch.Generator):
         return torch.randn((ng, ng, ng), generator=noise,
                            device=noise.device, dtype=torch.float32
@@ -159,8 +167,8 @@ def lpt_displacements(noise, params: CosmologyParams, *, ng: int,
                       kick_mode: str = "reference",
                       fixed_amplitude: bool = False, device=None):
     """(positions, velocities) for an n_side^3 lattice load from an ng^3
-    Gaussian realization; `noise` is a torch.Generator or a white-noise
-    field (see `white_noise`)."""
+    Gaussian realization; `noise` is a PRNG key, a torch.Generator or a
+    white-noise field (see `white_noise`)."""
     delta_k = gaussian_delta_k(noise, ng, box_size, params, transfer,
                                fixed_amplitude, device=device)
     dev = delta_k.device
@@ -216,27 +224,34 @@ def glass_relax(positions, box_size: float, iterations: int = 20,
     return pos
 
 
-def glass_positions(generator, n: int, box_size: float,
-                    iterations: int = 20, softening: float | None = None):
-    """Glass-like load: n uniform random points (from `generator`)
-    relaxed by glass_relax."""
-    pos = torch.rand((n, 3), generator=generator, device=generator.device,
-                     dtype=torch.float32) * box_size
+def glass_positions(key, n: int, box_size: float,
+                    iterations: int = 20, softening: float | None = None,
+                    device=None):
+    """Glass-like load: n uniform random points relaxed by glass_relax.
+    The points are prng.uniform(key, (n, 3), 0, box_size) on `device`
+    (the card when none is named) when `key` is a PRNG key (the JAX
+    package's draw), else drawn from `key` as a torch.Generator."""
+    if prng.is_key(key):
+        pos = prng.uniform(key, (n, 3), 0.0, box_size,
+                           device="cuda" if device is None else device)
+    else:
+        pos = torch.rand((n, 3), generator=key, device=key.device,
+                         dtype=torch.float32) * box_size
     return glass_relax(pos, box_size, iterations, softening)
 
 
 def generate_state(config, device="cuda") -> SimState:
     """Config-driven IC dispatch; returns a SimState at
-    a_init = 1/(1+initial_redshift). Noise comes from a torch.Generator
-    seeded with particles.initial_conditions.random_seed (a different
-    stream from the JAX package's jax.random draws)."""
+    a_init = 1/(1+initial_redshift). The keys are the JAX package's:
+    prng.PRNGKey(particles.initial_conditions.random_seed), split once,
+    the second half feeding the LPT noise, the uniform load or the glass,
+    so the state is the JAX package's realisation."""
     ic = config.particles.initial_conditions
     n = config.particles.num_particles
     box = config.particles.box_size
     a_init = 1.0 / (1.0 + config.cosmology.initial_redshift)
     params = config.cosmology_params()
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(ic.random_seed))
+    sub = prng.split(prng.PRNGKey(ic.random_seed))[1]
 
     if config.units.system == "box":
         mass = 1.0
@@ -258,16 +273,14 @@ def generate_state(config, device="cuda") -> SimState:
         use_2lpt = ic.use_2lpt or kind == "2lpt"
         transfer = ic.power_spectrum or config.cosmology.transfer_function
         pos, vel = lpt_displacements(
-            gen, params, ng=ng, n_side=n_side, box_size=box, a_init=a_init,
+            sub, params, ng=ng, n_side=n_side, box_size=box, a_init=a_init,
             use_2lpt=use_2lpt, transfer=transfer,
             h0_internal=config.units.H0_internal,
             kick_mode=config.integration.kick_mode, device=device)
         if not ic.velocity_perturbations:
             vel = torch.zeros_like(vel)
     elif kind in ("uniform_random", "random"):
-        pos = torch.remainder(torch.rand((n, 3), generator=gen,
-                                         device=device,
-                                         dtype=torch.float32) * box, box)
+        pos = prng.uniform(sub, (n, 3), 0.0, box, device=device)
         vel = torch.zeros((n, 3), dtype=torch.float32, device=device)
     elif kind == "grid":
         n_side = round(n ** (1.0 / 3.0))
@@ -276,7 +289,7 @@ def generate_state(config, device="cuda") -> SimState:
         pos = lattice_positions(n_side, box, device=device)
         vel = torch.zeros((n, 3), dtype=torch.float32, device=device)
     elif kind == "glass":
-        pos = glass_positions(gen, n, box)
+        pos = glass_positions(sub, n, box, device=device)
         vel = torch.zeros((n, 3), dtype=torch.float32, device=device)
     else:
         raise ValueError(f"unknown IC generator {ic.type!r}")

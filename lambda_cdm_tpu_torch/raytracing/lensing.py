@@ -24,6 +24,7 @@ import torch
 from ..ops import lens_sample
 from ..physics.cosmology import (C_KM_S, CosmologyParams, as_f32,
                                  comoving_distance, scale_factor_at_chi)
+from ..utils import prng
 
 
 def _on_card(t) -> bool:
@@ -417,10 +418,21 @@ def raytraced_maps_from_state(state, params: CosmologyParams, box_size,
 # Multi-snapshot light cone: observer -> source, tiled boxes
 # ---------------------------------------------------------------------------
 
+def _tile_shift(key, tile: int, box_size, device) -> torch.Tensor:
+    """A box tile's random translation [3]: the JAX package's
+    uniform(fold_in(key, tile), (3,), 0, box_size) for a PRNG key, the
+    next 3 uniforms of a torch.Generator otherwise."""
+    if prng.is_key(key):
+        return prng.uniform(prng.fold_in(key, tile), (3,), 0.0, box_size,
+                            device=device)
+    return torch.rand(3, generator=key, device=key.device).to(device) \
+        * box_size
+
+
 def build_lightcone(snapshots, params: CosmologyParams, box_size, *,
                     ng: int, z_source: float = 1.0,
                     planes_per_box: int = 8, axis: int = 2,
-                    randomize_key: torch.Generator | None = None):
+                    randomize_key=None):
     """Stack several output snapshots into an observer -> source light
     cone.
 
@@ -429,10 +441,10 @@ def build_lightcone(snapshots, params: CosmologyParams, box_size, *,
     tiled with copies of the box; each lens plane (thickness
     box/planes_per_box) takes its density from the snapshot whose epoch
     is closest to the plane's background a(chi_l), and its lensing kernel
-    uses a(chi_l) itself. `randomize_key`, a torch.Generator, shifts each
-    box tile by a random translation drawn from it (one draw of 3
-    uniforms per tile, in tile order; the JAX package's jax.random bits
-    are not reproduced).
+    uses a(chi_l) itself. `randomize_key` shifts each box tile by a
+    random translation: with a PRNG key (utils/prng), the JAX package's
+    uniform(fold_in(key, tile), (3,), 0, box_size); with a
+    torch.Generator, one draw of 3 uniforms per tile, in tile order.
 
     Returns (delta_planes [L, ng, ng], chi_planes [L] Mpc/h,
     a_planes [L], d_chi).
@@ -463,9 +475,8 @@ def build_lightcone(snapshots, params: CosmologyParams, box_size, *,
         pos, mass, _ = snaps[snap_i]
         if randomize_key is not None:
             if tile not in shifts:
-                shifts[tile] = torch.rand(
-                    3, generator=randomize_key,
-                    device=randomize_key.device).to(dev) * box_size
+                shifts[tile] = _tile_shift(randomize_key, tile, box_size,
+                                           dev)
             pos = torch.remainder(pos + shifts[tile], box_size)
         z_min = local - 0.5 * d_chi
         z_max = local + 0.5 * d_chi

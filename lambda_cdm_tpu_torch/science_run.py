@@ -13,9 +13,9 @@ breakdown) to a record before any analysis runs; `--analyze-only`
 re-runs the checks from a record. The record is the JAX package's npz
 layout, so a record written by either package loads in the other.
 
-The ICs come from the port's lpt_displacements on numpy white noise
-drawn from seed 2026: the JAX package draws its noise with jax.random,
-so the two runs share statistics, not particles.
+The ICs come from the port's lpt_displacements on the key
+PRNGKey(2026) of utils/prng, the JAX run's jax.random key: the two
+packages start from the same particles.
 
     python -m lambda_cdm_tpu_torch.science_run            (1M, the card)
     python -m lambda_cdm_tpu_torch.science_run --small --device cpu
@@ -147,17 +147,16 @@ def _config(g: dict, n: int, z_final: float, small: bool, on_card: bool):
 
 
 def initial_conditions(g: dict, device) -> tuple:
-    """The run's 2LPT ICs at z = Z_INIT from numpy white noise (seed SEED)
-    on `device`: (positions [N, 3], velocities [N, 3], the particle mass
-    in 1e10 Msun/h)."""
+    """The run's 2LPT ICs at z = Z_INIT from the key PRNGKey(SEED) (the
+    JAX run's noise, drawn on `device`): (positions [N, 3], velocities
+    [N, 3], the particle mass in 1e10 Msun/h)."""
     from .physics.cosmology import CosmologyParams
     from .physics.initial_conditions import lpt_displacements
+    from .utils.prng import PRNGKey
     params = CosmologyParams()
     ng_ic, box = g["ng_ic"], g["box"]
-    noise = np.random.default_rng(SEED).standard_normal(
-        (ng_ic, ng_ic, ng_ic)).astype(np.float32)
     pos, vel = lpt_displacements(
-        torch.from_numpy(noise), params, ng=ng_ic, n_side=g["n_side"],
+        PRNGKey(SEED), params, ng=ng_ic, n_side=g["n_side"],
         box_size=box, a_init=1.0 / (1.0 + Z_INIT), kick_mode="comoving",
         device=device)
     n = pos.shape[0]

@@ -1,5 +1,6 @@
-"""Named-phase timers + JSON report (counterpart of
-lambda_cdm_tpu/utils/profiling.py; its jax.profiler trace is not ported).
+"""Named-phase timers + JSON report, and the profiler trace (counterpart
+of lambda_cdm_tpu/utils/profiling.py: `trace_dir` takes jax_trace's
+place, with `trace_summary` to read what it wrote).
 
 `stop(name, sync_on=t)` synchronizes t's CUDA device first, so a timer
 measures finished device work rather than the enqueue.
@@ -8,9 +9,14 @@ measures finished device work rather than the enqueue.
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
+import os
 import time
 from dataclasses import dataclass
+
+# the trace's device activity (Kineto's categories)
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 @dataclass
@@ -94,3 +100,68 @@ class Profiler:
             report.update(extra)
         with open(path, "w") as f:
             json.dump(report, f, indent=2)
+
+
+@contextlib.contextmanager
+def trace_dir(log_dir: str):
+    """Trace a region with torch.profiler (the counterpart of the JAX
+    package's jax_trace): CPU activity, and CUDA activity when a card is
+    present, written at the region's end into `log_dir` as a Chrome /
+    TensorBoard trace (`<host>_<pid>.<ns>.pt.trace.json`, what
+    torch.profiler.tensorboard_trace_handler writes)."""
+    import torch
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
+
+
+def trace_summary(path: str, top: int = 5) -> dict:
+    """Read a trace that trace_dir wrote (`path`: the file, or its
+    directory, whose newest trace is read): the traced window (first
+    event's start to last event's end), the device's busy time in it (the
+    union of its kernels, copies and sets) and that share of the window,
+    and the `top` device kernels by total time."""
+    if os.path.isdir(path):
+        files = glob.glob(os.path.join(path, "*.pt.trace.json"))
+        if not files:
+            raise FileNotFoundError(f"no *.pt.trace.json in {path}")
+        path = max(files, key=os.path.getmtime)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    if not events:
+        raise ValueError(f"{path}: no complete events")
+    start = min(float(e["ts"]) for e in events)
+    end = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                    for e in events if e.get("cat") in DEVICE_CATEGORIES)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in device:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    kernels: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            k = kernels.setdefault(e["name"], [0.0, 0])
+            k[0] += float(e["dur"])
+            k[1] += 1
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]
+    window_us = end - start
+    return {"trace": path, "window_ms": window_us / 1e3,
+            "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / window_us if window_us > 0 else 0.0,
+            "device_events": len(device),
+            "top_kernels": [{"name": n, "ms": t / 1e3, "count": c}
+                            for n, (t, c) in ranked]}

@@ -998,3 +998,130 @@ def test_rd_plan_kernel(cuda_device, scenario):
     c = counts.cpu().long()
     live_rows = torch.clamp(c[items // gpr] - rows * (items % gpr), 0, rows)
     assert bool(torch.all(live_rows[1:] <= live_rows[:-1]))
+
+
+# -- the JAX package's random streams, oracles and engine tools -----------
+
+def test_prng_card_equals_cpu(cuda_device):
+    """utils/prng on the card: uniforms and normals bit for bit the CPU's
+    draws (the normals' log1p and fused multiply-adds are correctly
+    rounded float64 operations on both)."""
+    from lambda_cdm_tpu_torch.utils import prng
+    key = prng.PRNGKey(2026)
+    for draw, shape in ((prng.uniform, (100_003, 3)),
+                        (prng.normal, (64, 64, 64))):
+        got = draw(key, shape, device=cuda_device)
+        ref = draw(key, shape, device="cpu")
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu().view(torch.int32),
+                           ref.view(torch.int32))
+
+
+def test_ewald_card_equals_cpu(cuda_device):
+    """The float64 Ewald and min-image oracles on the card against the
+    same sums on the CPU (1e-10 relative: other summation orders)."""
+    from lambda_cdm_tpu_torch.forces import ewald
+    rng = np.random.default_rng(4)
+    pos = torch.from_numpy(rng.uniform(0, 10.0, (3000, 3)))
+    mass = torch.from_numpy(rng.uniform(0.5, 2.0, 3000))
+    tgt = torch.arange(0, 3000, 97)
+    for fn in (ewald.ewald_accelerations, ewald.min_image_accelerations):
+        got = fn(pos.to(cuda_device), mass.to(cuda_device),
+                 tgt.to(cuda_device), 10.0, softening=0.05)
+        ref = fn(pos, mass, tgt, 10.0, softening=0.05)
+        assert got.dtype == torch.float64 and got.device.type == "cuda"
+        assert _rel(got.cpu(), ref) < 1e-10
+
+
+def test_match_halos_card(cuda_device):
+    """match_halos's bincount on the card equals numpy's."""
+    from lambda_cdm_tpu_torch.analysis.merger_trees import match_halos
+    rng = np.random.default_rng(6)
+    a = rng.integers(-1, 40, 200_000)
+    b = rng.integers(-1, 40, 200_000)
+    got = match_halos(torch.from_numpy(a).to(cuda_device),
+                      torch.from_numpy(b).to(cuda_device), max_halos=64)
+    keep = (a >= 0) & (b >= 0)
+    ref = np.bincount(a[keep] * 64 + b[keep], minlength=64 * 64)
+    assert torch.equal(got.cpu(), torch.from_numpy(ref.reshape(64, 64))
+                       .float())
+
+
+def test_compiled_force_engine_card(cuda_device, tmp_path):
+    """CompiledForceEngine on the card: one CUDA graph a profile, equal bit
+    for bit to K4 on the padded input and to the same engine after a
+    save/load round trip. The graph's output buffer is filled with NaN
+    before each replay, so an equal result is the replay's; a position
+    2^21 boxes out raises through K4's range flag."""
+    from lambda_cdm_tpu_torch.utils.aot import CompiledForceEngine
+    n, box = 3000, 50.0
+    pos = tt(np.random.default_rng(8).uniform(0, box, (n, 3)))
+    m = torch.ones(n)
+    eng = CompiledForceEngine(box, softening=0.05, profiles=(4096, 8192),
+                              device=cuda_device)
+    assert eng.solver == "cuda"
+    direct.reset_launch_counts()
+    eng.build()
+    # per profile the eager warm call and the captured call
+    assert direct.launches["direct"] == 4
+    pad_pos = torch.zeros(4096, 3, device=cuda_device)
+    pad_pos[:n] = pos.to(cuda_device)
+    pad_m = torch.zeros(4096, device=cuda_device)
+    pad_m[:n] = 1.0
+    ref = direct.pairwise_accelerations(pad_pos, pad_m, box, 0.05)[:n]
+    eng._programs[4096].out.fill_(float("nan"))
+    direct.reset_launch_counts()
+    assert torch.equal(eng.compute_forces(pos, m), ref)
+    assert direct.launches["direct"] == 0     # a replay calls no wrapper
+    eng2 = CompiledForceEngine.load(eng.save(str(tmp_path / "e.json")),
+                                    device=cuda_device)
+    eng2._programs[4096].out.fill_(float("nan"))
+    assert torch.equal(eng2.compute_forces(pos, m), ref)
+    far = pos.clone()
+    far[0, 0] = 2.0 ** 22 * box
+    with pytest.raises(ValueError, match="boxes or more"):
+        eng.compute_forces(far, m)
+
+
+def test_engine_warmup_and_trace_on_card(cuda_device, tmp_path):
+    """warmup on a card engine leaves its state as it was and the run after
+    it equal to a run without it; profiling.trace_dir traces the card."""
+    from lambda_cdm_tpu_torch.core.config import SimulationConfig
+    from lambda_cdm_tpu_torch.core.engine import SimulationEngine
+    from lambda_cdm_tpu_torch.core.state import make_state
+    from lambda_cdm_tpu_torch.utils.profiling import trace_summary
+    pos = np.random.default_rng(0).uniform(0, 50.0, (4096, 3)).astype(
+        np.float32)
+
+    def engine(trace=""):
+        cfg = SimulationConfig()
+        cfg.particles.num_particles = 4096
+        cfg.particles.box_size = 50.0
+        cfg.forces.type = "treepm_fast"
+        cfg.forces.softening_length = 0.5
+        cfg.forces.rebucket_every = 2
+        cfg.time.initial_timestep = 1e-5
+        cfg.cosmology.initial_redshift = 9.0
+        cfg.simulation.output_frequency = 4
+        cfg.profiling.output_file = ""
+        cfg.profiling.enabled = bool(trace)
+        cfg.profiling.trace_dir = trace
+        eng = SimulationEngine(cfg, device=cuda_device)
+        eng.initialize(state=make_state(pos, np.zeros_like(pos),
+                                        np.ones(4096, np.float32),
+                                        scale_factor=0.1,
+                                        device=cuda_device))
+        return eng
+
+    eng = engine(str(tmp_path / "trace"))
+    before = eng._fstate.bpos.clone()
+    out = eng.warmup()
+    assert out["programs"] == 2 and int(eng.state.step) == 0
+    assert torch.equal(eng._fstate.bpos, before)
+    eng.run(num_steps=4)
+    ref = engine()
+    ref.run(num_steps=4)
+    # K1's global adds land in a varying order: equal to float32 rounding
+    assert _rel(eng.state.positions, ref.state.positions) < 1e-6
+    s = trace_summary(str(tmp_path / "trace"))
+    assert s["device_events"] > 0 and 0 < s["device_busy_share"] <= 1

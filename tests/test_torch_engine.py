@@ -176,7 +176,8 @@ def test_builder_device_and_refusals(tmp_path):
     """The builder defaults to the card; the stateless solvers initialize
     and step on the CPU (their parity with the JAX engine is
     test_stateless_run_matches); pm_fast runs as the JAX engine does
-    (_check_pm_fast_run); warmup, orbax and the mesh still raise."""
+    (_check_pm_fast_run); warmup needs initialize() first, as the JAX
+    engine's does; orbax and the mesh still raise."""
     cfg = tlc.SimulationConfig()
     cfg.forces.type = "treepm_fast"
     b = tlc.SimulationBuilder()
@@ -197,7 +198,7 @@ def test_builder_device_and_refusals(tmp_path):
         assert int(e.state.step) == 2 and e._acc.shape == (512, 3)
         assert e.validate_force_accuracy(n_sample=16)["n_sample"] == 16
     _check_pm_fast_run()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="initialize"):
         eng.warmup()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.load_checkpoint(str(tmp_path))              # orbax directories

@@ -132,9 +132,11 @@ def test_generate_state_grid_matches():
 
 @pytest.mark.parametrize("kind", ["2lpt", "zeldovich", "random"])
 def test_generate_state_kinds(kind):
-    """The port's generator draws from torch.Generator(seed): same masses,
-    scale factor and shapes as the JAX package, positions in the box,
-    reproducible by seed; the 2LPT load moves the lattice about as much."""
+    """The port's generator draws from the JAX package's keys
+    (utils/prng; particle parity in tests/test_torch_prng.py): same
+    masses, scale factor and shapes as the JAX package, positions in the
+    box, reproducible by seed; the 2LPT load moves the lattice about as
+    much."""
     jc, tc = _configs(kind)
     js = jic.generate_state(jc)
     ts = tic.generate_state(tc, device="cpu")
