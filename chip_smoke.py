@@ -190,6 +190,29 @@ tools:
      outputs filled with NaN first, against K4 on the padded inputs and
      after a save/load round trip, bit for bit.
 
+And the formats, the examples and the multi-rank path:
+
+ 26. formats phase (after the lensing phase, on the stepper path's 1M
+     state): the native runtime built with g++, the state through .lcdm
+     (synchronous, and three files through the async writer), the port's
+     torch.save "orbax" directory, and hdf5 where h5py imports (it prints
+     which); every round trip bit for bit onto the card;
+ 27. examples phase: the seven single-device scripts of
+     lambda_cdm_tpu_torch/examples and multichip_demo (4 spawned ranks) at
+     their default sizes, all started together, each exiting 0;
+ 28. mesh phase: direct_10k.json (20 steps) and pm_128_256.json (5 steps)
+     with compute.mesh.enabled as 4 spawned ranks on the one card (gloo,
+     every exchange staged through host memory; NCCL refuses two ranks on
+     one card), launch counts reset just before each run and summed over
+     the ranks just after its closing energy: the mesh's forces on its
+     homed start and final states against the single-device solver on the
+     same states (1e-5 of the largest |a|), its energies (K9's cross form
+     a ring step) against K9 there and the two runs' closing energies
+     (1e-6), migration overflow 0, the particle count and masses conserved
+     exactly, ms/step of 1 rank and of 4 labelled with the transport, the
+     sharded PM's bytes a rank sends; then K4's and K9's cross forms
+     against their plain versions at the ring's shapes, timed.
+
 The CLI phase also validates the treepm_1m state's forces through the
 stateless treepm solver.
 
@@ -628,13 +651,16 @@ def fof_oracle(pos, box: float, b: float):
     b (1 + 1e-5), r^2 recomputed in float32 as the plain hook computes it
     ((x_j + shift) - x_i, (dx^2 + dy^2) + dz^2, kept if < float32(b^2)),
     connected components, each labelled with its least particle index.
+    The tree takes the positions modulo the box in float64 (a float32
+    wrap can leave a coordinate at exactly the box edge, the same point as
+    0, which cKDTree refuses); the kept pairs' r^2 uses them as given.
     -> (labels, links, pairs whose two directions disagree)."""
     import numpy as np
     from scipy.sparse import coo_matrix
     from scipy.sparse.csgraph import connected_components
     from scipy.spatial import cKDTree
     n = len(pos)
-    pairs = cKDTree(pos.astype(np.float64), boxsize=box).query_pairs(
+    pairs = cKDTree(pos.astype(np.float64) % box, boxsize=box).query_pairs(
         b * (1 + 1e-5), output_type="ndarray")
     i, j = pairs[:, 0], pairs[:, 1]
     b2 = np.float32(b * b)
@@ -3580,6 +3606,418 @@ def warmup_aot_phase(device, card):
 
 
 
+# -- formats, examples and the multi-rank path ------------------------------
+
+FORMAT_FIELDS = ("positions", "velocities", "masses", "scale_factor", "time",
+                 "step")
+
+
+def formats_phase(state, device, card):
+    """The stepper path's 1M state through the formats: the native .lcdm
+    codec (built with g++ from lambda_cdm_tpu_torch/native; synchronous,
+    and three files through the async writer), the port's torch.save
+    "orbax" checkpoint directory, and hdf5 where h5py imports (this
+    host's answer is printed); each round trip bit for bit onto the
+    card."""
+    import torch
+    from lambda_cdm_tpu_torch import native
+    from lambda_cdm_tpu_torch.utils import checkpoint as ckpt
+    t0 = time.perf_counter()
+    check("formats", native.native_available(),
+          f"native runtime did not build: {native.build_error()}")
+    lib = os.path.relpath(native.library_path(), ROOT)
+    print(f"formats: native runtime {lib} ready in "
+          f"{time.perf_counter() - t0:.2f} s")
+    n = state.num_particles
+    tmp = tempfile.mkdtemp(prefix="lcdm_chip_smoke_formats_")
+
+    def same(back, label, step=None):
+        for f in FORMAT_FIELDS:
+            a, b = getattr(back, f), getattr(state, f)
+            if f == "step" and step is not None:
+                b = torch.tensor(step, dtype=b.dtype)
+            check(f"formats {label}", a.device.type == b.device.type
+                  and torch.equal(a, b), f"{f} differs after the round trip")
+
+    try:
+        t0 = time.perf_counter()
+        path = ckpt.save_snapshot(os.path.join(tmp, "state.lcdm"), state)
+        t_w = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, _ = ckpt.load_snapshot(path, device=device)
+        t_r = time.perf_counter() - t0
+        same(back, "lcdm")
+        print(f"formats: lcdm N={n} ({os.path.getsize(path) / 1e6:.1f} MB) "
+              f"write {t_w:.3f} s, read {t_r:.3f} s, bit for bit")
+        writer = native.AsyncSnapshotWriter()
+        t0 = time.perf_counter()
+        paths = [os.path.join(tmp, f"async_{i}.lcdm") for i in range(3)]
+        for i, p in enumerate(paths):
+            writer.submit(p, state.positions, state.velocities, state.masses,
+                          float(state.scale_factor), float(state.time),
+                          int(state.step) + i)
+        t_sub = time.perf_counter() - t0
+        writer.wait()
+        t_all = time.perf_counter() - t0
+        check("formats async", writer.errors == 0 and writer.pending == 0,
+              f"{writer.errors} write errors")
+        writer.close()
+        for i, p in enumerate(paths):
+            back, _ = ckpt.load_snapshot(p, device=device)
+            same(back, f"async {i}", int(state.step) + i)
+        print(f"formats: async writer, 3 files: submitted in {t_sub:.3f} s, "
+              f"written in {t_all:.3f} s, each bit for bit")
+        t0 = time.perf_counter()
+        d = ckpt.save_checkpoint_orbax(os.path.join(tmp, "orbax"), state)
+        back = ckpt.load_checkpoint_orbax(os.path.join(tmp, "orbax"),
+                                          device=device)
+        same(back, "orbax")
+        t_o = time.perf_counter() - t0
+        print(f"formats: torch.save checkpoint directory "
+              f"{os.path.basename(d)} round trip {t_o:.3f} s, bit for bit "
+              f"(port-only: not an Orbax checkpoint)")
+        try:
+            import h5py  # noqa: F401
+        except ImportError as exc:
+            print(f"formats: hdf5 not run: h5py does not import here ({exc})")
+            try:
+                ckpt.save_snapshot(os.path.join(tmp, "state.h5"), state)
+            except ImportError:
+                pass
+            else:
+                raise AssertionError("formats: hdf5 wrote without h5py")
+        else:
+            path = ckpt.save_snapshot(os.path.join(tmp, "state.h5"), state)
+            back, _ = ckpt.load_snapshot(path, device=device)
+            same(back, "hdf5")
+            print("formats: hdf5 (h5py imports here) round trip bit for bit")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# the example scripts on the card, all at once, at their default sizes
+EXAMPLES = (("basic_simulation", ()), ("cosmology_tables", ()),
+            ("lensing_demo", ()), ("nbody_benchmark", ()),
+            ("solver_accuracy", ()), ("twolpt_comparison", ()),
+            ("zeldovich_demo", ()), ("multichip_demo", ("--ranks", "4")))
+EXAMPLE_TIMEOUT_S = 300
+
+
+def examples_phase(device, card):
+    """The seven single-device example scripts of lambda_cdm_tpu_torch/
+    examples and multichip_demo (4 spawned ranks on the card, gloo) at
+    their default sizes, each its own process, all started together; each
+    must exit 0. Prints each one's last lines and seconds."""
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for name, args in EXAMPLES:
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", f"lambda_cdm_tpu_torch.examples.{name}",
+                 *args], cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+        failed = []
+        for name, proc in procs.items():
+            out, _ = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+            lines = [ln for ln in out.splitlines()
+                     if ln.strip() and "Warning" not in ln
+                     and "socket.cpp" not in ln]
+            print(f"example {name}: rc {proc.returncode}, "
+                  f"{time.perf_counter() - t0:.1f} s")
+            for ln in lines[-3:]:
+                print(f"  | {ln}")
+            if proc.returncode != 0:
+                failed.append(f"{name} rc {proc.returncode}: "
+                              + " / ".join(lines[-8:]))
+        check("examples", not failed, "; ".join(failed))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+MESH_RANKS = 4
+MESH_RUNS = ((DIRECT_CONFIG, 20), (PM_CONFIG, 5))
+MESH_FORCE_TOL = 1e-5    # ring: K4's bar; sharded PM: the stateless pm bar
+MESH_ENERGY_TOL = 1e-6
+
+
+def pm_exchange_bytes(ng: int, n_ranks: int) -> dict:
+    """Bytes one rank sends in a parallel/sharded.sharded_pm_accelerations
+    call, by collective: the reduce-scatter of its deposit grid, the four
+    slab transforms' all_to_all (complex64; the (D - 1) / D that leaves
+    the rank), and the all-gather of its three force slabs to the
+    others."""
+    d, nz = n_ranks, ng // 2 + 1
+    frac = (d - 1) / d
+    return {"reduce_scatter": 4 * ng ** 3 * frac,
+            "all_to_all": 4 * 8 * ng * ng * nz / d * frac,
+            "all_gather": 3 * 4 * ng ** 3 / d * (d - 1)}
+
+
+def mesh_config(path: str):
+    from lambda_cdm_tpu_torch.core.config import SimulationConfig
+    cfg = SimulationConfig.from_file(path)
+    cfg.compute.mesh.enabled = True
+    cfg.profiling.output_file = ""
+    cfg.simulation.checkpoint_frequency = 0
+    return cfg
+
+
+def _mesh_rank_run(path: str, steps: int, device: str) -> dict:
+    """One config on this rank: the homed state's forces and energy, the
+    run (launch counts reset just before, summed over the ranks just
+    after its closing compute_energy), the final state's forces."""
+    import torch
+    from lambda_cdm_tpu_torch.core.engine import SimulationEngine
+    from lambda_cdm_tpu_torch.utils.profiling import synchronize
+    eng = SimulationEngine(mesh_config(path), device=device)
+    eng.initialize()
+    mesh = eng._mesh
+
+    def snap(tag):
+        st = eng.state
+        acc = mesh.all_gather(eng.accel_fn(eng._state))
+        e = eng.compute_energy()
+        return {f"{tag}_pos": st.positions.cpu().numpy(),
+                f"{tag}_vel": st.velocities.cpu().numpy(),
+                f"{tag}_mass": st.masses.cpu().numpy(),
+                f"{tag}_acc": acc.cpu().numpy(),
+                f"{tag}_ke": float(e["kinetic"]),
+                f"{tag}_pe": float(e["potential"])}
+
+    out = snap("start")
+    synchronize(eng._state.positions)
+    mesh.barrier()
+    reset_counts()
+    t0 = time.perf_counter()
+    eng.run(num_steps=steps)
+    e = eng.compute_energy()
+    synchronize(e["total"])
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    keys = sorted(counts)
+    summed = mesh.all_reduce(torch.tensor([counts[k] for k in keys],
+                                          dtype=torch.int64))
+    out.update(snap("end"))
+    out.update(launches=dict(zip(keys, summed.tolist())),
+               steps=eng.statistics.total_steps,
+               compute_s=eng.statistics.compute_time_s, wall_s=wall,
+               overflow=eng.mesh_overflow, transport=mesh.transport,
+               run_ke=float(e["kinetic"]), run_pe=float(e["potential"]),
+               n_loc=eng._state.num_particles)
+    return out
+
+
+def mesh_rank(rank: int, n_ranks: int, root: str, runs, device: str
+              ) -> None:
+    """A rank of the mesh phase (spawned): the gloo group, then each run;
+    rank 0 pickles the results."""
+    import pickle
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from lambda_cdm_tpu_torch.parallel import mesh as pmesh
+    from lambda_cdm_tpu_torch.utils.precision import disable_tf32
+    disable_tf32()
+    pmesh.init_process_group(rank, n_ranks,
+                             f"file://{os.path.join(root, 'pg')}", "gloo")
+    try:
+        out = {path: _mesh_rank_run(path, steps, device)
+               for path, steps in runs}
+        if rank == 0:
+            with open(os.path.join(root, "rank0.pkl"), "wb") as f:
+                pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _single_forces(cfg, pos, mass, device):
+    """The single-device solver of cfg on (pos, mass): K4 for direct, the
+    plain PM for pm."""
+    from lambda_cdm_tpu_torch.forces import auto_pm_grid
+    from lambda_cdm_tpu_torch.forces.pm import pm_accelerations
+    from lambda_cdm_tpu_torch.ops import direct
+    if cfg.forces.type == "pm":
+        return pm_accelerations(pos, mass, auto_pm_grid(cfg),
+                                cfg.particles.box_size, cfg.units.G)
+    return direct.pairwise_accelerations(pos, mass, cfg.particles.box_size,
+                                         cfg.forces.softening_length,
+                                         cfg.units.G)
+
+
+def cross_kernel_check(pos_i, pos_j, m_i, m_j, box, soft, card, label):
+    """K4's and K9's cross forms against their plain versions on one
+    rank's rows (targets) and another's (sources), timed; returns their
+    kernels-line records."""
+    import torch
+    from lambda_cdm_tpu_torch.ops import direct
+    n, m = pos_i.shape[0], pos_j.shape[0]
+    rec = {}
+    got = direct.pairwise_accelerations_cross(pos_i, pos_j, m_j, box, soft)
+    again = direct.pairwise_accelerations_cross(pos_i, pos_j, m_j, box, soft)
+    ref = direct.pairwise_accelerations_cross(pos_i.cpu(), pos_j.cpu(),
+                                              m_j.cpu(), box, soft)
+    err, rel = rel_err(got.cpu(), ref)
+    ms = cuda_ms(lambda: direct.pairwise_accelerations_cross(
+        pos_i, pos_j, m_j, box, soft), 20)
+    pms = cuda_ms(lambda: direct.pairwise_accelerations_plain(
+        pos_i, pos_i.new_zeros(n), box, soft, sources=pos_j,
+        source_masses=m_j), 3)
+    b_ms, b_by = bound(16.0 * (n + m) + 12.0 * n,
+                       DIRECT_FLOPS["direct"] * float(n) * m)
+    print(f"K4 cross {label} ({n} targets x {m} sources): max_abs_err "
+          f"{err:.3e} (rel {rel:.3e}, tol {DIRECT_TOL['v1']:g}); kernel "
+          f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+          f"two calls {'equal' if torch.equal(got, again) else 'DIFFER'} "
+          f"on {card}")
+    check("K4 cross", rel <= DIRECT_TOL["v1"] and torch.equal(got, again),
+          f"rel err {rel} or two calls differ")
+    rec["direct_cross"] = (err, rel, ms, pms, b_ms, b_by)
+    got = direct.pair_potential_cross(pos_i, m_i, pos_j, m_j, box, soft)
+    again = direct.pair_potential_cross(pos_i, m_i, pos_j, m_j, box, soft)
+    ref = direct.pair_potential_cross_plain(pos_i, m_i, pos_j, m_j, box,
+                                            soft)
+    err = abs(float(got) - float(ref))
+    rel = err / abs(float(ref))
+    ms = cuda_ms(lambda: direct.pair_potential_cross(
+        pos_i, m_i, pos_j, m_j, box, soft), 20)
+    pms = cuda_ms(lambda: direct.pair_potential_cross_plain(
+        pos_i, m_i, pos_j, m_j, box, soft), 3)
+    b_ms, b_by = bound(16.0 * (n + m),
+                       PAIR_POTENTIAL_FLOPS * float(n) * m)
+    print(f"K9 cross {label}: |U| {abs(float(ref)):.6e}, err {err:.3e} "
+          f"(rel {rel:.3e}, tol {PAIR_POTENTIAL_TOL:g}); kernel {ms:.4f} "
+          f"ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); two "
+          f"calls {'equal' if float(got) == float(again) else 'DIFFER'}")
+    check("K9 cross", rel <= PAIR_POTENTIAL_TOL
+          and float(got) == float(again), f"rel err {rel} or calls differ")
+    rec["pair_potential_cross"] = (err, rel, ms, pms, b_ms, b_by)
+    return rec
+
+
+def mesh_phase(device, card):
+    """The 1D-slab multi-rank path: direct_10k.json (20 steps) and
+    pm_128_256.json (5 steps) with compute.mesh.enabled as MESH_RANKS
+    spawned ranks on the one card (gloo, every exchange staged through
+    host memory), each against the single-device run of the same config
+    from the same state: the mesh's forces on its homed start state and on
+    its final state against the single-device solver on those states
+    (1e-5 of the largest |a|), its energies against K9 and KE there
+    (1e-6), and the two runs' closing energies (1e-6); migration overflow
+    0, the particle count and the multiset of masses conserved exactly;
+    ms/step of each, labelled with the transport. Then K4's and K9's cross
+    forms against their plain versions at the ring's shapes. Returns (the
+    cross forms' records, their launches in the runs)."""
+    import pickle
+    import torch
+    import torch.multiprocessing as mp
+    from lambda_cdm_tpu_torch.core.engine import SimulationEngine
+    from lambda_cdm_tpu_torch.forces.direct import kinetic_energy, \
+        potential_energy
+    root = tempfile.mkdtemp(prefix="lcdm_chip_smoke_mesh_")
+    try:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mp.start_processes(mesh_rank, args=(MESH_RANKS, root, MESH_RUNS,
+                                            device.type),
+                           nprocs=MESH_RANKS, join=True,
+                           start_method="spawn")
+        with open(os.path.join(root, "rank0.pkl"), "rb") as f:
+            res = pickle.load(f)
+        print(f"mesh: {MESH_RANKS} ranks spawned, both runs done in "
+              f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {}
+    rec = {}
+    for path, steps in MESH_RUNS:
+        r = res[path]
+        cfg = mesh_config(path)
+        name = os.path.basename(path)
+        box, soft, g = (cfg.particles.box_size, cfg.forces.softening_length,
+                        cfg.units.G)
+        n = cfg.particles.num_particles
+        for tag in ("start", "end"):
+            pos = torch.as_tensor(r[f"{tag}_pos"], device=device)
+            vel = torch.as_tensor(r[f"{tag}_vel"], device=device)
+            mass = torch.as_tensor(r[f"{tag}_mass"], device=device)
+            live = mass > 0
+            ref = _single_forces(cfg, pos, mass, device)
+            acc = torch.as_tensor(r[f"{tag}_acc"], device=device)
+            err, rel = rel_err(acc[live], ref[live])
+            pe = float(potential_energy(pos, mass, box, soft, g))
+            ke = float(kinetic_energy(vel, mass))
+            de = max(abs(r[f"{tag}_pe"] - pe) / abs(pe),
+                     abs(r[f"{tag}_ke"] - ke) / abs(ke))
+            print(f"mesh {name} {tag}: forces against the single-device "
+                  f"{cfg.forces.type} on the same state max_abs_err "
+                  f"{err:.3e} (rel {rel:.3e}, tol {MESH_FORCE_TOL:g}); "
+                  f"energies rel {de:.3e} (tol {MESH_ENERGY_TOL:g}); live "
+                  f"{int(live.sum())} of {n}")
+            check(f"mesh {name} {tag}", rel <= MESH_FORCE_TOL,
+                  f"forces rel err {rel}")
+            check(f"mesh {name} {tag}", de <= MESH_ENERGY_TOL,
+                  f"energy rel err {de}")
+            check(f"mesh {name} {tag}", int(live.sum()) == n,
+                  f"{int(live.sum())} live particles, expected {n}")
+            if tag == "start":
+                m0 = torch.sort(mass[live]).values
+            else:
+                check(f"mesh {name}", torch.equal(
+                    torch.sort(mass[live]).values, m0),
+                    "the masses changed across the run")
+        check(f"mesh {name}", r["overflow"] == 0,
+              f"migration overflow {r['overflow']}")
+        check(f"mesh {name}", r["steps"] == steps, "steps not taken")
+        # the single-device run of the same config from the same state
+        eng = SimulationEngine(cfg, device=device)
+        eng.initialize()
+        check(f"mesh {name}", eng._mesh is None,
+              "one rank took the mesh path")
+        torch.cuda.synchronize()
+        eng.run(num_steps=steps)
+        e1 = eng.compute_energy()
+        one_ms = 1e3 * eng.statistics.compute_time_s / steps
+        de = max(abs(r["run_pe"] - float(e1["potential"]))
+                 / abs(float(e1["potential"])),
+                 abs(r["run_ke"] - float(e1["kinetic"]))
+                 / abs(float(e1["kinetic"])))
+        del eng
+        mesh_ms = 1e3 * r["compute_s"] / steps
+        print(f"mesh {name}: {steps} steps: 1 rank {one_ms:.3f} ms/step; "
+              f"{MESH_RANKS} ranks on one card {mesh_ms:.3f} ms/step "
+              f"({1e3 * r['wall_s'] / steps:.3f} with migrations and the "
+              f"closing energy), transport: {r['transport']} (not a "
+              f"production transport); closing energies of the two runs "
+              f"rel {de:.3e} (tol {MESH_ENERGY_TOL:g}); overflow "
+              f"{r['overflow']}; launches {r['launches']} on {card}")
+        check(f"mesh {name}", de <= MESH_ENERGY_TOL,
+              f"the runs' energies differ by {de}")
+        if cfg.forces.type == "pm":
+            from lambda_cdm_tpu_torch.forces import auto_pm_grid
+            b = pm_exchange_bytes(auto_pm_grid(cfg), MESH_RANKS)
+            print(f"mesh {name}: sharded PM exchange a force evaluation, "
+                  f"bytes a rank sends: " + ", ".join(
+                      f"{k} {v / 1e6:.1f} MB" for k, v in b.items())
+                  + f"; {sum(b.values()) / 1e6:.1f} MB in all")
+        else:
+            check(f"mesh {name}", r["launches"]["direct_cross"] > 0
+                  and r["launches"]["pair_potential_cross"] > 0,
+                  "the ring ran no cross form")
+            launches = {k: r["launches"][k]
+                        for k in ("direct_cross", "pair_potential_cross")}
+            # the cross forms at the ring's shapes: rank 0's rows against
+            # the next rank's block of the final state
+            n_loc = r["n_loc"]
+            pos = torch.as_tensor(r["end_pos"], device=device)
+            mass = torch.as_tensor(r["end_mass"], device=device)
+            rec = cross_kernel_check(pos[:n_loc], pos[n_loc:2 * n_loc],
+                                     mass[:n_loc], mass[n_loc:2 * n_loc],
+                                     box, soft, card, f"at {name}'s ring")
+    return rec, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3622,6 +4060,7 @@ def main() -> int:
     _, eng = timed("stepper path", main_path, cfg, device, card)
     lens, lens_launches = timed("lensing phase", lensing_phase, eng, device,
                                 card)
+    timed("formats phase", formats_phase, eng.state, device, card)
     del eng
     k5 = timed("K5 phase", fof_phase, device, card)
     launches = timed("CLI phase", cli_phase, device, card)
@@ -3647,6 +4086,9 @@ def main() -> int:
     del snapshot
     timed("trace phase", trace_phase, device, card)
     timed("warmup/aot phase", warmup_aot_phase, device, card)
+    timed("examples phase", examples_phase, device, card)
+    cross, cross_launches = timed("mesh phase", mesh_phase, device, card)
+    rec.update(cross)
     science_launches, rec["pair_potential"] = timed(
         "science phase", science_phase, device, card)
 
@@ -3698,7 +4140,14 @@ def main() -> int:
                "pair_potential": ("csrc/direct.cu",
                                   "lambda_cdm_tpu/forces/direct.py:96"),
                "alias_probe": ("csrc/alias_probe.cu",
-                               "benchmarks/probe_alias.py:26")}
+                               "benchmarks/probe_alias.py:26"),
+               # the ring's per-step sums: the JAX ring runs them as XLA
+               # (_partial_direct, the sharded_energy step body)
+               "direct_cross": ("csrc/direct.cu",
+                                "lambda_cdm_tpu/parallel/sharded.py:39"),
+               "pair_potential_cross": (
+                   "csrc/direct.cu",
+                   "lambda_cdm_tpu/parallel/sharded.py:105")}
     # launches: K1-K3 and K5 on the CLI run of treepm_1m, K4 on the
     # direct_10k run, K4s on its own path (sym and sym2 at 100k in the K4
     # phase; no engine path runs it, the JAX package drives its kernel only
@@ -3714,7 +4163,8 @@ def main() -> int:
     launches = dict(launches, direct=k4_launches["direct"],
                     direct_sym=k4s_launches["direct_sym"], **lens_launches,
                     **row7_launches, **rd_launches, **alias_launches,
-                    pair_potential=science_launches["pair_potential"])
+                    pair_potential=science_launches["pair_potential"],
+                    **cross_launches)
     kernels = [{"name": name, "route": "cuda",
                 "source": f"lambda_cdm_tpu_torch/{src}", "replaces": rep,
                 "launches": launches[name], "max_abs_err": rec[name][0],

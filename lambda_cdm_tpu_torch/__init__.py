@@ -17,8 +17,12 @@ and LensingObserver -- and the JAX package's random streams
 (utils/prng: jax.random's Threefry keys, uniforms and normals, so a
 config gives the JAX package's particles), the float64 Ewald oracle,
 merger trees, the torch.profiler trace, the engine's warmup and
-CompiledForceEngine. The kernels' plain PyTorch versions run for CPU
-tensors. This package never imports JAX; the tests hold it against
+CompiledForceEngine -- and the hdf5 / .lcdm (native/, the JAX package's
+C++ runtime) / port-only "orbax" formats, the example scripts
+(examples/), and the 1D-slab multi-rank path on torch.distributed
+(parallel/: the ring direct sum through K4's and K9's cross forms, the
+sharded PM, migration, the slab FFT; compute.mesh in the engine). The
+kernels' plain PyTorch versions run for CPU tensors. This package never imports JAX; the tests hold it against
 lambda_cdm_tpu.
 """
 

@@ -4,8 +4,9 @@ Sheth-Tormen mass functions, linear bias, NFW profiles, the Duffy et al.
 (2008) concentration and its fit, and the Zheng et al. (2005) HOD.
 
 Plain float32 tensor functions, as the JAX package computes them. Each
-takes an explicit `device` for number inputs (default: the CPU); tensor
-inputs keep theirs. Conventions: M in 1e10 Msun/h, R in Mpc/h, number
+takes an explicit `device` for number inputs (default: the card, as the
+JAX package's arrays go to its default device); tensor inputs keep
+theirs. Conventions: M in 1e10 Msun/h, R in Mpc/h, number
 densities in (Mpc/h)^-3.
 """
 
@@ -24,10 +25,11 @@ RHO_CRIT = 27.753662724570805            # (1e10 Msun/h) / (Mpc/h)^3
 
 def _t(x, device=None) -> torch.Tensor:
     """x as a float32 tensor: a tensor keeps its device, a number goes to
-    `device`."""
+    `device` (the card when None)."""
     if isinstance(x, torch.Tensor):
         return x.to(torch.float32)
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+    return torch.as_tensor(x, dtype=torch.float32,
+                           device="cuda" if device is None else device)
 
 
 def mass_to_radius(params: CosmologyParams, m, device=None):
@@ -164,7 +166,8 @@ def galaxy_number_density(params: CosmologyParams, z=0.0, *, hod_kwargs=None,
     `m_grid`, default 128 masses log-spaced over 1e10..1e15 Msun/h)."""
     hod_kwargs = hod_kwargs or {}
     if m_grid is None:
-        m_grid = torch.logspace(0.0, 5.0, 128, device=device)
+        m_grid = torch.logspace(0.0, 5.0, 128,
+                                device="cuda" if device is None else device)
     m_grid = _t(m_grid, device)
     dndlnm = mass_function(params, m_grid, z)
     occ = hod_central(m_grid, **{k: v for k, v in hod_kwargs.items()

@@ -25,9 +25,22 @@ resume follow the JAX engine.
 
 `warmup` builds the kernels and runs the run loop's programs once before
 the first step; `profiling.trace_dir` traces run() with torch.profiler
-(utils/profiling.trace_dir). Not ported yet (each raises
-NotImplementedError, see ROADMAP.md): the device mesh and orbax
-checkpoints.
+(utils/profiling.trace_dir).
+
+compute.mesh (the JAX engine's _init_mesh_path / _mesh_migrate) runs on
+the ranks of an initialised torch.distributed process group when there
+are more than one (on one rank the run is the single-device one, as the
+JAX engine's on one device): every rank builds the same global initial
+state, pads it (compute.mesh.migrate_capacity_factor) and keeps its
+slab of rows (parallel/mesh.shard_state), the forces are the ring direct
+sum (direct, direct_reference) or the sharded PM (pm), energy is
+parallel/sharded.sharded_energy, and the run loop re-homes particles
+between chunks (emigrant-only exchange with grow-and-retry, adaptive slab
+bounds). `state` is then the global padded state gathered in rank order
+(a collective: every rank reads it together), and rank 0 writes the
+files. Mesh configs this port does not cover yet (treepm and treepm_fast
+on a mesh, the shx/shy/shz axes) raise NotImplementedError naming
+ROADMAP.md, on any number of ranks.
 """
 
 from __future__ import annotations
@@ -121,17 +134,29 @@ class SimulationEngine:
         self._acc = None                  # accelerations at state.positions
         self._accel_fn = None
         self._dt = None
+        self._mesh = None                 # parallel.mesh.Mesh (compute.mesh)
+        self._mesh_bounds = None
+        self.mesh_overflow = 0            # the last migration's overflow
 
     # -- properties ---------------------------------------------------------
     @property
     def state(self) -> SimState:
+        """The simulation state; on a mesh the global (padded) state
+        gathered in rank order, a collective every rank reads together."""
         if self._state is None:
             raise RuntimeError("engine not initialized")
+        if self._mesh is not None:
+            from ..parallel.mesh import gather_state
+            return gather_state(self._state, self._mesh)
         return self._state
 
     @state.setter
     def state(self, new_state: SimState) -> None:
-        self._state = self._on_device(new_state)
+        if self._mesh is not None:
+            from ..parallel.mesh import shard_state
+            self._state = shard_state(new_state, self._mesh)
+        else:
+            self._state = self._on_device(new_state)
         self._acc = None
         if self._fstate is not None:
             self._init_fast_path()
@@ -156,16 +181,19 @@ class SimulationEngine:
         try:
             cfg = self.config
             cfg.validate()
-            if cfg.compute.mesh.enabled:
-                raise _not_ported("compute.mesh (multi-device runs)")
-            use_fast = cfg.forces.type in ("treepm_fast", "pm_fast")
+            use_mesh = cfg.compute.mesh.enabled and self._check_mesh_config()
+            use_fast = (cfg.forces.type in ("treepm_fast", "pm_fast")
+                        and not use_mesh)
             if state is None:
                 from ..physics.initial_conditions import generate_state
                 state = generate_state(cfg, device=self.device)
-            if not use_fast:
-                from ..forces import create_force_computer
-                self._accel_fn = create_force_computer(cfg)
-            self._state = self._on_device(state)
+            if use_mesh:
+                self._init_mesh_path(state)
+            else:
+                if not use_fast:
+                    from ..forces import create_force_computer
+                    self._accel_fn = create_force_computer(cfg)
+                self._state = self._on_device(state)
             self._acc = None
             self._dt = host_scalar(cfg.time.initial_timestep)
             if use_fast:
@@ -182,7 +210,7 @@ class SimulationEngine:
             raise
 
     def _validate_state(self) -> None:
-        st = self._state
+        st = self.state
         box = self.config.particles.box_size
         pos = st.positions
         if bool(torch.any(~torch.isfinite(pos))):
@@ -194,8 +222,126 @@ class SimulationEngine:
             raise ValueError("negative particle masses")
         if not bool(torch.any(st.masses > 0)):
             raise ValueError("no live particles (all masses zero)")
-        if bool(torch.any(st.masses == 0)):
+        if self._mesh is None and bool(torch.any(st.masses == 0)):
             raise ValueError("zero-mass particles outside mesh-padding mode")
+
+    # -- multi-rank path: the slab mesh on torch.distributed -----------------
+    def _check_mesh_config(self) -> bool:
+        """Whether compute.mesh runs on ranks: raise for the mesh configs
+        this port does not cover (on any number of ranks: none falls back
+        to one device quietly), then True when the process group has more
+        than one rank (on one rank the JAX engine runs its single-device
+        path, and so does this one)."""
+        from ..parallel.mesh import world_size
+        cfg = self.config
+        axes = dict(cfg.compute.mesh.axes or {})
+        if any(a in axes for a in ("shx", "shy", "shz")):
+            raise _not_ported("compute.mesh with the shx/shy/shz axes "
+                              "(2D pencil and 3D block meshes)")
+        if cfg.forces.type not in ("direct", "direct_reference", "pm"):
+            raise _not_ported(f"compute.mesh with forces.type="
+                              f"{cfg.forces.type!r} (the sharded TreePM and "
+                              f"the sharded fast steppers)")
+        return world_size() > 1
+
+    def _init_mesh_path(self, state: SimState) -> None:
+        """Shard the run over the 1D rank mesh: pad the global state with
+        zero-mass rows (compute.mesh.migrate_capacity_factor), keep this
+        rank's slab of rows, build the ring direct or sharded PM force,
+        and home the rows on their owning slabs before the first force
+        (with load-adaptive bounds when compute.mesh.load_balancing)."""
+        from ..forces import auto_pm_grid
+        from ..parallel.exchange import pad_particles
+        from ..parallel.mesh import make_mesh, shard_state
+        from ..parallel.sharded import (ring_direct_accelerations,
+                                        sharded_pm_accelerations)
+        cfg = self.config
+        mesh = make_mesh(device=self.device)
+        pos, vel, mass = pad_particles(
+            state.positions, state.velocities, state.masses,
+            n_dev=mesh.size, factor=cfg.compute.mesh.migrate_capacity_factor)
+        self._mesh = mesh
+        self._state = shard_state(state.replace(
+            positions=pos, velocities=vel, masses=mass), mesh)
+        box = cfg.particles.box_size
+        soft = cfg.forces.softening_length
+        g = cfg.units.G
+        if cfg.forces.type in ("direct", "direct_reference"):
+            def accel_fn(st):
+                return ring_direct_accelerations(
+                    st.positions, st.masses, box_size=box, softening=soft,
+                    g_const=g, mesh=mesh)
+        else:
+            ng = auto_pm_grid(cfg)
+
+            def accel_fn(st):
+                return sharded_pm_accelerations(
+                    st.positions, st.masses, ng, box, g, mesh=mesh)
+        self._accel_fn = accel_fn
+        self._mesh_bounds = None
+        if cfg.compute.mesh.load_balancing:
+            self._mesh_bounds = self._adaptive_bounds()
+        self._mesh_migrate()
+
+    def _balance_weights(self):
+        """None for count balancing, or the pair-cost weights of this
+        rank's rows (compute.mesh.balance_weight="pair_cost")."""
+        if self.config.compute.mesh.balance_weight != "pair_cost":
+            return None
+        from ..parallel.exchange import pair_cost_weights
+        st = self._state
+        return pair_cost_weights(st.positions, st.masses,
+                                 self.config.particles.box_size,
+                                 mesh=self._mesh)
+
+    def _adaptive_bounds(self):
+        """Equal-load slab bounds [D + 1] from every rank's rows."""
+        from ..parallel.exchange import adaptive_slab_bounds
+        st = self._state
+        return adaptive_slab_bounds(st.positions, st.masses, self._mesh.size,
+                                    self.config.particles.box_size,
+                                    weights=self._balance_weights(),
+                                    mesh=self._mesh)
+
+    def _mesh_migrate(self) -> None:
+        """Re-home particles to their owning slabs (between chunks):
+        recompute the adaptive bounds when the live-count imbalance
+        exceeds compute.mesh.rebalance_threshold, then the emigrant-only
+        exchange at a capacity of compute.mesh.migrate_fraction of the
+        rows (at least 128), discarding an overflowed result and retrying
+        at twice the capacity up to the rows a rank holds."""
+        from ..parallel.exchange import (load_imbalance,
+                                         migrate_particles_emigrant)
+        cfg = self.config
+        st = self._state
+        mesh = self._mesh
+        n_loc = st.positions.shape[0]
+        bounds = self._mesh_bounds
+        if cfg.compute.mesh.load_balancing:
+            imb = load_imbalance(st.masses, mesh=mesh,
+                                 weights=self._balance_weights())
+            if imb > cfg.compute.mesh.rebalance_threshold:
+                bounds = self._mesh_bounds = self._adaptive_bounds()
+        cap = min(max(128, int(cfg.compute.mesh.migrate_fraction * n_loc)),
+                  n_loc)
+        while True:
+            pos, vel, mass, overflow = migrate_particles_emigrant(
+                st.positions, st.velocities, st.masses,
+                box_size=cfg.particles.box_size, capacity=cap, mesh=mesh,
+                bounds=bounds)
+            self.mesh_overflow = overflow
+            if overflow == 0:
+                self._state = st.replace(positions=pos, velocities=vel,
+                                         masses=mass)
+                break
+            if cap >= n_loc:
+                _log.warning(
+                    "mesh migration overflow persists at capacity %d (%d "
+                    "particles); keeping the stale partition -- raise "
+                    "compute.mesh.migrate_capacity_factor", cap, overflow)
+                break
+            cap = min(cap * 2, n_loc)
+        self._acc = None
 
     # -- treepm_fast path: persistent cell-list state ------------------------
     def _init_fast_path(self) -> None:
@@ -552,7 +698,7 @@ class SimulationEngine:
                         "step %d: a=%.4f  %.1f ms/step  (%.3e "
                         "particle-updates/s)", int(self._state.step),
                         a_after, 1e3 * dt_chunk / n,
-                        n * self._state.num_particles / max(dt_chunk,
+                        n * self._num_particles() / max(dt_chunk,
                                                             1e-9))
                 t_force = getattr(self, "_force_eval_s", None)
                 if t_force is not None:
@@ -560,8 +706,9 @@ class SimulationEngine:
                     self.statistics.force_time_s += f_share
                     self.statistics.integration_time_s += \
                         dt_chunk - f_share
-                if cfg.validation.check_finite and not bool(
-                        torch.all(torch.isfinite(self._state.positions))):
+                if cfg.validation.check_finite and not self._all_ranks(
+                        bool(torch.all(torch.isfinite(
+                            self._state.positions)))):
                     raise FloatingPointError(
                         f"non-finite positions after step "
                         f"{self.statistics.total_steps + n} "
@@ -569,6 +716,9 @@ class SimulationEngine:
                 if cfg.integration.adaptive_timestep \
                         or cfg.integration.max_dloga > 0:
                     self._update_dt()
+                if self._mesh is not None:
+                    with self.profiler.timer("run.migrate"):
+                        self._mesh_migrate()
                 steps_done += n
                 self.statistics.total_steps += n
                 t_obs0 = time.perf_counter()
@@ -596,7 +746,7 @@ class SimulationEngine:
             st.total_time_s += wall
             st.steps_per_second = steps_done / max(wall, 1e-9)
             st.particle_updates_per_second = (
-                st.steps_per_second * self._state.num_particles)
+                st.steps_per_second * self._num_particles())
             st.current_scale_factor = float(self._state.scale_factor)
             st.current_redshift = float(self._state.redshift)
             st.time_units = cfg.time.time_units
@@ -615,6 +765,19 @@ class SimulationEngine:
                     pass
         return self._state
 
+    def _num_particles(self) -> int:
+        """Rows of the (global) state."""
+        n = self._state.num_particles
+        return n if self._mesh is None else n * self._mesh.size
+
+    def _all_ranks(self, ok: bool) -> bool:
+        """`ok` on every rank of the mesh (a collective), or `ok` itself
+        on one device."""
+        if self._mesh is None:
+            return ok
+        flag = torch.tensor([0 if ok else 1], dtype=torch.int32)
+        return int(self._mesh.all_reduce(flag, "max")) == 0
+
     def _update_dt(self) -> None:
         from ..physics.integrators import adaptive_dt, hubble_internal
         cfg = self.config
@@ -632,10 +795,16 @@ class SimulationEngine:
             hubble = hubble_internal(cfg.cosmology_params(),
                                      self._state.scale_factor,
                                      cfg.units.H0_internal)
+        amax = None
+        if self._mesh is not None:
+            # the largest |a| over every rank's rows, as the JAX engine
+            # reduces its sharded array
+            amax = self._mesh.all_reduce(torch.max(torch.sqrt(torch.sum(
+                acc * acc, dim=-1))).reshape(1), "max")[0]
         self._dt = host_scalar(adaptive_dt(
             acc, cfg.forces.softening_length, cfg.time.initial_timestep,
             cfg.integration.min_timestep, cfg.integration.max_timestep,
-            hubble=hubble, max_dloga=cfg.integration.max_dloga))
+            hubble=hubble, max_dloga=cfg.integration.max_dloga, amax=amax))
 
     def pause(self) -> None:
         if self.lifecycle == LifecycleState.RUNNING:
@@ -647,6 +816,8 @@ class SimulationEngine:
 
     def reset(self) -> None:
         self._state = None
+        self._mesh = None
+        self._mesh_bounds = None
         self._fstate = None
         self._fast_kw = None
         self._fast_rebuild = False
@@ -659,9 +830,18 @@ class SimulationEngine:
     def compute_energy(self) -> dict:
         """KE, PE (the O(N^2) pair sum: K9 on the card, its plain version
         on the CPU) and their total, as 0-d tensors on the engine's
-        device."""
+        device; on a mesh parallel/sharded.sharded_energy (K9's cross form
+        a ring step), equal on every rank."""
         from ..forces.direct import kinetic_energy, potential_energy
         cfg = self.config
+        if self._mesh is not None:
+            from ..parallel.sharded import sharded_energy
+            st = self._state
+            return sharded_energy(
+                st.positions, st.velocities, st.masses,
+                box_size=cfg.particles.box_size,
+                softening=cfg.forces.softening_length, g_const=cfg.units.G,
+                mesh=self._mesh)
         st = self.state
         ke = kinetic_energy(st.velocities, st.masses)
         pe = potential_energy(st.positions, st.masses,
@@ -695,23 +875,47 @@ class SimulationEngine:
                    "ascii": ".txt"}.get(cfg.io.output_format)
             if ext and path.endswith(".npz"):
                 path = path[:-4] + ext
-        return ckpt.save_snapshot(path, self.state, self.config,
-                                  fields=cfg.io.snapshots.fields)
+        return self._rank0_writes(lambda st: ckpt.save_snapshot(
+            path, st, self.config, fields=cfg.io.snapshots.fields))
+
+    def _rank0_writes(self, write):
+        """write(global state) -> path on one device; on a mesh every rank
+        gathers the state, rank 0 writes, the others get the path rank 0
+        wrote (after it has written)."""
+        st = self.state
+        if self._mesh is None:
+            return write(st)
+        import torch.distributed as dist
+        out = [write(st) if self._mesh.rank == 0 else None]
+        dist.broadcast_object_list(out, src=0, group=self._mesh.group)
+        return out[0]
 
     def save_checkpoint(self, path: str) -> str:
+        """An npz checkpoint (state, config, statistics), or with
+        io.output_format "orbax" a `step_XXXXXXXX` directory under `path`
+        holding the state (utils/checkpoint.save_checkpoint_orbax: the
+        port's own torch.save format, not Orbax's)."""
         from ..utils import checkpoint as ckpt
         if self.config.io.output_format == "orbax":
-            raise _not_ported("orbax checkpoints (io.output_format)")
-        out = ckpt.save_checkpoint(path, self.state, self.config,
-                                   self.statistics.to_dict())
+            out = self._rank0_writes(
+                lambda st: ckpt.save_checkpoint_orbax(path, st))
+        else:
+            out = self._rank0_writes(lambda st: ckpt.save_checkpoint(
+                path, st, self.config, self.statistics.to_dict()))
         self.observers.notify("on_checkpoint", self, out)
         return out
 
     def load_checkpoint(self, path: str) -> None:
-        """Resume from an npz checkpoint: the state (initializing the
-        engine if needed) and the saved statistics."""
+        """Resume from an npz checkpoint (the state, initializing the
+        engine if needed, and the saved statistics) or from a directory of
+        save_checkpoint's orbax form (the state alone)."""
+        import os
         from ..utils import checkpoint as ckpt
-        state, _cfg_dict, stats = ckpt.load_checkpoint(path, self.device)
+        if os.path.isdir(path):
+            state, stats = ckpt.load_checkpoint_orbax(path, self.device), {}
+        else:
+            state, _cfg_dict, stats = ckpt.load_checkpoint(path,
+                                                           self.device)
         if self._fstate is None and self._accel_fn is None:
             self.initialize(state=state)
         else:

@@ -189,6 +189,16 @@
 //
 // Bound: operations, n(n-1)/2 pairs at about 22 float operations and one
 // rsqrt each (5e11 pairs at 1M particles).
+//
+// Cross forms (the multi-rank ring of parallel/sharded.py, whose JAX
+// counterpart lambda_cdm_tpu/parallel/sharded.py runs each ring step as
+// XLA: _partial_direct and the sharded_energy step body). K4 takes its n
+// targets and its m sources as two arrays: the solver passes one array
+// twice (the same loads from the same addresses, so the same bytes as
+// before), the ring the rows a rank holds against the block it holds at
+// this ring step. K9's cross form (pair_potential_cross_kernel) sums
+// every ordered (target, source) pair of the two sets, n m pairs, with
+// K9's arithmetic and exclusion guard; the symmetric kernel is untouched.
 
 #include <cuda_runtime.h>
 
@@ -269,23 +279,26 @@ __device__ __forceinline__ float rsqrt_normal(float x) {
   return y;
 }
 
-// K4: block (i tile, j slice); see the design note above. out: [n, 3]
-// when nslices == 1, else partial [nslices, n, 3] (unscaled sums).
+// K4: block (i tile, j slice); see the design note above. The n targets
+// are pts, the m sources src (the same array for the solver; the ring of
+// parallel/sharded passes the block it holds). out: [n, 3] when nslices
+// == 1, else partial [nslices, n, 3] (unscaled sums).
 template <bool kScaled, bool kPeriodic>
 __global__ void __launch_bounds__(kThreads, 6)
-direct_kernel(const float4* __restrict__ pts, float* __restrict__ out,
-              int* __restrict__ flag, int n, int nslices, float box,
-              float soft2, float oscale, float limit) {
+direct_kernel(const float4* __restrict__ pts, const float4* __restrict__ src,
+              float* __restrict__ out, int* __restrict__ flag, int n, int m,
+              int nslices, float box, float soft2, float oscale,
+              float limit) {
   __shared__ float4 tiles[kWarps][32];
   __shared__ float sums[kWarps][3][kTileRows];
   const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float inv_box = __frcp_rn(box);
   const int i0 = blockIdx.x * kTileRows;
-  const int ntj = (n + kJTile - 1) / kJTile;
+  const int ntj = (m + kJTile - 1) / kJTile;
   const int s = blockIdx.y;
   const int j0 = (int)((long long)s * ntj / nslices) * kJTile;
-  const int j1 = min(n, (int)((long long)(s + 1) * ntj / nslices) * kJTile);
+  const int j1 = min(m, (int)((long long)(s + 1) * ntj / nslices) * kJTile);
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   float4 pi[kRows];
   float ax[kRows], ay[kRows], az[kRows];
@@ -298,14 +311,14 @@ direct_kernel(const float4* __restrict__ pts, float* __restrict__ out,
   float4* tile = tiles[warp];
   bool bad = false;
   int jb = j0 + 32 * warp;               // this warp's sub-tile of each tile
-  float4 next = jb + lane < j1 ? pts[jb + lane] : zero;
+  float4 next = jb + lane < j1 ? src[jb + lane] : zero;
   for (; jb < j1; jb += kJTile) {
     const int nt = min(32, j1 - jb);
     if (kPeriodic) bad |= out_of_range(next, limit);
     tile[lane] = next;
     __syncwarp();
     const int jn = jb + kJTile + lane;
-    next = jn < j1 ? pts[jn] : zero;
+    next = jn < j1 ? src[jn] : zero;
     float tx[kRows], ty[kRows], tz[kRows];  // this sub-tile's sums
 #pragma unroll
     for (int r = 0; r < kRows; ++r) tx[r] = ty[r] = tz[r] = 0.f;
@@ -696,31 +709,84 @@ pair_potential_kernel(const float4* __restrict__ pts,
   if (tid == 0) partial[blockIdx.x] = red[0];
 }
 
+// K9's cross form: S = sum over every ordered pair (i target, j source)
+// of m_i m_j (r^2)^(-1/2), pairs with r^2 <= thr left out, the per-step
+// sum of the ring energy (parallel/sharded.sharded_energy; the JAX ring's
+// guard r2 <= soft2 + 1e-30). Block (p, q): target tile p against source
+// tile q, every pair (there is no half-matrix to take: the two sets
+// differ); one float64 partial a block, summed as the symmetric form
+// sums its block.
+__global__ void __launch_bounds__(kPairThreads, 8)
+pair_potential_cross_kernel(const float4* __restrict__ pts,
+                            const float4* __restrict__ src,
+                            double* __restrict__ partial, int n, int m,
+                            float box, float soft2, float thr) {
+  __shared__ float4 tile[kPairTile];
+  __shared__ double red[kPairThreads];
+  const int tq = (m + kPairTile - 1) / kPairTile;
+  const int p = blockIdx.x / tq;
+  const int q = blockIdx.x % tq;
+  const int tid = threadIdx.x;
+  const float inv_box = __frcp_rn(box);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  // padding rows and columns: mass 0 at the origin, terms exactly 0
+#pragma unroll
+  for (int r = 0; r < kPairRows; ++r) {
+    const int j = q * kPairTile + r * kPairThreads + tid;
+    tile[r * kPairThreads + tid] = j < m ? src[j] : zero;
+  }
+  float4 pi[kPairRows];
+  float ts[kPairRows];
+#pragma unroll
+  for (int r = 0; r < kPairRows; ++r) {
+    const int i = p * kPairTile + r * kPairThreads + tid;
+    pi[r] = i < n ? pts[i] : zero;
+    ts[r] = 0.f;
+  }
+  __syncthreads();
+  pair_rows<false>(tile, pi, ts, tid, box, inv_box, soft2, thr);
+  double total = 0.0;
+#pragma unroll
+  for (int r = 0; r < kPairRows; ++r)
+    total += (double)pi[r].w * (double)ts[r];
+  red[tid] = total;
+  __syncthreads();
+#pragma unroll
+  for (int s = kPairThreads / 2; s > 0; s >>= 1) {
+    if (tid < s) red[tid] += red[tid + s];
+    __syncthreads();
+  }
+  if (tid == 0) partial[blockIdx.x] = red[0];
+}
+
 }  // namespace
 
-// K4: nslices = ops/direct.j_slices(n); partial: [nslices, n, 3] floats
+// K4: n targets pts, m sources src (src == pts, m == n for the solver);
+// nslices = ops/direct.j_slices(n, m); partial: [nslices, n, 3] floats
 // when nslices > 1 (unused otherwise); flag: one int the kernel sets to 1
-// when a position lies at or past limit (periodic only)
-extern "C" int lcdm_direct(const float4* pts, float* out, float* partial,
-                           int* flag, int n, int nslices, int scaled,
-                           int periodic, float box, float soft2,
-                           float oscale, float limit, void* stream) {
+// when a staged source lies at or past limit (periodic only)
+extern "C" int lcdm_direct(const float4* pts, const float4* src, float* out,
+                           float* partial, int* flag, int n, int m,
+                           int nslices, int scaled, int periodic, float box,
+                           float soft2, float oscale, float limit,
+                           void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n <= 0 || nslices < 1) return (int)cudaGetLastError();
+  if (m <= 0) return (int)cudaErrorInvalidValue;
   const dim3 grid((n + kTileRows - 1) / kTileRows, nslices);
   float* dst = nslices == 1 ? out : partial;
   if (scaled && periodic)
     direct_kernel<true, true><<<grid, kThreads, 0, s>>>(
-        pts, dst, flag, n, nslices, box, soft2, oscale, limit);
+        pts, src, dst, flag, n, m, nslices, box, soft2, oscale, limit);
   else if (scaled)
     direct_kernel<true, false><<<grid, kThreads, 0, s>>>(
-        pts, dst, flag, n, nslices, box, soft2, oscale, limit);
+        pts, src, dst, flag, n, m, nslices, box, soft2, oscale, limit);
   else if (periodic)
     direct_kernel<false, true><<<grid, kThreads, 0, s>>>(
-        pts, dst, flag, n, nslices, box, soft2, oscale, limit);
+        pts, src, dst, flag, n, m, nslices, box, soft2, oscale, limit);
   else
     direct_kernel<false, false><<<grid, kThreads, 0, s>>>(
-        pts, dst, flag, n, nslices, box, soft2, oscale, limit);
+        pts, src, dst, flag, n, m, nslices, box, soft2, oscale, limit);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || nslices == 1) return (int)err;
   direct_reduce<<<(3 * n + 255) / 256, 256, 0, s>>>(partial, out, 3 * n,
@@ -754,13 +820,27 @@ extern "C" int lcdm_direct_sym(const float4* pts, float* rowpart,
   return (int)cudaGetLastError();
 }
 
-// partial: ntiles * ((ntiles - 1) / 2 + 1) doubles, ntiles odd
-extern "C" int lcdm_pair_potential(const float4* pts, double* partial, int n,
-                                   int ntiles, float box, float soft2,
-                                   float thr, void* stream) {
-  const int blocks = ntiles * ((ntiles - 1) / 2 + 1);
-  if (n > 0 && blocks > 0)
-    pair_potential_kernel<<<blocks, kPairThreads, 0, (cudaStream_t)stream>>>(
-        pts, partial, n, ntiles, box, soft2, thr);
+// src == nullptr: the symmetric sum over the n particles pts, each
+// unordered pair once; partial: ntiles * ((ntiles - 1) / 2 + 1) doubles,
+// ntiles odd. Otherwise the cross form: n targets pts against m sources
+// src, every ordered pair; ntiles = ceil(n / kPairTile) target tiles,
+// partial: ntiles * ceil(m / kPairTile) doubles.
+extern "C" int lcdm_pair_potential(const float4* pts, const float4* src,
+                                   double* partial, int n, int m, int ntiles,
+                                   float box, float soft2, float thr,
+                                   void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (src == nullptr) {
+    const int blocks = ntiles * ((ntiles - 1) / 2 + 1);
+    if (n > 0 && blocks > 0)
+      pair_potential_kernel<<<blocks, kPairThreads, 0, s>>>(
+          pts, partial, n, ntiles, box, soft2, thr);
+    return (int)cudaGetLastError();
+  }
+  if (ntiles != (n + kPairTile - 1) / kPairTile) return (int)cudaErrorInvalidValue;
+  const int blocks = ntiles * ((m + kPairTile - 1) / kPairTile);
+  if (n > 0 && m > 0)
+    pair_potential_cross_kernel<<<blocks, kPairThreads, 0, s>>>(
+        pts, src, partial, n, m, box, soft2, thr);
   return (int)cudaGetLastError();
 }

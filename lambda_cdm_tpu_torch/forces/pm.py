@@ -19,9 +19,10 @@ _WINDOW_POWER = {"ngp": 1, "cic": 2, "tsc": 3}
 
 
 def assignment_window(ng: int, box_size, assignment: str = "cic",
-                      device=None):
+                      device="cuda"):
     """Fourier-space mass-assignment window
-    W = prod_i sinc(k_i dx / 2)^p (p = 1 NGP, 2 CIC, 3 TSC)."""
+    W = prod_i sinc(k_i dx / 2)^p (p = 1 NGP, 2 CIC, 3 TSC), on `device`
+    (the card unless named)."""
     kx, ky, kz, _ = fourier_grid(ng, box_size, device=device)
     half_dx = box_size / ng / 2.0
 
@@ -34,9 +35,10 @@ def assignment_window(ng: int, box_size, assignment: str = "cic",
 
 
 def poisson_greens_function(ng: int, box_size: float, *, split_scale=0.0,
-                            deconvolve_cic: bool = True, device=None):
+                            deconvolve_cic: bool = True, device="cuda"):
     """-4 pi / k^2 (unit G) times the optional Gaussian split
-    exp(-k^2 rs^2) and CIC^-2 window -> [ng, ng, ng//2+1] float32."""
+    exp(-k^2 rs^2) and CIC^-2 window -> [ng, ng, ng//2+1] float32 on
+    `device` (the card unless named)."""
     kx, ky, kz, k2 = fourier_grid(ng, box_size, device=device)
     inv_k2 = torch.where(k2 > 0, 1.0 / torch.where(k2 > 0, k2, 1.0), 0.0)
     green = -4.0 * math.pi * inv_k2

@@ -51,13 +51,14 @@ _SIGNATURES = {
     "lcdm_short_range_rd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                             _P],
     "lcdm_fof_hook": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
-    "lcdm_direct": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P],
+    "lcdm_direct": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F,
+                    _P],
     "lcdm_direct_sym": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F,
                         _P],
     "lcdm_lens_sample": [_P, _P, _P, _F, _P, _I, _I, _I, _I, _P],
     "lcdm_lens_trace": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _P, _P, _P, _F, _P, _F, _P, _F, _F, _I, _I, _P],
-    "lcdm_pair_potential": [_P, _P, _I, _I, _F, _F, _F, _P],
+    "lcdm_pair_potential": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
     "lcdm_alias_probe": [_P, _I, _I, _I, _P],
     "lcdm_launch_floor": [_P, _I, _I, _P],
 }

@@ -24,6 +24,13 @@ image for some pairs next to half a box apart. CUDA tensors launch K4
 (v1, v2) or K4s (sym, sym2); CPU tensors take the plain version. There
 is no fallback: a CUDA tensor goes to its kernel or the call raises.
 
+Cross forms (the multi-rank ring, parallel/sharded.py): K4 on n targets
+against m separate sources (pairwise_accelerations_cross, v1 and v2) and
+K9 over every ordered (target, source) pair of two sets
+(pair_potential_cross), each with a plain version beside it. The solver's
+calls pass one array as both sets, so their bytes are those of the
+symmetric entries.
+
 K4 rounds the image with a magic constant, exact while every position
 lies within 2^21 boxes of the origin. It checks that on the card without
 a readback: a position past it sets a flag on the device, and
@@ -58,7 +65,8 @@ PAIR_TILE = 512   # tile edge of K9 (kPairTile in direct.cu)
 PAIR_POSITION_LIMIT = 2.0 ** 21
 VARIANTS = ("v1", "v2", "sym", "sym2")
 
-launches = {"direct": 0, "direct_sym": 0, "pair_potential": 0}
+launches = {"direct": 0, "direct_sym": 0, "pair_potential": 0,
+            "direct_cross": 0, "pair_potential_cross": 0}
 
 
 def reset_launch_counts() -> None:
@@ -66,19 +74,22 @@ def reset_launch_counts() -> None:
         launches[k] = 0
 
 
-def j_slices(n: int) -> int:
-    """K4's j slices S: TARGET_BLOCKS // (i tiles), at least 1 and at most
-    one a j tile (1 from about 100k particles up)."""
+def j_slices(n: int, m: int | None = None) -> int:
+    """K4's j slices S for n targets and m sources (m = n by default):
+    TARGET_BLOCKS // (i tiles), at least 1 and at most one a j tile (1
+    from about 100k targets up)."""
+    m = n if m is None else m
     tiles = max(1, -(-n // TILE_ROWS))
-    return max(1, min(TARGET_BLOCKS // tiles, -(-n // J_TILE)))
+    return max(1, min(TARGET_BLOCKS // tiles, -(-m // J_TILE)))
 
 
-def slice_bounds(n: int):
-    """[(j0, j1)] of K4's j slices, as the kernel computes them: slice s
-    takes the j tiles floor(s T / S) .. floor((s + 1) T / S) - 1 of the T =
-    ceil(n / J_TILE)."""
-    ntj, s = -(-n // J_TILE), j_slices(n)
-    return [(k * ntj // s * J_TILE, min(n, (k + 1) * ntj // s * J_TILE))
+def slice_bounds(n: int, m: int | None = None):
+    """[(j0, j1)] of K4's j slices over m sources (m = n by default), as
+    the kernel computes them: slice s takes the j tiles floor(s T / S) ..
+    floor((s + 1) T / S) - 1 of the T = ceil(m / J_TILE)."""
+    m = n if m is None else m
+    ntj, s = -(-m // J_TILE), j_slices(n, m)
+    return [(k * ntj // s * J_TILE, min(m, (k + 1) * ntj // s * J_TILE))
             for k in range(s)]
 
 
@@ -194,21 +205,30 @@ def pair_schedule(n: int):
 
 def pairwise_accelerations_plain(positions, masses, box_size, softening=0.01,
                                  g_const=1.0, *, periodic: bool = True,
-                                 variant: str = "v1"):
+                                 variant: str = "v1", sources=None,
+                                 source_masses=None):
     """Plain PyTorch K4/K4s: [N, 3] accelerations with each variant's
-    arithmetic, in row blocks of about 8M pairs."""
+    arithmetic, in row blocks of about 8M pairs. With `sources` (and
+    `source_masses`; v1 and v2 only) the rows `positions` are summed over
+    those sources instead of over themselves (K4's cross form)."""
     _check(softening, variant)
     box_size = float(box_size)
     scale = _scale(box_size, variant)
     sym = variant in ("sym", "sym2")
     soft2 = (float(softening) * scale) ** 2
-    pos = positions.to(torch.float32) * scale
-    m = masses.to(torch.float32)
-    n = pos.shape[0]
-    chunk = max(1, (1 << 23) // max(n, 1))
+    tgt = positions.to(torch.float32) * scale
+    if sources is None:
+        pos, m = tgt, masses.to(torch.float32)
+    else:
+        if sym:
+            raise ValueError("the cross form takes v1 or v2")
+        pos = sources.to(torch.float32) * scale
+        m = source_masses.to(torch.float32)
+    n = tgt.shape[0]
+    chunk = max(1, (1 << 23) // max(pos.shape[0], 1))
     out = torch.empty((n, 3), dtype=torch.float32, device=pos.device)
     for i0 in range(0, n, chunk):
-        pi = pos[i0:i0 + chunk]
+        pi = tgt[i0:i0 + chunk]
         d = [pos[None, :, c] - pi[:, c, None] for c in range(3)]
         if periodic:
             # the box-unit variants wrap with box = 1, as the TPU kernels do
@@ -254,29 +274,17 @@ def pairwise_accelerations(positions, masses, box_size, softening=0.01,
             periodic=periodic, variant=variant)
     box_size = float(box_size)
     n = positions.shape[0]
-    if tuple(positions.shape) != (n, 3) or tuple(masses.shape) != (n,):
-        raise ValueError(f"positions must be [N, 3] and masses [N], got "
-                         f"{tuple(positions.shape)} and "
-                         f"{tuple(masses.shape)}")
     scale = _scale(box_size, variant)
-    pts = torch.cat([positions.to(torch.float32) * scale,
-                     masses.to(torch.float32)[:, None]], dim=1).contiguous()
+    pts = _points(positions, masses, scale)
     cuda_build.require_cuda("direct", pts)
+    if variant in ("v1", "v2"):
+        launches["direct"] += 1
+        return _launch_k4(pts, pts, box_size, softening, g_const, periodic,
+                          variant)
     out = torch.empty((n, 3), dtype=torch.float32, device=pts.device)
     soft2 = (float(softening) * scale) ** 2
     oscale = float(g_const) * scale * scale
     box = box_size * scale
-    if variant in ("v1", "v2"):
-        flag = _range_flag(pts.device)
-        slices = j_slices(n)
-        partial = torch.empty((slices, n, 3) if slices > 1 else (0,),
-                              dtype=torch.float32, device=pts.device)
-        launches["direct"] += 1
-        cuda_build.launch("lcdm_direct", pts.data_ptr(), out.data_ptr(),
-                          partial.data_ptr(), flag.data_ptr(), n, slices,
-                          int(variant == "v2"), int(bool(periodic)),
-                          box_size, soft2, oscale, PAIR_POSITION_LIMIT * box)
-        return out
     ntiles, runs = sym_tiles(n), sym_runs(n)
     half = (ntiles - 1) // 2
     rowpart = torch.empty((ntiles * runs, 3, SYM_TILE),
@@ -292,6 +300,64 @@ def pairwise_accelerations(positions, masses, box_size, softening=0.01,
                       int(bool(periodic)), box, soft2, oscale, half_t,
                       span_t)
     return out
+
+
+def _points(positions, masses, scale: float = 1.0):
+    """The kernels' [N, 4] float32 rows (x, y, z) * scale, m."""
+    n = positions.shape[0]
+    if tuple(positions.shape) != (n, 3) or tuple(masses.shape) != (n,):
+        raise ValueError(f"positions must be [N, 3] and masses [N], got "
+                         f"{tuple(positions.shape)} and "
+                         f"{tuple(masses.shape)}")
+    return torch.cat([positions.to(torch.float32) * scale,
+                      masses.to(torch.float32)[:, None]], dim=1).contiguous()
+
+
+def _launch_k4(pts, src, box_size: float, softening, g_const, periodic,
+               variant: str):
+    """One K4 launch: the rows pts [n, 4] against the sources src [m, 4]
+    (the same tensor for the solver)."""
+    n, m = pts.shape[0], src.shape[0]
+    scale = _scale(box_size, variant)
+    out = torch.empty((n, 3), dtype=torch.float32, device=pts.device)
+    flag = _range_flag(pts.device)
+    slices = j_slices(n, m)
+    partial = torch.empty((slices, n, 3) if slices > 1 else (0,),
+                          dtype=torch.float32, device=pts.device)
+    cuda_build.launch("lcdm_direct", pts.data_ptr(), src.data_ptr(),
+                      out.data_ptr(), partial.data_ptr(), flag.data_ptr(), n,
+                      m, slices, int(variant == "v2"), int(bool(periodic)),
+                      box_size, (float(softening) * scale) ** 2,
+                      float(g_const) * scale * scale,
+                      PAIR_POSITION_LIMIT * box_size * scale)
+    return out
+
+
+def pairwise_accelerations_cross(targets, sources, source_masses, box_size,
+                                 softening=0.01, g_const=1.0, *,
+                                 periodic: bool = True, variant: str = "v1"):
+    """K4's cross form: accelerations [n, 3] on the rows `targets` [n, 3]
+    from the m `sources` [m, 3] with `source_masses` [m] (v1 or v2
+    arithmetic), the per-step sum of the multi-rank ring
+    (parallel/sharded.ring_direct_accelerations). CUDA tensors launch K4
+    with the sources as a separate array (launch key "direct_cross"); CPU
+    tensors take pairwise_accelerations_plain(..., sources=...)."""
+    _check(softening, variant)
+    if variant not in ("v1", "v2"):
+        raise ValueError("the cross form takes v1 or v2")
+    if targets.device.type == "cpu":
+        return pairwise_accelerations_plain(
+            targets, targets.new_zeros(targets.shape[0]), box_size,
+            softening, g_const, periodic=periodic, variant=variant,
+            sources=sources, source_masses=source_masses)
+    box_size = float(box_size)
+    scale = _scale(box_size, variant)
+    tgt = _points(targets, targets.new_zeros(targets.shape[0]), scale)
+    src = _points(sources, source_masses, scale)
+    cuda_build.require_cuda("direct_cross", tgt, src)
+    launches["direct_cross"] += 1
+    return _launch_k4(tgt, src, box_size, softening, g_const, periodic,
+                      variant)
 
 
 def _soft2_thr(softening):
@@ -335,23 +401,76 @@ def pair_potential(positions, masses, box_size, softening=0.01, g_const=1.0,
         return pair_potential_plain(positions, masses, box_size, softening,
                                     g_const, chunk_size)
     n = positions.shape[0]
-    if tuple(positions.shape) != (n, 3) or tuple(masses.shape) != (n,):
-        raise ValueError(f"positions must be [N, 3] and masses [N], got "
-                         f"{tuple(positions.shape)} and "
-                         f"{tuple(masses.shape)}")
-    pts = torch.cat([positions.to(torch.float32),
-                     masses.to(torch.float32)[:, None]], dim=1).contiguous()
+    pts = _points(positions, masses)
     cuda_build.require_cuda("pair_potential", pts)
-    if n and float(pts[:, :3].abs().max()) >= PAIR_POSITION_LIMIT * float(
-            box_size):
-        raise ValueError(f"pair_potential: positions must lie within "
-                         f"{PAIR_POSITION_LIMIT:g} boxes of the origin")
+    _check_pair_range(pts, box_size)
     ntiles = pair_tiles(n)
     partial = torch.empty((ntiles * ((ntiles - 1) // 2 + 1),),
                           dtype=torch.float64, device=pts.device)
     soft2, thr = _soft2_thr(softening)
     launches["pair_potential"] += 1
-    cuda_build.launch("lcdm_pair_potential", pts.data_ptr(),
-                      partial.data_ptr(), n, ntiles, float(box_size), soft2,
-                      thr)
+    cuda_build.launch("lcdm_pair_potential", pts.data_ptr(), None,
+                      partial.data_ptr(), n, n, ntiles, float(box_size),
+                      soft2, thr)
     return -float(g_const) * torch.sum(partial)
+
+
+def _check_pair_range(pts, box_size) -> None:
+    if pts.shape[0] and float(pts[:, :3].abs().max()) >= \
+            PAIR_POSITION_LIMIT * float(box_size):
+        raise ValueError(f"pair_potential: positions must lie within "
+                         f"{PAIR_POSITION_LIMIT:g} boxes of the origin")
+
+
+def pair_potential_cross_plain(positions, masses, source_positions,
+                               source_masses, box_size, softening=0.01,
+                               g_const=1.0):
+    """Plain PyTorch K9 cross form: -G/2 sum over every ordered pair (i of
+    `positions`, j of `source_positions`) of m_i m_j / sqrt(r^2 + eps^2),
+    minimum image, pairs with r^2 <= eps^2 + 1e-30 left out (the JAX
+    ring's guard), as a 0-d float64 tensor; row blocks of about 8M pairs,
+    block sums in float64."""
+    m = source_positions.shape[0]
+    rows = max(1, (1 << 23) // max(m, 1))
+    soft2 = torch.tensor(softening, dtype=positions.dtype,
+                         device=positions.device) ** 2
+    total = torch.zeros((), dtype=torch.float64, device=positions.device)
+    for i0 in range(0, positions.shape[0], rows):
+        d = min_image(source_positions[None, :, :]
+                      - positions[i0:i0 + rows, None, :], box_size)
+        r2 = torch.sum(d * d, dim=-1) + soft2
+        inv_r = torch.where(r2 <= soft2 + 1e-30, 0.0, torch.rsqrt(r2))
+        pair = (masses[i0:i0 + rows, None] * source_masses[None, :]) * inv_r
+        total = total + torch.sum(pair, dtype=torch.float64)
+    return -0.5 * float(g_const) * total
+
+
+def pair_potential_cross(positions, masses, source_positions, source_masses,
+                         box_size, softening=0.01, g_const=1.0):
+    """K9's cross form (see pair_potential_cross_plain): the per-step sum
+    of the ring energy (parallel/sharded.sharded_energy). With one set as
+    both arguments it counts each unordered pair twice and so equals
+    pair_potential. CUDA tensors launch K9's cross kernel (launch key
+    "pair_potential_cross"; deterministic, one float64 partial a tile
+    pair); CPU tensors take the plain version."""
+    if positions.device.type == "cpu":
+        return pair_potential_cross_plain(positions, masses,
+                                          source_positions, source_masses,
+                                          box_size, softening, g_const)
+    pts = _points(positions, masses)
+    src = _points(source_positions, source_masses)
+    cuda_build.require_cuda("pair_potential_cross", pts, src)
+    _check_pair_range(pts, box_size)
+    _check_pair_range(src, box_size)
+    n, m = pts.shape[0], src.shape[0]
+    ntiles = -(-n // PAIR_TILE)
+    partial = torch.empty((max(1, ntiles * -(-m // PAIR_TILE)),),
+                          dtype=torch.float64, device=pts.device)
+    if n == 0 or m == 0:
+        partial.zero_()
+    soft2, thr = _soft2_thr(softening)
+    launches["pair_potential_cross"] += 1
+    cuda_build.launch("lcdm_pair_potential", pts.data_ptr(), src.data_ptr(),
+                      partial.data_ptr(), n, m, ntiles, float(box_size),
+                      soft2, thr)
+    return -0.5 * float(g_const) * torch.sum(partial)

@@ -28,8 +28,10 @@ from ..utils import prng
 RHO_CRIT = 27.753662724570805
 
 
-def fourier_grid(ng: int, box_size: float, device=None):
-    """Wavevectors (kx, ky, kz, k2) for an rfftn-layout grid, float32."""
+def fourier_grid(ng: int, box_size: float, device="cuda"):
+    """Wavevectors (kx, ky, kz, k2) for an rfftn-layout grid, float32, on
+    `device` (the card unless named, as the JAX package's arrays go to
+    its default device)."""
     two_pi = 2.0 * math.pi
     kf = torch.fft.fftfreq(ng, d=1.0 / ng, device=device,
                            dtype=torch.float32) * (two_pi / box_size)
@@ -126,8 +128,9 @@ def second_order_displacement(delta_k, ng: int, box_size: float):
     return torch.stack(psi2)
 
 
-def lattice_positions(n_side: int, box_size: float, device=None):
-    """Uniform grid particle load at cell centres -> [n^3, 3]."""
+def lattice_positions(n_side: int, box_size: float, device="cuda"):
+    """Uniform grid particle load at cell centres -> [n^3, 3] on `device`
+    (the card unless named)."""
     idx = (torch.arange(n_side, dtype=torch.float32, device=device)
            + 0.5) * (box_size / n_side)
     qx, qy, qz = torch.meshgrid(idx, idx, idx, indexing="ij")
@@ -238,6 +241,18 @@ def glass_positions(key, n: int, box_size: float,
         pos = torch.rand((n, 3), generator=key, device=key.device,
                          dtype=torch.float32) * box_size
     return glass_relax(pos, box_size, iterations, softening)
+
+
+def displacement_statistics(positions, box_size: float, n_side: int):
+    """RMS, max and mean displacement from the n_side^3 lattice (minimum
+    image), as 0-d tensors on the positions' device."""
+    from ..forces.direct import min_image
+    q = lattice_positions(n_side, box_size, device=positions.device)
+    d = min_image(positions - q, box_size)
+    mag = torch.sqrt(torch.sum(d * d, dim=-1))
+    return {"rms_displacement": torch.sqrt(torch.mean(mag ** 2)),
+            "max_displacement": torch.max(mag),
+            "mean_displacement": torch.mean(mag)}
 
 
 def generate_state(config, device="cuda") -> SimState:

@@ -70,10 +70,13 @@ def wrap_positions(positions, box_size):
 
 
 def adaptive_dt(acc, softening, dt, min_dt, max_dt, eta=0.25,
-                hubble=None, max_dloga=0.0):
+                hubble=None, max_dloga=0.0, amax=None):
     """dt <= eta*sqrt(eps/|a|_max), optionally also dt <= max_dloga/H(a);
-    acc is [N, 3]. Returns a float32 0-d tensor on acc's device."""
-    amax = torch.max(torch.sqrt(torch.sum(acc * acc, dim=-1)))
+    acc is [N, 3], or `amax` (a 0-d tensor) gives |a|_max (the largest
+    over every rank's rows of a mesh). Returns a float32 0-d tensor on
+    acc's device."""
+    if amax is None:
+        amax = torch.max(torch.sqrt(torch.sum(acc * acc, dim=-1)))
     dt_lim = eta * torch.sqrt(softening / torch.clamp(amax, min=1e-30))
     if hubble is not None and max_dloga > 0:
         h = as_f32(hubble).to(dt_lim.device)

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
 (K1 CIC deposit, K2 fd4 gather, also on a 5,000-row cell and a mostly
 dead layout, K3 short-range pairs in each split form,
-K4/K4s direct sums, K5 FoF hook, K6/K7 lens samplers, K8 rod-dense
-pairs, K9 pair potential, K10 alias probe), and the treepm_fast stepper,
+K4/K4s direct sums and K4's cross form, K5 FoF hook, K6/K7 lens
+samplers, K8 rod-dense pairs, K9 pair potential and its cross form, K10
+alias probe), a 2-rank gloo ring and the lcdm round trip of a card
+state, and the treepm_fast stepper,
 fof_labels, the `direct` solver and the lensing trace on the card against
 the same runs on the CPU. These need a CUDA
 card and nvcc; elsewhere they skip:
@@ -1125,3 +1127,106 @@ def test_engine_warmup_and_trace_on_card(cuda_device, tmp_path):
     assert _rel(eng.state.positions, ref.state.positions) < 1e-6
     s = trace_summary(str(tmp_path / "trace"))
     assert s["device_events"] > 0 and 0 < s["device_busy_share"] <= 1
+
+
+@pytest.mark.parametrize("variant", ["v1", "v2"])
+@pytest.mark.parametrize("n, m", [(200, 333), (333, 77), (5000, 10_648),
+                                  (10_648, 10_648)])
+def test_direct_cross_kernel(cuda_device, n, m, variant):
+    """K4's cross form (n targets, m separate sources) against its plain
+    version at K4's bar, periodic and not, one "direct_cross" launch a
+    call; with one array as both sets it is the solver's call byte for
+    byte."""
+    box = 20.0
+    rng = np.random.default_rng(n + m)
+    t = torch.tensor(rng.uniform(0, box, (n, 3)), dtype=torch.float32,
+                     device=cuda_device)
+    s_, sm = (tt(a).to(cuda_device) for a in uniform_particles(m, box, m))
+    for periodic in (True, False):
+        before = direct.launches["direct_cross"]
+        got = direct.pairwise_accelerations_cross(
+            t, s_, sm, box, 0.05, 2.0, periodic=periodic, variant=variant)
+        assert direct.launches["direct_cross"] == before + 1
+        ref = direct.pairwise_accelerations_cross(
+            t.cpu(), s_.cpu(), sm.cpu(), box, 0.05, 2.0, periodic=periodic,
+            variant=variant)
+        assert _rel(got.cpu(), ref) < DIRECT_TOL
+    same = direct.pairwise_accelerations_cross(s_, s_, sm, box, 0.05, 2.0,
+                                               variant=variant)
+    solver = direct.pairwise_accelerations(s_, sm, box, 0.05, 2.0,
+                                           variant=variant)
+    assert torch.equal(same, solver)
+
+
+@pytest.mark.parametrize("n, m", [(1, 1), (200, 333), (5000, 1537)])
+def test_pair_potential_cross_kernel(cuda_device, n, m):
+    """K9's cross form against its plain version at K9's bar (1e-6),
+    deterministic, one launch a call; over one set it equals the
+    symmetric K9 to that bar (each unordered pair counted from both
+    sides, halved)."""
+    box = 20.0
+    a = [tt(x).to(cuda_device) for x in uniform_particles(n, box, n + 1)]
+    b = [tt(x).to(cuda_device) for x in uniform_particles(m, box, m + 2)]
+    before = direct.launches["pair_potential_cross"]
+    got = direct.pair_potential_cross(*a, *b, box, 0.05, 2.0)
+    again = direct.pair_potential_cross(*a, *b, box, 0.05, 2.0)
+    assert direct.launches["pair_potential_cross"] == before + 2
+    assert float(got) == float(again)
+    ref = direct.pair_potential_cross_plain(*(x.cpu() for x in a + b), box,
+                                            0.05, 2.0)
+    assert abs(float(got) - float(ref)) <= 1e-6 * max(abs(float(ref)),
+                                                      1e-300)
+    sym = direct.pair_potential(*b, box, 0.05, 2.0)
+    cross = direct.pair_potential_cross(*b, *b, box, 0.05, 2.0)
+    assert abs(float(cross) - float(sym)) <= 1e-6 * abs(float(sym))
+
+
+def test_lcdm_roundtrip_of_a_card_state(cuda_device, tmp_path):
+    """A card state through the native .lcdm codec: the file's arrays
+    are the card's bits, and it loads back onto the card."""
+    from lambda_cdm_tpu_torch.core.state import make_state
+    from lambda_cdm_tpu_torch.utils import checkpoint as ckpt
+    pos, m = uniform_particles(5000, 30.0, 3)
+    st = make_state(tt(pos).to(cuda_device),
+                    torch.randn(5000, 3, device=cuda_device),
+                    tt(m).to(cuda_device), scale_factor=0.25, step=9)
+    path = ckpt.save_snapshot(str(tmp_path / "card.lcdm"), st)
+    back, _ = ckpt.load_snapshot(path, device=cuda_device)
+    assert back.positions.device.type == "cuda"
+    for f in ("positions", "velocities", "masses"):
+        assert torch.equal(getattr(back, f), getattr(st, f))
+    assert int(back.step) == 9 and float(back.scale_factor) == 0.25
+
+
+def test_two_rank_gloo_ring_on_card(cuda_device, tmp_path):
+    """Two spawned ranks on the one card, gloo staging their exchanges
+    through the host: the ring's forces against K4 on the whole set, the
+    ring's energy against K9, each rank's K4 and K9 cross forms
+    launched once a ring step; the sharded PM at 128^3 against the
+    single-device PM at 1e-5 (the slab inverse's Nyquist planes through
+    cuFFT's c2r: its gradient spectra are not Hermitian there)."""
+    from _torch_mesh_worker import run_ranks
+    from lambda_cdm_tpu_torch.forces.pm import pm_accelerations
+    n, box = 4096, 40.0
+    rng = np.random.default_rng(1)
+    p = {"pos": rng.uniform(0, box, (n, 3)).astype(np.float32),
+         "vel": rng.normal(size=(n, 3)).astype(np.float32),
+         "mass": rng.uniform(0.5, 1.5, n).astype(np.float32),
+         "box": box, "soft": 0.1, "g": 1.0, "ng": 128}
+    res = run_ranks("ring", 2, tmp_path, p, device="cuda")
+    pos, mass, vel = (torch.as_tensor(p[k]).to(cuda_device)
+                      for k in ("pos", "mass", "vel"))
+    ref = direct.pairwise_accelerations(pos, mass, box, 0.1, 1.0)
+    got = torch.as_tensor(np.concatenate([r["acc"] for r in res]))
+    assert _rel(got, ref.cpu()) < DIRECT_TOL
+    pm = torch.as_tensor(np.concatenate([r["pm"] for r in res]))
+    assert _rel(pm, pm_accelerations(pos, mass, 128, box, 1.0).cpu()) \
+        < 1e-5
+    pe = float(direct.pair_potential(pos, mass, box, 0.1, 1.0))
+    ke = float(0.5 * torch.sum(mass * torch.sum(vel * vel, -1)))
+    for r in res:
+        assert r["device"].startswith("cuda")
+        assert r["transport"].startswith("gloo")
+        assert r["direct_cross"] == 2 and r["pair_potential_cross"] == 2
+        assert abs(r["energy_potential"] - pe) <= 1e-6 * abs(pe)
+        assert abs(r["energy_kinetic"] - ke) <= 1e-6 * abs(ke)

@@ -334,3 +334,54 @@ def test_pair_schedule_sum_half_box_lattice(box):
     jref = float(jdirect.potential_energy(*_jx(pos, m), box, 0.05, 43.0071))
     assert abs(got - ref) <= TOL * abs(ref)
     assert abs(got - jref) <= TOL * abs(jref)
+
+
+# -- the cross forms of the multi-rank ring ----------------------------------
+
+@pytest.mark.parametrize("n, m", [(100, 333), (333, 100)])
+def test_cross_forms_plain_match_the_jax_ring_step(n, m):
+    """K4's and K9's cross forms (plain versions) against the JAX ring's
+    step bodies: parallel/sharded._partial_direct at K4's bar, and the
+    sharded_energy step's sum over ordered pairs with its guard at 1e-6;
+    a zero-mass source adds nothing."""
+    from lambda_cdm_tpu.parallel.sharded import _partial_direct
+    box, soft = 20.0, 0.05
+    t, tm = uniform_particles(n, box, seed=n)
+    s, sm = uniform_particles(m, box, seed=m + 1)
+    sm[::7] = 0.0
+    ref = _partial_direct(*_jx(t, s, sm), box, soft * soft)
+    got = tops.pairwise_accelerations_cross(tt(t), tt(s), tt(sm), box, soft,
+                                            1.0)
+    assert max_rel(got, ref) <= TOL
+    d = jdirect.min_image(jnp.asarray(s)[None] - jnp.asarray(t)[:, None],
+                          box)
+    r2 = jnp.sum(d * d, -1) + soft * soft
+    inv_r = jnp.where(r2 <= soft * soft + 1e-30, 0.0, jax.lax.rsqrt(r2))
+    ref_u = -0.5 * 1.3 * float(jnp.sum(jnp.asarray(tm)[:, None]
+                                       * jnp.asarray(sm)[None] * inv_r))
+    got_u = tops.pair_potential_cross(tt(t), tt(tm), tt(s), tt(sm), box,
+                                      soft, 1.3)
+    assert got_u.dtype == torch.float64
+    assert abs(float(got_u) - ref_u) <= 1e-6 * abs(ref_u)
+
+
+def test_cross_forms_on_one_set():
+    """With one set as both arguments the cross forms are the symmetric
+    functions: K4's plain cross form is the solver's plain sum byte for
+    byte, K9's cross form is pair_potential to 1e-6 (the self pair left
+    out by the guard); the sym variants take no separate sources."""
+    box, soft = 20.0, 0.05
+    p, m = uniform_particles(500, box, seed=3)
+    for variant in ("v1", "v2"):
+        assert torch.equal(
+            tops.pairwise_accelerations_cross(tt(p), tt(p), tt(m), box, soft,
+                                              2.0, variant=variant),
+            tops.pairwise_accelerations_plain(tt(p), tt(m), box, soft, 2.0,
+                                              variant=variant))
+    sym = float(tops.pair_potential(tt(p), tt(m), box, soft, 2.0))
+    cross = float(tops.pair_potential_cross(tt(p), tt(m), tt(p), tt(m), box,
+                                            soft, 2.0))
+    assert abs(cross - sym) <= 1e-6 * abs(sym)
+    with pytest.raises(ValueError, match="v1 or v2"):
+        tops.pairwise_accelerations_cross(tt(p), tt(p), tt(m), box, soft,
+                                          variant="sym")

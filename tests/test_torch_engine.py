@@ -177,7 +177,10 @@ def test_builder_device_and_refusals(tmp_path):
     and step on the CPU (their parity with the JAX engine is
     test_stateless_run_matches); pm_fast runs as the JAX engine does
     (_check_pm_fast_run); warmup needs initialize() first, as the JAX
-    engine's does; orbax and the mesh still raise."""
+    engine's does; the orbax form round-trips through the engine; a
+    mesh config at world size 1 runs on one device, as the JAX engine
+    does on one device, and the mesh configs this port does not cover
+    (treepm_fast, the shx/shy axes) raise."""
     cfg = tlc.SimulationConfig()
     cfg.forces.type = "treepm_fast"
     b = tlc.SimulationBuilder()
@@ -200,18 +203,33 @@ def test_builder_device_and_refusals(tmp_path):
     _check_pm_fast_run()
     with pytest.raises(RuntimeError, match="initialize"):
         eng.warmup()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.load_checkpoint(str(tmp_path))              # orbax directories
     with pytest.raises(RuntimeError, match="not initialized"):
         eng.compute_energy()
-    cfg.io.output_format = "orbax"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.save_checkpoint(str(tmp_path / "x"))
-    c = tlc.SimulationConfig()
-    c.forces.type = "treepm_fast"
-    c.compute.mesh.enabled = True
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tlc.SimulationEngine(c, device="cpu").initialize()
+    e.config.io.output_format = "orbax"
+    out = e.save_checkpoint(str(tmp_path / "x"))
+    assert out.endswith("step_00000002")
+    fresh = tlc.SimulationEngine(e.config, device="cpu")
+    fresh.load_checkpoint(str(tmp_path / "x"))
+    assert int(fresh.state.step) == 2
+    assert torch.equal(fresh.state.positions, e.state.positions)
+    for kind, axes in (("treepm_fast", None), ("treepm", None),
+                       ("direct", {"shx": 2, "shy": 4})):
+        c = tlc.SimulationConfig()
+        c.forces.type = kind
+        c.compute.mesh.enabled = True
+        if axes:
+            c.compute.mesh.axes = axes
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tlc.SimulationEngine(c, device="cpu").initialize()
+    c = tlc.SimulationConfig.from_dict(
+        {"particles": {"num_particles": 512, "box_size": 64.0},
+         "forces": {"type": "direct", "softening_length": 0.5},
+         "compute": {"mesh": {"enabled": True}}})
+    c.particles.initial_conditions.grid_size = 8
+    e = tlc.SimulationEngine(c, device="cpu")
+    e.initialize()
+    assert e._mesh is None and e.state.positions.shape == (512, 3)
+    e.step(1)
 
 
 def _check_pm_fast_run():

@@ -68,8 +68,9 @@ def test_first_and_second_order_displacements():
 
 
 def test_lattice_and_sampling():
-    np.testing.assert_array_equal(nn(tic.lattice_positions(4, BOX)),
-                                  np.asarray(jic.lattice_positions(4, BOX)))
+    np.testing.assert_array_equal(
+        nn(tic.lattice_positions(4, BOX, device="cpu")),
+        np.asarray(jic.lattice_positions(4, BOX)))
     field = np.random.default_rng(0).normal(size=(3, 8, 8, 8)) \
         .astype(np.float32)
     np.testing.assert_array_equal(
@@ -148,7 +149,7 @@ def test_generate_state_kinds(kind):
     np.testing.assert_array_equal(nn(ts.masses), np.asarray(js.masses))
     assert float(ts.scale_factor) == float(js.scale_factor)
     if kind != "random":
-        q = nn(tic.lattice_positions(8, BOX))
+        q = nn(tic.lattice_positions(8, BOX, device="cpu"))
         disp = lambda p: np.sqrt(np.mean(((p - q + BOX / 2) % BOX  # noqa
                                           - BOX / 2) ** 2))
         rt, rj = disp(nn(ts.positions)), disp(np.asarray(js.positions))

@@ -62,7 +62,7 @@ def test_window_and_multiplicity_match():
             nn(tps._hermitian_multiplicity(ng)),
             np.asarray(jps._hermitian_multiplicity(ng)))
         for kind in ("ngp", "cic", "tsc"):
-            assert max_rel(tps.assignment_window(ng, BOX, kind),
+            assert max_rel(tps.assignment_window(ng, BOX, kind, device="cpu"),
                            jps.assignment_window(ng, BOX, kind)) <= 1e-6
 
 
