@@ -200,18 +200,26 @@ And the formats, the examples and the multi-rank path:
  27. examples phase: the seven single-device scripts of
      lambda_cdm_tpu_torch/examples and multichip_demo (4 spawned ranks) at
      their default sizes, all started together, each exiting 0;
- 28. mesh phase: direct_10k.json (20 steps) and pm_128_256.json (5 steps)
-     with compute.mesh.enabled as 4 spawned ranks on the one card (gloo,
-     every exchange staged through host memory; NCCL refuses two ranks on
-     one card), launch counts reset just before each run and summed over
-     the ranks just after its closing energy: the mesh's forces on its
-     homed start and final states against the single-device solver on the
-     same states (1e-5 of the largest |a|), its energies (K9's cross form
-     a ring step) against K9 there and the two runs' closing energies
-     (1e-6), migration overflow 0, the particle count and masses conserved
-     exactly, ms/step of 1 rank and of 4 labelled with the transport, the
-     sharded PM's bytes a rank sends; then K4's and K9's cross forms
-     against their plain versions at the ring's shapes, timed.
+ 28. mesh phase: with compute.mesh.enabled as 4 spawned ranks on the one
+     card (gloo, every exchange staged through host memory; NCCL refuses
+     two ranks on one card): on the 1D slab mesh direct_10k.json (20
+     steps), pm_128_256.json (5 steps) and the sharded TreePM run A
+     (multichip_512.json cut in volume at its resolution: 125 Mpc/h,
+     128^3 particles, PM 128, 3 steps); TreePM runs B on {shx: 2, shy: 2}
+     and C on {shx: 1, shy: 2, shz: 2} (62.5 Mpc/h, 64^3, PM 64, 2 steps
+     each); direct_10k.json on {shx: 2, shy: 2} (20 steps). Launch counts
+     reset just before each run and summed over the ranks just after its
+     closing energy: the mesh's forces on its homed start and final
+     states against the single-device forces on the same states (for
+     the TreePM the PM split plus the bucketed short range over the halo
+     pass's pair set; 1e-5 of the largest |a|), its energies (K9's cross
+     form a ring step) against K9 there and the closing energies of the
+     single-device run of the same forces (1e-6), migration and halo
+     overflow 0, the particle count and masses conserved exactly, ms/step
+     of 1 rank and of 4 labelled with the transport, the sharded PM's and
+     the halo exchange's bytes a rank sends; B's ring short range against
+     its halo pass (2e-3); then K4's and K9's cross forms against their
+     plain versions at the slab ring's shapes, timed.
 
 The CLI phase also validates the treepm_1m state's forces through the
 stateless treepm solver.
@@ -3738,9 +3746,31 @@ def examples_phase(device, card):
 
 
 MESH_RANKS = 4
-MESH_RUNS = ((DIRECT_CONFIG, 20), (PM_CONFIG, 5))
-MESH_FORCE_TOL = 1e-5    # ring: K4's bar; sharded PM: the stateless pm bar
+MULTICHIP_CONFIG = os.path.join(ROOT, "examples", "configs",
+                                "multichip_512.json")
+# (label, config, steps, changes): the shipped multichip_512.json (treepm,
+# softening 0.02, z = 49, migrate_capacity_factor 1.5) cut in volume at
+# its resolution (spacing 0.977 Mpc/h, rs 1.22, r_cut 5.49: box / PM grid
+# and box / particles a side kept); "axes" replaces compute.mesh.axes;
+# "ring" also holds the ring short range against the halo on the start
+# state
+MESH_RUNS = (
+    ("direct_10k", DIRECT_CONFIG, 20, {}),
+    ("pm_128_256", PM_CONFIG, 5, {}),
+    ("treepm A", MULTICHIP_CONFIG, 3,
+     {"box": 125.0, "side": 128, "ng": 128, "axes": {"shard": -1}}),
+    ("treepm B", MULTICHIP_CONFIG, 2,
+     {"box": 62.5, "side": 64, "ng": 64, "axes": {"shx": 2, "shy": 2},
+      "ring": True}),
+    ("treepm C", MULTICHIP_CONFIG, 2,
+     {"box": 62.5, "side": 64, "ng": 64,
+      "axes": {"shx": 1, "shy": 2, "shz": 2}}),
+    ("direct_10k pencils", DIRECT_CONFIG, 20, {"axes": {"shx": 2, "shy": 2}}))
+MESH_FORCE_TOL = 1e-5    # ring: K4's bar; sharded PM and TreePM: the
+                         # stateless pm bar, over the same pair set
 MESH_ENERGY_TOL = 1e-6
+MESH_RING_TOL = 2e-3     # ring against halo: the split tail past r_cut
+                         # (tests/test_sharded_treepm.py:82)
 
 
 def pm_exchange_bytes(ng: int, n_ranks: int) -> dict:
@@ -3756,23 +3786,57 @@ def pm_exchange_bytes(ng: int, n_ranks: int) -> dict:
             "all_gather": 3 * 4 * ng ** 3 / d * (d - 1)}
 
 
-def mesh_config(path: str):
+def mesh_config(path: str, change: dict):
+    """The config of a mesh run: `path` with compute.mesh.enabled and the
+    run's changes (box, particles a side, PM grid, mesh axes)."""
     from lambda_cdm_tpu_torch.core.config import SimulationConfig
     cfg = SimulationConfig.from_file(path)
     cfg.compute.mesh.enabled = True
     cfg.profiling.output_file = ""
     cfg.simulation.checkpoint_frequency = 0
+    if "box" in change:
+        side = change["side"]
+        cfg.particles.box_size = change["box"]
+        cfg.particles.num_particles = side ** 3
+        cfg.forces.pm_grid_size = change["ng"]
+        # the loaders drop the file's IC block (ROADMAP Queue 3): its
+        # 2LPT at seed 11 on a grid of the particles a side
+        ic = cfg.particles.initial_conditions
+        ic.type, ic.random_seed, ic.grid_size = "2lpt", 11, side
+    if "axes" in change:
+        cfg.compute.mesh.axes = dict(change["axes"])
     return cfg
 
 
-def _mesh_rank_run(path: str, steps: int, device: str) -> dict:
-    """One config on this rank: the homed state's forces and energy, the
-    run (launch counts reset just before, summed over the ranks just
-    after its closing compute_energy), the final state's forces."""
+def halo_bytes(plan: dict, dims: tuple) -> float:
+    """Bytes one rank sends in the halo exchange of a force evaluation:
+    two cell planes of float32 (positions, mass) each way along each axis
+    of more than one rank, each plane carrying the halos of the axes
+    before it."""
+    nc, k = plan["nc"], plan["capacity"]
+    dims = tuple(dims) + (1,) * (3 - len(dims))       # a slab: (D, 1, 1)
+    ext = [nc // d for d in dims]
+    sent = 0.0
+    for a, d in enumerate(dims):
+        plane = math.prod(ext) // ext[a]
+        if d > 1:
+            sent += 2 * plane * k * 4 * 4
+        ext[a] += 2
+    return sent
+
+
+def _mesh_rank_run(label: str, path: str, steps: int, change: dict,
+                   device: str) -> dict:
+    """One config on this rank: the homed state's forces (and the sharded
+    TreePM's overflow) and energy, the run (launch counts reset just
+    before, summed over the ranks just after its closing compute_energy),
+    the final state's forces; with change["ring"], the ring short range
+    and the halo pass on the start state."""
     import torch
     from lambda_cdm_tpu_torch.core.engine import SimulationEngine
     from lambda_cdm_tpu_torch.utils.profiling import synchronize
-    eng = SimulationEngine(mesh_config(path), device=device)
+    cfg = mesh_config(path, change)
+    eng = SimulationEngine(cfg, device=device)
     eng.initialize()
     mesh = eng._mesh
 
@@ -3780,14 +3844,37 @@ def _mesh_rank_run(path: str, steps: int, device: str) -> dict:
         st = eng.state
         acc = mesh.all_gather(eng.accel_fn(eng._state))
         e = eng.compute_energy()
-        return {f"{tag}_pos": st.positions.cpu().numpy(),
-                f"{tag}_vel": st.velocities.cpu().numpy(),
-                f"{tag}_mass": st.masses.cpu().numpy(),
-                f"{tag}_acc": acc.cpu().numpy(),
-                f"{tag}_ke": float(e["kinetic"]),
-                f"{tag}_pe": float(e["potential"])}
+        out = {f"{tag}_pos": st.positions.cpu().numpy(),
+               f"{tag}_vel": st.velocities.cpu().numpy(),
+               f"{tag}_mass": st.masses.cpu().numpy(),
+               f"{tag}_acc": acc.cpu().numpy(),
+               f"{tag}_ke": float(e["kinetic"]),
+               f"{tag}_pe": float(e["potential"])}
+        if eng.mesh_force_diagnostics is not None:
+            out[f"{tag}_halo_overflow"] = \
+                eng.mesh_force_diagnostics["overflow"]
+            out["plan"] = eng.mesh_force_diagnostics["plan"]
+        return out
 
     out = snap("start")
+    out.update(dims=mesh.dims, n_loc=eng._state.num_particles)
+    if change.get("ring"):
+        from lambda_cdm_tpu_torch.parallel import sharded_treepm as stp
+        st, plan = eng._state, out["plan"]
+        kw = dict(box_size=cfg.particles.box_size, rs=plan["rs"],
+                  softening=cfg.forces.softening_length, mesh=mesh)
+        t0 = time.perf_counter()
+        halo, _ = stp.halo_short_range_accelerations_3d(
+            st.positions, st.masses, nc=plan["nc"],
+            capacity=plan["capacity"], **kw)
+        synchronize(halo)
+        t1 = time.perf_counter()
+        ring = stp.ring_short_range_accelerations(st.positions, st.masses,
+                                                  **kw)
+        synchronize(ring)
+        out.update(ring_halo=mesh.all_gather(halo).cpu().numpy(),
+                   ring_ring=mesh.all_gather(ring).cpu().numpy(),
+                   ring_halo_s=t1 - t0, ring_s=time.perf_counter() - t1)
     synchronize(eng._state.positions)
     mesh.barrier()
     reset_counts()
@@ -3805,8 +3892,7 @@ def _mesh_rank_run(path: str, steps: int, device: str) -> dict:
                steps=eng.statistics.total_steps,
                compute_s=eng.statistics.compute_time_s, wall_s=wall,
                overflow=eng.mesh_overflow, transport=mesh.transport,
-               run_ke=float(e["kinetic"]), run_pe=float(e["potential"]),
-               n_loc=eng._state.num_particles)
+               run_ke=float(e["kinetic"]), run_pe=float(e["potential"]))
     return out
 
 
@@ -3823,8 +3909,12 @@ def mesh_rank(rank: int, n_ranks: int, root: str, runs, device: str
     pmesh.init_process_group(rank, n_ranks,
                              f"file://{os.path.join(root, 'pg')}", "gloo")
     try:
-        out = {path: _mesh_rank_run(path, steps, device)
-               for path, steps in runs}
+        out = {}
+        for label, path, steps, change in runs:
+            out[label] = _mesh_rank_run(label, path, steps, change, device)
+            # each run's card memory goes before the next
+            import torch
+            torch.cuda.empty_cache()
         if rank == 0:
             with open(os.path.join(root, "rank0.pkl"), "wb") as f:
                 pickle.dump(out, f)
@@ -3832,18 +3922,61 @@ def mesh_rank(rank: int, n_ranks: int, root: str, runs, device: str
         dist.destroy_process_group()
 
 
-def _single_forces(cfg, pos, mass, device):
-    """The single-device solver of cfg on (pos, mass): K4 for direct, the
-    plain PM for pm."""
+def _single_forces(cfg, pos, mass, device, plan=None):
+    """The single-device forces of cfg on (pos, mass): K4 for direct, the
+    plain PM for pm; for treepm the PM split at plan's rs plus G times
+    short_range_bucketed on bucket_particles at plan's nc and capacity
+    (the halo pass's pair set), over the occupied slot depth (the
+    fullest cell's count: the slots past it are empty in every cell).
+    Returns (acc, the short range's {"overflow", "depth", "ms"} or
+    None)."""
+    import torch
     from lambda_cdm_tpu_torch.forces import auto_pm_grid
     from lambda_cdm_tpu_torch.forces.pm import pm_accelerations
     from lambda_cdm_tpu_torch.ops import direct
+    box, g = cfg.particles.box_size, cfg.units.G
     if cfg.forces.type == "pm":
-        return pm_accelerations(pos, mass, auto_pm_grid(cfg),
-                                cfg.particles.box_size, cfg.units.G)
-    return direct.pairwise_accelerations(pos, mass, cfg.particles.box_size,
-                                         cfg.forces.softening_length,
-                                         cfg.units.G)
+        return pm_accelerations(pos, mass, auto_pm_grid(cfg), box, g), None
+    if cfg.forces.type != "treepm":
+        return direct.pairwise_accelerations(
+            pos, mass, box, cfg.forces.softening_length, g), None
+    from lambda_cdm_tpu_torch.forces.treepm import (bucket_particles,
+                                                    short_range_bucketed)
+    nc, cap, rs = plan["nc"], plan["capacity"], plan["rs"]
+    acc_long = pm_accelerations(pos, mass, auto_pm_grid(cfg), box, g,
+                                split_scale=rs)
+    bpos, bmass, pslot, ovf = bucket_particles(pos, mass, box, ncell=nc,
+                                               capacity=cap)
+    k = max(1, int(torch.sum(bmass > 0, dim=1).max()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    short = short_range_bucketed(bpos[:, :k].contiguous(),
+                                 bmass[:, :k].contiguous(), box, rs,
+                                 cfg.forces.softening_length, ncell=nc,
+                                 capacity=k)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    flat = torch.nn.functional.pad(short, (0, 0, 0, cap - k)).reshape(-1, 3)
+    acc_short = torch.where((pslot >= 0)[:, None],
+                            flat[torch.clamp(pslot, min=0)], 0.0)
+    return acc_long + g * acc_short, {"overflow": int(ovf), "depth": k,
+                                      "ms": ms}
+
+
+def stragglers(pos, mass, box: float, plan: dict, dims: tuple,
+               n_loc: int) -> int:
+    """Live rows whose cell lies outside the block of the rank holding
+    them (the halo pass clips them into its boundary cell, so their pairs
+    past r_cut may differ from the single-device buckets')."""
+    import torch
+    nc = plan["nc"]
+    dims3 = tuple(dims) + (1,) * (3 - len(dims))      # a slab: (D, 1, 1)
+    cell = torch.clamp(torch.floor(pos / torch.tensor(
+        box, dtype=pos.dtype, device=pos.device) * nc).long(), 0, nc - 1)
+    blk = [cell[:, a] // (nc // dims3[a]) for a in range(3)]
+    block = (blk[0] * dims3[1] + blk[1]) * dims3[2] + blk[2]
+    rank = torch.arange(pos.shape[0], device=pos.device) // n_loc
+    return int(torch.sum((mass > 0) & (block != rank)))
 
 
 def cross_kernel_check(pos_i, pos_j, m_i, m_j, box, soft, card, label):
@@ -3897,18 +4030,26 @@ def cross_kernel_check(pos_i, pos_j, m_i, m_j, box, soft, card, label):
 
 
 def mesh_phase(device, card):
-    """The 1D-slab multi-rank path: direct_10k.json (20 steps) and
-    pm_128_256.json (5 steps) with compute.mesh.enabled as MESH_RANKS
-    spawned ranks on the one card (gloo, every exchange staged through
-    host memory), each against the single-device run of the same config
-    from the same state: the mesh's forces on its homed start state and on
-    its final state against the single-device solver on those states
-    (1e-5 of the largest |a|), its energies against K9 and KE there
-    (1e-6), and the two runs' closing energies (1e-6); migration overflow
-    0, the particle count and the multiset of masses conserved exactly;
-    ms/step of each, labelled with the transport. Then K4's and K9's cross
-    forms against their plain versions at the ring's shapes. Returns (the
-    cross forms' records, their launches in the runs)."""
+    """The multi-rank path, MESH_RUNS as MESH_RANKS spawned ranks on the
+    one card (gloo, every exchange staged through host memory): on the 1D
+    slab mesh direct_10k.json (20 steps), pm_128_256.json (5 steps) and
+    run A of the sharded TreePM (multichip_512.json cut to 125 Mpc/h, 128^3
+    particles, PM 128; 3 steps); runs B ({shx: 2, shy: 2}, the (2, 2, 1)
+    grid) and C ({shx: 1, shy: 2, shz: 2}) of the TreePM at 62.5 Mpc/h,
+    64^3, PM 64 (2 steps each; B also holds the ring short range against
+    its halo pass on the start state, 2e-3 of the largest |a|); and
+    direct_10k.json on {shx: 2, shy: 2} (20 steps). Each against the
+    single-device run of the same config from the same state (for the
+    TreePM, its forces the single-device sum over the halo pass's pair
+    set: the PM split plus the bucketed short range at the run's plan):
+    the mesh's forces on its homed start and final states against the
+    single-device forces on those states (1e-5 of the largest |a|), its
+    energies against K9 and KE there (1e-6), and the two runs' closing
+    energies (1e-6); migration and halo overflow 0, the particle
+    count and the multiset of masses conserved exactly; ms/step of each,
+    labelled with the transport. Then K4's and K9's cross forms against
+    their plain versions at the slab ring's shapes. Returns (the cross
+    forms' records, their launches in the slab direct_10k run)."""
     import pickle
     import torch
     import torch.multiprocessing as mp
@@ -3925,56 +4066,81 @@ def mesh_phase(device, card):
                            start_method="spawn")
         with open(os.path.join(root, "rank0.pkl"), "rb") as f:
             res = pickle.load(f)
-        print(f"mesh: {MESH_RANKS} ranks spawned, both runs done in "
-              f"{time.perf_counter() - t0:.1f} s")
+        print(f"mesh: {MESH_RANKS} ranks spawned, {len(MESH_RUNS)} runs done "
+              f"in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     launches = {}
     rec = {}
-    for path, steps in MESH_RUNS:
-        r = res[path]
-        cfg = mesh_config(path)
-        name = os.path.basename(path)
+    for label, path, steps, change in MESH_RUNS:
+        r = res[label]
+        cfg = mesh_config(path, change)
         box, soft, g = (cfg.particles.box_size, cfg.forces.softening_length,
                         cfg.units.G)
         n = cfg.particles.num_particles
+        plan = r.get("plan")
+        treepm = cfg.forces.type == "treepm"
+        grid = f"{label} on {'x'.join(map(str, r['dims']))} ranks"
+        if treepm:
+            print(f"mesh {grid}: plan nc {plan['nc']}, capacity "
+                  f"{plan['capacity']}, rs {plan['rs']:.4f}, r_cut "
+                  f"{plan['r_cut']:.4f}, mean occupancy "
+                  f"{n / plan['nc'] ** 3:.1f}; halo exchange "
+                  f"{halo_bytes(plan, r['dims']) / 1e6:.2f} MB a rank "
+                  f"sends a force evaluation")
         for tag in ("start", "end"):
             pos = torch.as_tensor(r[f"{tag}_pos"], device=device)
             vel = torch.as_tensor(r[f"{tag}_vel"], device=device)
             mass = torch.as_tensor(r[f"{tag}_mass"], device=device)
             live = mass > 0
-            ref = _single_forces(cfg, pos, mass, device)
+            ref, short = _single_forces(cfg, pos, mass, device, plan)
             acc = torch.as_tensor(r[f"{tag}_acc"], device=device)
             err, rel = rel_err(acc[live], ref[live])
             pe = float(potential_energy(pos, mass, box, soft, g))
             ke = float(kinetic_energy(vel, mass))
             de = max(abs(r[f"{tag}_pe"] - pe) / abs(pe),
                      abs(r[f"{tag}_ke"] - ke) / abs(ke))
-            print(f"mesh {name} {tag}: forces against the single-device "
+            print(f"mesh {grid} {tag}: forces against the single-device "
                   f"{cfg.forces.type} on the same state max_abs_err "
                   f"{err:.3e} (rel {rel:.3e}, tol {MESH_FORCE_TOL:g}); "
                   f"energies rel {de:.3e} (tol {MESH_ENERGY_TOL:g}); live "
                   f"{int(live.sum())} of {n}")
-            check(f"mesh {name} {tag}", rel <= MESH_FORCE_TOL,
+            check(f"mesh {label} {tag}", rel <= MESH_FORCE_TOL,
                   f"forces rel err {rel}")
-            check(f"mesh {name} {tag}", de <= MESH_ENERGY_TOL,
+            check(f"mesh {label} {tag}", de <= MESH_ENERGY_TOL,
                   f"energy rel err {de}")
-            check(f"mesh {name} {tag}", int(live.sum()) == n,
+            check(f"mesh {label} {tag}", int(live.sum()) == n,
                   f"{int(live.sum())} live particles, expected {n}")
+            if treepm:
+                off = stragglers(pos, mass, box, plan, r["dims"], r["n_loc"])
+                print(f"mesh {grid} {tag}: halo overflow "
+                      f"{r[f'{tag}_halo_overflow']}, single-device buckets' "
+                      f"{short['overflow']}; rows outside their rank's "
+                      f"block {off}; the single-device short range over "
+                      f"the occupied depth {short['depth']} of "
+                      f"{plan['capacity']} slots {short['ms']:.1f} ms")
+                check(f"mesh {label} {tag}",
+                      r[f"{tag}_halo_overflow"] == 0 == short["overflow"],
+                      "bucket overflow")
             if tag == "start":
                 m0 = torch.sort(mass[live]).values
             else:
-                check(f"mesh {name}", torch.equal(
+                check(f"mesh {label}", torch.equal(
                     torch.sort(mass[live]).values, m0),
                     "the masses changed across the run")
-        check(f"mesh {name}", r["overflow"] == 0,
+        check(f"mesh {label}", r["overflow"] == 0,
               f"migration overflow {r['overflow']}")
-        check(f"mesh {name}", r["steps"] == steps, "steps not taken")
-        # the single-device run of the same config from the same state
+        check(f"mesh {label}", r["steps"] == steps, "steps not taken")
+        # the single-device run of the same config from the same state;
+        # for the TreePM over the halo pass's pair set (the stateless
+        # treepm solver's cells, treepm_plan's, are another pair set)
         eng = SimulationEngine(cfg, device=device)
         eng.initialize()
-        check(f"mesh {name}", eng._mesh is None,
+        check(f"mesh {label}", eng._mesh is None,
               "one rank took the mesh path")
+        if treepm:
+            eng._accel_fn = lambda st: _single_forces(
+                cfg, st.positions, st.masses, device, plan)[0]
         torch.cuda.synchronize()
         eng.run(num_steps=steps)
         e1 = eng.compute_energy()
@@ -3984,27 +4150,41 @@ def mesh_phase(device, card):
                  abs(r["run_ke"] - float(e1["kinetic"]))
                  / abs(float(e1["kinetic"])))
         del eng
+        torch.cuda.empty_cache()
         mesh_ms = 1e3 * r["compute_s"] / steps
-        print(f"mesh {name}: {steps} steps: 1 rank {one_ms:.3f} ms/step; "
+        one = "1 rank (the same pair set)" if treepm else "1 rank"
+        print(f"mesh {grid}: {steps} steps: {one} {one_ms:.3f} ms/step; "
               f"{MESH_RANKS} ranks on one card {mesh_ms:.3f} ms/step "
               f"({1e3 * r['wall_s'] / steps:.3f} with migrations and the "
               f"closing energy), transport: {r['transport']} (not a "
               f"production transport); closing energies of the two runs "
               f"rel {de:.3e} (tol {MESH_ENERGY_TOL:g}); overflow "
               f"{r['overflow']}; launches {r['launches']} on {card}")
-        check(f"mesh {name}", de <= MESH_ENERGY_TOL,
+        check(f"mesh {label}", de <= MESH_ENERGY_TOL,
               f"the runs' energies differ by {de}")
+        if change.get("ring"):
+            ring = torch.as_tensor(r["ring_ring"])
+            halo = torch.as_tensor(r["ring_halo"])
+            err, rel = rel_err(halo, ring)
+            print(f"mesh {grid} start: halo short range against the ring "
+                  f"(every pair) max_abs_err {err:.3e} (rel {rel:.3e}, tol "
+                  f"{MESH_RING_TOL:g}); rank 0's halo pass "
+                  f"{r['ring_halo_s']:.3f} s, ring {r['ring_s']:.3f} s "
+                  f"(the card shared by {MESH_RANKS} ranks)")
+            check(f"mesh {label}", rel <= MESH_RING_TOL,
+                  f"ring against halo rel err {rel}")
         if cfg.forces.type == "pm":
             from lambda_cdm_tpu_torch.forces import auto_pm_grid
             b = pm_exchange_bytes(auto_pm_grid(cfg), MESH_RANKS)
-            print(f"mesh {name}: sharded PM exchange a force evaluation, "
+            print(f"mesh {grid}: sharded PM exchange a force evaluation, "
                   f"bytes a rank sends: " + ", ".join(
                       f"{k} {v / 1e6:.1f} MB" for k, v in b.items())
                   + f"; {sum(b.values()) / 1e6:.1f} MB in all")
-        else:
-            check(f"mesh {name}", r["launches"]["direct_cross"] > 0
+        elif not treepm:
+            check(f"mesh {label}", r["launches"]["direct_cross"] > 0
                   and r["launches"]["pair_potential_cross"] > 0,
                   "the ring ran no cross form")
+        if label == "direct_10k":
             launches = {k: r["launches"][k]
                         for k in ("direct_cross", "pair_potential_cross")}
             # the cross forms at the ring's shapes: rank 0's rows against
@@ -4014,7 +4194,8 @@ def mesh_phase(device, card):
             mass = torch.as_tensor(r["end_mass"], device=device)
             rec = cross_kernel_check(pos[:n_loc], pos[n_loc:2 * n_loc],
                                      mass[:n_loc], mass[n_loc:2 * n_loc],
-                                     box, soft, card, f"at {name}'s ring")
+                                     box, soft, card,
+                                     "at direct_10k.json's ring")
     return rec, launches
 
 

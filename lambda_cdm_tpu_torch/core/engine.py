@@ -32,15 +32,19 @@ the ranks of an initialised torch.distributed process group when there
 are more than one (on one rank the run is the single-device one, as the
 JAX engine's on one device): every rank builds the same global initial
 state, pads it (compute.mesh.migrate_capacity_factor) and keeps its
-slab of rows (parallel/mesh.shard_state), the forces are the ring direct
-sum (direct, direct_reference) or the sharded PM (pm), energy is
+rows (parallel/mesh.shard_state) on the 1D slab mesh, or on the 3D block
+mesh of compute.mesh.axes {shx, shy, shz} ({shx, shy}: the (dx, dy, 1)
+grid); the forces are the ring direct sum (direct, direct_reference),
+the sharded TreePM (treepm, and treepm_fast with shz but not the full
+3-axis spec: halo short range, or the ring where the slab plan is None),
+or the sharded PM (pm, pm_fast); energy is
 parallel/sharded.sharded_energy, and the run loop re-homes particles
-between chunks (emigrant-only exchange with grow-and-retry, adaptive slab
-bounds). `state` is then the global padded state gathered in rank order
-(a collective: every rank reads it together), and rank 0 writes the
-files. Mesh configs this port does not cover yet (treepm and treepm_fast
-on a mesh, the shx/shy/shz axes) raise NotImplementedError naming
-ROADMAP.md, on any number of ranks.
+between chunks (emigrant-only exchange with grow-and-retry; adaptive
+bounds for direct, direct_reference and pm, uniform slabs or blocks
+otherwise). `state` is then the global padded state gathered in rank
+order (a collective: every rank reads it together), and rank 0 writes
+the files. treepm_fast where the JAX engine takes a fast mesh stepper
+raises NotImplementedError naming ROADMAP.md, on any number of ranks.
 """
 
 from __future__ import annotations
@@ -137,6 +141,8 @@ class SimulationEngine:
         self._mesh = None                 # parallel.mesh.Mesh (compute.mesh)
         self._mesh_bounds = None
         self.mesh_overflow = 0            # the last migration's overflow
+        # the sharded TreePM's last {"overflow", "plan"} (return_diagnostics)
+        self.mesh_force_diagnostics = None
 
     # -- properties ---------------------------------------------------------
     @property
@@ -225,38 +231,56 @@ class SimulationEngine:
         if self._mesh is None and bool(torch.any(st.masses == 0)):
             raise ValueError("zero-mass particles outside mesh-padding mode")
 
-    # -- multi-rank path: the slab mesh on torch.distributed -----------------
+    # -- multi-rank path: the rank mesh on torch.distributed -----------------
     def _check_mesh_config(self) -> bool:
         """Whether compute.mesh runs on ranks: raise for the mesh configs
-        this port does not cover (on any number of ranks: none falls back
-        to one device quietly), then True when the process group has more
-        than one rank (on one rank the JAX engine runs its single-device
-        path, and so does this one)."""
+        this port does not cover (treepm_fast where the JAX engine takes a
+        fast mesh stepper; on any number of ranks: none falls back to one
+        device quietly), then True when the process group has more than
+        one rank (on one rank the JAX engine runs its single-device path,
+        and so does this one)."""
         from ..parallel.mesh import world_size
         cfg = self.config
         axes = dict(cfg.compute.mesh.axes or {})
-        if any(a in axes for a in ("shx", "shy", "shz")):
-            raise _not_ported("compute.mesh with the shx/shy/shz axes "
-                              "(2D pencil and 3D block meshes)")
-        if cfg.forces.type not in ("direct", "direct_reference", "pm"):
-            raise _not_ported(f"compute.mesh with forces.type="
-                              f"{cfg.forces.type!r} (the sharded TreePM and "
-                              f"the sharded fast steppers)")
+        full3 = all(a in axes for a in ("shx", "shy", "shz"))
+        if cfg.forces.type == "treepm_fast" and (full3 or "shz" not in axes):
+            # shz without the full 3-axis spec takes the stateless sharded
+            # TreePM on the slab mesh in the JAX engine, and here
+            raise _not_ported("compute.mesh with forces.type='treepm_fast' "
+                              "(the sharded fast steppers parallel/fast_mesh"
+                              ", fast_mesh2d, fast_mesh3d)")
         return world_size() > 1
 
     def _init_mesh_path(self, state: SimState) -> None:
-        """Shard the run over the 1D rank mesh: pad the global state with
-        zero-mass rows (compute.mesh.migrate_capacity_factor), keep this
-        rank's slab of rows, build the ring direct or sharded PM force,
-        and home the rows on their owning slabs before the first force
-        (with load-adaptive bounds when compute.mesh.load_balancing)."""
+        """Shard the run over the rank mesh (the JAX engine's
+        _init_mesh_path): compute.mesh.axes with shx, shy and shz builds
+        the 3D block mesh, shx and shy the (dx, dy, 1) one, anything else
+        the 1D slab mesh. Pad the global state with zero-mass rows
+        (compute.mesh.migrate_capacity_factor), keep this rank's rows,
+        build the force (the ring direct sum; the sharded TreePM, halo or,
+        on a slab mesh where the plan is None, ring short range; else the
+        sharded PM), and home the rows before the first force: against
+        load-adaptive bounds for direct, direct_reference and pm when
+        compute.mesh.load_balancing, against uniform slabs or blocks
+        otherwise (the halo TreePM needs them aligned with its cell
+        planes, and the JAX engine leaves pm_fast out too)."""
         from ..forces import auto_pm_grid
         from ..parallel.exchange import pad_particles
-        from ..parallel.mesh import make_mesh, shard_state
+        from ..parallel.mesh import make_mesh, make_mesh3d, shard_state
         from ..parallel.sharded import (ring_direct_accelerations,
                                         sharded_pm_accelerations)
         cfg = self.config
-        mesh = make_mesh(device=self.device)
+        axes = dict(cfg.compute.mesh.axes or {})
+        if all(a in axes for a in ("shx", "shy", "shz")):
+            mesh = make_mesh3d((int(axes["shx"]), int(axes["shy"]),
+                                int(axes["shz"])), device=self.device)
+        elif all(a in axes for a in ("shx", "shy")):
+            # the generic solvers on pencils: the z = 1 block mesh (its z
+            # shifts return their input, the one-rank wrap)
+            mesh = make_mesh3d((int(axes["shx"]), int(axes["shy"]), 1),
+                               device=self.device)
+        else:
+            mesh = make_mesh(device=self.device)
         pos, vel, mass = pad_particles(
             state.positions, state.velocities, state.masses,
             n_dev=mesh.size, factor=cfg.compute.mesh.migrate_capacity_factor)
@@ -266,11 +290,14 @@ class SimulationEngine:
         box = cfg.particles.box_size
         soft = cfg.forces.softening_length
         g = cfg.units.G
-        if cfg.forces.type in ("direct", "direct_reference"):
+        solver = cfg.forces.type
+        if solver in ("direct", "direct_reference"):
             def accel_fn(st):
                 return ring_direct_accelerations(
                     st.positions, st.masses, box_size=box, softening=soft,
                     g_const=g, mesh=mesh)
+        elif solver in ("treepm", "treepm_fast"):
+            accel_fn = self._mesh_treepm(pos.shape[0])
         else:
             ng = auto_pm_grid(cfg)
 
@@ -279,9 +306,55 @@ class SimulationEngine:
                     st.positions, st.masses, ng, box, g, mesh=mesh)
         self._accel_fn = accel_fn
         self._mesh_bounds = None
-        if cfg.compute.mesh.load_balancing:
+        if self._mesh_balanced():
+            # a heavy cluster may not fit a uniform slab's rows, so the
+            # ownership-agnostic solvers home on adaptive bounds at once
             self._mesh_bounds = self._adaptive_bounds()
         self._mesh_migrate()
+
+    def _mesh_treepm(self, n_alloc: int):
+        """The sharded TreePM's accel_fn over the padded global count
+        n_alloc: raise the JAX engine's ValueError when the 3D plan is
+        None, log the ring short range when the slab plan is. Each call
+        keeps its diagnostics in mesh_force_diagnostics."""
+        from ..forces import auto_pm_grid
+        from ..parallel.sharded_treepm import (sharded_treepm_accelerations,
+                                               sharded_treepm_plan,
+                                               sharded_treepm_plan_3d)
+        cfg = self.config
+        mesh = self._mesh
+        ng = auto_pm_grid(cfg)
+        kw = dict(split_factor=cfg.forces.split_factor,
+                  cut_factor=cfg.forces.cut_factor,
+                  capacity=cfg.forces.bucket_capacity,
+                  occupancy_headroom=cfg.compute.mesh.ghost_capacity_factor)
+        box = cfg.particles.box_size
+        if mesh.ndim == 3:
+            if sharded_treepm_plan_3d(n_alloc, box, ng, mesh.dims,
+                                      **kw) is None:
+                raise ValueError(
+                    "compute.mesh 3D axes: box too small for one r_cut cell "
+                    "per device along every axis; use the 1D slab mesh "
+                    "(omit shz) for this geometry")
+        elif sharded_treepm_plan(n_alloc, box, ng, mesh.size, **kw) is None:
+            _log.info("mesh treepm: box too small for one r_cut cell plane "
+                      "per device; using the exact ring short-range")
+
+        def accel_fn(st):
+            acc, self.mesh_force_diagnostics = sharded_treepm_accelerations(
+                st.positions, st.masses, box_size=box, pm_grid=ng,
+                softening=cfg.forces.softening_length, g_const=cfg.units.G,
+                mesh=mesh, return_diagnostics=True, **kw)
+            return acc
+        return accel_fn
+
+    def _mesh_balanced(self) -> bool:
+        """Whether the mesh homes against load-adaptive bounds: only the
+        ownership-agnostic solvers, and only with
+        compute.mesh.load_balancing (the JAX engine's gate)."""
+        return (self.config.compute.mesh.load_balancing
+                and self.config.forces.type in ("direct",
+                                                 "direct_reference", "pm"))
 
     def _balance_weights(self):
         """None for count balancing, or the pair-cost weights of this
@@ -295,18 +368,26 @@ class SimulationEngine:
                                  mesh=self._mesh)
 
     def _adaptive_bounds(self):
-        """Equal-load slab bounds [D + 1] from every rank's rows."""
-        from ..parallel.exchange import adaptive_slab_bounds
+        """Equal-load bounds from every rank's rows: slab planes [D + 1] on
+        the 1D mesh, adaptive_bounds_nd's bricks on the 3D one."""
+        from ..parallel.exchange import (adaptive_bounds_nd,
+                                         adaptive_slab_bounds)
         st = self._state
-        return adaptive_slab_bounds(st.positions, st.masses, self._mesh.size,
-                                    self.config.particles.box_size,
+        mesh = self._mesh
+        box = self.config.particles.box_size
+        if mesh.ndim == 3:
+            return adaptive_bounds_nd(st.positions, st.masses, mesh.dims, box,
+                                      weights=self._balance_weights(),
+                                      mesh=mesh)
+        return adaptive_slab_bounds(st.positions, st.masses, mesh.size, box,
                                     weights=self._balance_weights(),
-                                    mesh=self._mesh)
+                                    mesh=mesh)
 
     def _mesh_migrate(self) -> None:
-        """Re-home particles to their owning slabs (between chunks):
-        recompute the adaptive bounds when the live-count imbalance
-        exceeds compute.mesh.rebalance_threshold, then the emigrant-only
+        """Re-home particles to their owning slabs or blocks (between
+        chunks): where the bounds are adaptive (_mesh_balanced), recompute
+        them when the live-count imbalance exceeds
+        compute.mesh.rebalance_threshold; then the emigrant-only
         exchange at a capacity of compute.mesh.migrate_fraction of the
         rows (at least 128), discarding an overflowed result and retrying
         at twice the capacity up to the rows a rank holds."""
@@ -317,7 +398,7 @@ class SimulationEngine:
         mesh = self._mesh
         n_loc = st.positions.shape[0]
         bounds = self._mesh_bounds
-        if cfg.compute.mesh.load_balancing:
+        if self._mesh_balanced():
             imb = load_imbalance(st.masses, mesh=mesh,
                                  weights=self._balance_weights())
             if imb > cfg.compute.mesh.rebalance_threshold:
@@ -818,6 +899,7 @@ class SimulationEngine:
         self._state = None
         self._mesh = None
         self._mesh_bounds = None
+        self.mesh_force_diagnostics = None
         self._fstate = None
         self._fast_kw = None
         self._fast_rebuild = False

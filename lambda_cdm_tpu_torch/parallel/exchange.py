@@ -1,20 +1,23 @@
-"""Capacity-bounded particle migration over the rank mesh (counterpart of
-lambda_cdm_tpu/parallel/exchange.py, less `exchange_ghosts`, which comes
-with the sharded TreePM).
+"""Capacity-bounded particle migration and the ghost exchange over the
+rank mesh (counterpart of lambda_cdm_tpu/parallel/exchange.py).
 
-Ownership is a 1D x-slab decomposition: rank d owns x in [d, d + 1) *
-box / D, or the slab [bounds[d], bounds[d + 1]) of load-adaptive bounds.
-As in the JAX package, the exchange has static shapes: each rank fills a
-[D, capacity] send buffer (zero-mass padding), one all_to_all moves the
-buckets, and overflow is counted and reported, never dropped silently;
-the caller grows the capacity and retries.
+Ownership follows the mesh: on the 1D mesh an x-slab decomposition (rank
+d owns x in [d, d + 1) * box / D, or the slab [bounds[d], bounds[d + 1])
+of load-adaptive bounds); on the 3D (shx, shy, shz) mesh a block
+decomposition (find_owner_3d: uniform blocks, or adaptive_bounds_nd's
+bricks), the flat rank row-major. As in the JAX package, the exchange has
+static shapes: each rank fills a [D, capacity] send buffer (zero-mass
+padding), one all_to_all over the whole grid moves the buckets, and
+overflow is counted and reported, never dropped silently; the caller grows
+the capacity and retries.
 
 The per-rank functions (`migrate_particles`, `migrate_particles_emigrant`,
-`load_imbalance`) take the rank's rows and return its rows, row for row
-what the JAX shard_map body computes on that shard; the partition helpers
-take whole arrays, or a rank's rows and the mesh, whose histograms they
-then sum over the ranks (the JAX package's histograms of the global
-sharded array, bit for bit: the sums are of integer-valued floats).
+`exchange_ghosts`, `load_imbalance`) take the rank's rows and return its
+rows, row for row what the JAX shard_map body computes on that shard; the
+partition helpers take whole arrays, or a rank's rows and the mesh, whose
+histograms they then sum over the ranks (the JAX package's histograms of
+the global sharded array, bit for bit: the sums are of integer-valued
+floats).
 """
 
 from __future__ import annotations
@@ -185,10 +188,19 @@ def adaptive_bounds_nd(positions, masses, dims: tuple, box_size, *,
     return bx, by, bz
 
 
-def _owner_of(pos, mass, box_size, n_dev: int, bounds, my_id: int):
-    """Owning rank of each row (x slabs); dead rows stay home."""
-    owner = find_owner(pos, box_size, n_dev, bounds=bounds)
-    return torch.where(mass > 0, owner, my_id)
+def _owner_of(pos, mass, box_size, mesh: Mesh, bounds):
+    """Owning rank of each row: x slabs on a 1D mesh, blocks (row-major
+    ranks) on a 3D one; dead rows stay home. `bounds` selects adaptive
+    partitions: [D + 1] slab planes, or adaptive_bounds_nd's (bx, by, bz)."""
+    if mesh.ndim == 3:
+        owner = find_owner_3d(pos, box_size, mesh.dims, bounds=bounds)
+    elif mesh.ndim == 1:
+        owner = find_owner(pos, box_size, mesh.size, bounds=bounds)
+    else:
+        raise ValueError(f"particle ownership needs a 1D or 3D mesh, not "
+                         f"{mesh.shape} (a (shx, shy) grid is the (dx, dy, "
+                         f"1) make_mesh3d)")
+    return torch.where(mass > 0, owner, mesh.rank)
 
 
 def _scatter(n_slots: int, slot, vals):
@@ -210,17 +222,17 @@ def _rank_in_owner(sel, owner, n_dev: int):
 
 def migrate_particles(positions, velocities, masses, *, box_size,
                       capacity: int, mesh: Mesh, bounds=None):
-    """Re-home this rank's rows to their owning x-slab ranks: every live
-    row goes through the all_to_all (the self bucket included, so a
-    homed set needs capacity >= n_loc). Returns (positions, velocities,
+    """Re-home this rank's rows to their owning slab or block ranks:
+    every live row goes through the all_to_all (the self bucket included,
+    so a homed set needs capacity >= n_loc). Returns (positions, velocities,
     masses, overflow_total) with the same shapes: the rank's rows then
     hold only particles it owns, zero-mass padding elsewhere;
     overflow_total (an int, the sum over ranks) counts particles that
     did not fit a bucket or the local rows."""
-    n_dev, my_id = mesh.size, mesh.rank
+    n_dev = mesh.size
     n_loc = positions.shape[0]
     live = masses > 0
-    owner = _owner_of(positions, masses, box_size, n_dev, bounds, my_id)
+    owner = _owner_of(positions, masses, box_size, mesh, bounds)
     my_rank = _rank_in_owner(torch.ones_like(live), owner, n_dev)
     ok = my_rank < capacity
     slot = torch.where(ok, owner * capacity + my_rank, n_dev * capacity)
@@ -260,7 +272,7 @@ def migrate_particles_emigrant(positions, velocities, masses, *, box_size,
     n_dev, my_id = mesh.size, mesh.rank
     nbuf = n_dev * capacity
     live = masses > 0
-    owner = _owner_of(positions, masses, box_size, n_dev, bounds, my_id)
+    owner = _owner_of(positions, masses, box_size, mesh, bounds)
     emig = live & (owner != my_id)
     my_rank = _rank_in_owner(emig, owner, n_dev)
     ok = emig & (my_rank < capacity)
@@ -293,6 +305,47 @@ def migrate_particles_emigrant(positions, velocities, masses, *, box_size,
     total = mesh.all_reduce((send_ovf + recv_ovf).reshape(1)
                             .to(torch.int64))
     return out_pos, out_vel, out_mass, int(total)
+
+
+def exchange_ghosts(positions, masses, *, box_size, ghost_width: float,
+                    capacity: int, mesh: Mesh):
+    """Ghost particles from the +-x neighbour slabs of the 1D mesh: each
+    rank packs its live rows within `ghost_width` of its slab's faces
+    (uniform slabs) into two buffers of `capacity` rows (the rank of a row
+    among the selected ones from a cumsum; rows past the capacity are
+    overflow), sends the right face's to rank + 1 and the left face's to
+    rank - 1 (periodic). Returns (ghost_pos [2 capacity, 3], ghost_mass [2
+    capacity]: first what the left neighbour sent, then the right's;
+    zero-mass padding, and overflow_total, an int summed over the
+    ranks)."""
+    if mesh.ndim != 1:
+        raise ValueError("exchange_ghosts runs on the 1D slab mesh")
+    # float32 arithmetic as the JAX body's: slab = box / D, lo = rank *
+    # slab, hi = lo + slab
+    slab = torch.tensor(box_size / mesh.size, dtype=positions.dtype,
+                        device=positions.device)
+    lo = float(mesh.rank) * slab
+    hi = lo + slab
+    x = positions[:, 0]
+    live = masses > 0
+    send_right = (x >= hi - ghost_width) & live
+    send_left = (x < lo + ghost_width) & live
+
+    def pack(sel):
+        rank = torch.cumsum(sel.to(torch.int32), 0, dtype=torch.int32) - 1
+        ok = sel & (rank < capacity)
+        slot = torch.where(ok, rank, capacity)
+        rows = torch.cat([torch.where(ok[:, None], positions, 0.0),
+                          torch.where(ok, masses, 0.0)[:, None]], 1)
+        return _scatter(capacity, slot, rows), torch.sum(sel & ~ok)
+
+    right, ovf_r = pack(send_right)
+    left, ovf_l = pack(send_left)
+    # what a rank sends right arrives as its right neighbour's left ghosts
+    ghosts = torch.cat([mesh.shift(right, mesh.axis_names[0], 1),
+                        mesh.shift(left, mesh.axis_names[0], -1)])
+    total = mesh.all_reduce((ovf_r + ovf_l).reshape(1).to(torch.int64))
+    return ghosts[:, :3], ghosts[:, 3], int(total)
 
 
 def load_imbalance(masses, *, mesh: Mesh, weights=None) -> float:

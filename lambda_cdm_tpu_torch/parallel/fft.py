@@ -11,7 +11,8 @@ Layout contract (the JAX package's): the forward transform returns the
 half spectrum TRANSPOSED, [ky (this rank's slab), kx, kz_r], i.e. array[b,
 a, c] = F[a, b, c]; `k_vectors_transposed` gives the matching
 wavevectors. Complex tensors cross the mesh as their float32 (re, im)
-view. ng must divide by the number of ranks.
+view. ng must divide by the number of ranks (on a 2D or 3D mesh, all of
+them: the slabs run over the flattened rank order).
 """
 
 from __future__ import annotations
@@ -23,10 +24,12 @@ import torch
 from .mesh import Mesh
 
 
-def _check(ng: int, mesh: Mesh) -> None:
+def check_slabs(ng: int, mesh: Mesh) -> None:
+    """ValueError unless ng divides into slabs over all the mesh's ranks
+    (on a 2D or 3D mesh their product)."""
     if ng % mesh.size:
         raise ValueError(f"the slab FFT needs ng ({ng}) divisible by the "
-                         f"{mesh.size} ranks")
+                         f"{mesh.size} ranks of the mesh {mesh.shape}")
 
 
 def _exchange(chunks: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -40,7 +43,7 @@ def distributed_rfftn(grid, *, mesh: Mesh):
     this rank's ky slab of the transposed half spectrum [ng/D, ng,
     ng//2+1] complex64."""
     nx_loc, ng, _ = grid.shape
-    _check(ng, mesh)
+    check_slabs(ng, mesh)
     d = mesh.size
     gk = torch.fft.rfftn(grid, dim=(1, 2))           # local y, z transform
     nz = gk.shape[2]
@@ -78,7 +81,7 @@ def distributed_irfftn(gk_t, *, ng: int, mesh: Mesh):
     ng] float32, numpy's irfftn of the whole spectrum (non-Hermitian
     kz = 0 and Nyquist planes taken by their Hermitian part, see
     _hermitian_planes)."""
-    _check(ng, mesh)
+    check_slabs(ng, mesh)
     d = mesh.size
     ny_loc, _, nz = gk_t.shape
     fx = gk_t.movedim(1, 0)                          # [ng(x), ny_loc, nz]

@@ -1,7 +1,11 @@
 """Multi-rank force solvers and energy over the rank mesh (counterpart of
 lambda_cdm_tpu/parallel/sharded.py). Each function takes this rank's
 rows and returns its rows (or the global reduction), and is a collective:
-every rank of the mesh calls it.
+every rank of the mesh calls it. On a 2D or 3D mesh each runs over the
+flattened rank order (the JAX functions given a tuple of axes): the ring
+passes blocks to flat rank + 1, and the sharded PM cuts its grid into
+slabs over all D ranks, which needs ng divisible by D (a ValueError
+says so; the JAX GSPMD version needs no such divisibility).
 
   * `ring_direct_accelerations`: the O(N^2) sum as a ring. A rank keeps
     its rows and passes the block it holds to rank + 1 at each of the D
@@ -31,7 +35,8 @@ from __future__ import annotations
 
 import torch
 
-from .fft import distributed_irfftn, distributed_rfftn, ky_slab
+from .fft import check_slabs, distributed_irfftn, distributed_rfftn, \
+    ky_slab
 from .mesh import Mesh
 
 
@@ -81,6 +86,7 @@ def sharded_pm_accelerations(positions, masses, ng: int, box_size,
     from ..analysis.power_spectrum import cic_deposit
     from ..forces.pm import cic_gather, poisson_greens_function
     from .fft import k_vectors_transposed
+    check_slabs(ng, mesh)
     box = torch.tensor(float(box_size), dtype=torch.float32)
     cell_volume = float((box / ng) ** 3)
     grid = cic_deposit(positions, ng, box_size, weights=masses)

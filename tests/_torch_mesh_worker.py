@@ -5,7 +5,8 @@
 a file under tmp_path, builds the port's 1D mesh on the CPU (or on the
 card, `device="cuda"`, the ranks sharing it), runs
 JOBS[job](mesh, payload) and returns each rank's result (a dict of numpy
-arrays and numbers), in rank order. This module imports torch and the
+arrays and numbers), in rank order. A job may build the 3D grids it
+needs (parallel.mesh.make_mesh3d) over the same ranks. This module imports torch and the
 port only, so the ranks start without JAX.
 """
 
@@ -89,19 +90,35 @@ def job_functions(mesh, p) -> dict:
 
 def job_engine(mesh, p) -> dict:
     """The port's mesh engine on each config of p["configs"] from the
-    global state p["state"]: the gathered state after the run."""
+    global state p["state"] for p["steps"][name] steps: the gathered state
+    after the run; for each config of p["refused"], the error its build
+    raised."""
     import lambda_cdm_tpu_torch as tlc
     from lambda_cdm_tpu_torch.core.state import make_state
-    out = {}
-    for name, d in p["configs"].items():
+
+    def build(d):
         st = make_state(*(_t(p["state"][k])
                           for k in ("pos", "vel", "mass")),
                         scale_factor=p["state"]["a"])
-        eng = tlc.SimulationBuilder(device="cpu").with_config(
+        return tlc.SimulationBuilder(device="cpu").with_config(
             tlc.SimulationConfig.from_dict(d)).with_initial_state(st).build()
+
+    out = {}
+    for name, d in p.get("refused", {}).items():
+        try:
+            build(d)
+            out[f"{name}_error"] = None
+        except (ValueError, NotImplementedError) as exc:
+            out[f"{name}_error"] = f"{type(exc).__name__}: {exc}"
+    for name, d in p["configs"].items():
+        eng = build(d)
         assert eng._mesh is not None and eng._mesh.size == mesh.size
-        out[f"{name}_mass0"] = eng.state.masses      # rows once homed
-        eng.run(num_steps=p["steps"])
+        out[f"{name}_dims"] = eng._mesh.dims
+        out[f"{name}_adaptive"] = eng._mesh_bounds is not None
+        g0 = eng.state                               # rows once homed
+        out[f"{name}_mass0"] = g0.masses
+        out[f"{name}_pos0"] = g0.positions
+        eng.run(num_steps=p["steps"][name])
         g = eng.state
         e = eng.compute_energy()
         # every rank calls it; rank 0 writes the gathered state
@@ -139,7 +156,101 @@ def job_ring(mesh, p) -> dict:
     return {k: _np(v) for k, v in out.items()}
 
 
-JOBS = {"functions": job_functions, "engine": job_engine, "ring": job_ring}
+def job_treepm(mesh, p) -> dict:
+    """Every check of tests/test_torch_sharded_treepm.py on the 1D mesh:
+    exchange_ghosts, the halo pass (its overflowing and zero-mass cases),
+    the ring, and the full sharded TreePM (halo and ring-fallback
+    geometries)."""
+    from lambda_cdm_tpu_torch.parallel import exchange, sharded_treepm as stp
+    box, soft, rs = p["box"], p["soft"], p["rs"]
+    pos, mass = _rows(p["pos"], mesh), _rows(p["mass"], mesh)
+    out = {}
+    for name, (width, cap) in p["ghosts"].items():
+        gp, gm, ovf = exchange.exchange_ghosts(
+            pos, mass, box_size=box, ghost_width=width, capacity=cap,
+            mesh=mesh)
+        out.update({f"{name}_pos": gp, f"{name}_mass": gm,
+                    f"{name}_overflow": ovf})
+    m_dead = _rows(p["mass_dead"], mesh)
+    for name, cap, m in (("halo", p["cap"], mass),
+                         ("halo_ovf", p["cap_small"], mass),
+                         ("halo_dead", p["cap"], m_dead)):
+        acc, ovf = stp.halo_short_range_accelerations(
+            pos, m, box_size=box, nc=p["nc"], capacity=cap, rs=rs,
+            softening=soft, mesh=mesh)
+        out.update({name: acc, f"{name}_overflow": ovf})
+    out["ring"] = stp.ring_short_range_accelerations(
+        pos, mass, box_size=box, rs=rs, softening=soft, mesh=mesh)
+    for name, kw in (("full", dict(positions=pos, masses=mass,
+                                   softening=soft, pm_grid=p["ng"])),
+                     ("fallback", dict(positions=_rows(p["fb_pos"], mesh),
+                                       masses=_rows(p["fb_mass"], mesh),
+                                       softening=p["fb_soft"],
+                                       pm_grid=p["fb_ng"]))):
+        acc, diag = stp.sharded_treepm_accelerations(
+            box_size=box, g_const=p["g"], mesh=mesh, return_diagnostics=True,
+            **kw)
+        out.update({name: acc, f"{name}_overflow": diag["overflow"],
+                    f"{name}_plan": diag["plan"]})
+    return {k: _np(v) for k, v in out.items()}
+
+
+def job_block3d(mesh, p) -> dict:
+    """Every check of tests/test_torch_block3d.py: on the (2, 2, 2) mesh
+    the 3D migrations, the block halo pass and the full sharded TreePM; on
+    the (2, 4, 1) pencil grid the ring direct sum and the TreePM."""
+    from lambda_cdm_tpu_torch.parallel import exchange, sharded, \
+        sharded_treepm as stp
+    from lambda_cdm_tpu_torch.parallel.mesh import (axis_size, make_mesh2d,
+                                                    make_mesh3d)
+    box, soft, g = p["box"], p["soft"], p["g"]
+    mesh3 = make_mesh3d((2, 2, 2), device=mesh.device)
+    grid2 = make_mesh2d(device=mesh.device)        # the default shape
+    me = torch.tensor([float(mesh.rank)])
+    out = {"coords": mesh3.coords, "shape": mesh3.shape,
+           "default3": make_mesh3d(device=mesh.device).dims,
+           "grid2": grid2.shape,
+           "grid2_from": [float(grid2.shift(me, a, s))
+                          for a in grid2.axis_names for s in (1, -1)],
+           "axis_size": [axis_size(mesh3, ("shx", "shy")), axis_size(mesh3),
+                         axis_size(mesh3, "shz")]}
+    mpos, mvel, mmass = (_rows(p[k], mesh3)
+                         for k in ("mig_pos", "mig_vel", "mig_mass"))
+    bounds = tuple(_t(b) for b in p["bricks"])
+    for name, kw in (("full", dict(capacity=mpos.shape[0])),
+                     ("emig", dict(capacity=p["cap_mig"])),
+                     ("emig_bounds", dict(capacity=p["cap_mig"],
+                                          bounds=bounds)),
+                     ("emig_ovf", dict(capacity=p["cap_small"]))):
+        fn = (exchange.migrate_particles if name == "full"
+              else exchange.migrate_particles_emigrant)
+        r = fn(mpos, mvel, mmass, box_size=box, mesh=mesh3, **kw)
+        out.update({f"{name}_pos": r[0], f"{name}_vel": r[1],
+                    f"{name}_mass": r[2], f"{name}_overflow": r[3]})
+    pos, mass = _rows(p["pos3"], mesh3), _rows(p["mass3"], mesh3)
+    for name, cap in (("halo", p["cap3"]), ("halo_ovf", p["cap_small"])):
+        acc, ovf = stp.halo_short_range_accelerations_3d(
+            pos, mass, box_size=box, nc=p["nc3"], capacity=cap, rs=p["rs"],
+            softening=soft, mesh=mesh3)
+        out.update({name: acc, f"{name}_overflow": ovf})
+    acc, diag = stp.sharded_treepm_accelerations(
+        pos, mass, box_size=box, pm_grid=p["ng"], softening=soft, g_const=g,
+        mesh=mesh3, return_diagnostics=True)
+    out.update({"full3": acc, "full3_overflow": diag["overflow"]})
+    pencil = make_mesh3d((2, 4, 1), device=mesh.device)
+    pos, mass = _rows(p["pos2"], pencil), _rows(p["mass2"], pencil)
+    out["pencil_ring"] = sharded.ring_direct_accelerations(
+        pos, mass, box_size=box, softening=p["soft2"], g_const=g,
+        mesh=pencil)
+    out["pencil_treepm"], diag = stp.sharded_treepm_accelerations(
+        pos, mass, box_size=box, pm_grid=p["ng2"], softening=p["soft2"],
+        g_const=g, mesh=pencil, return_diagnostics=True)
+    out["pencil_overflow"] = diag["overflow"]
+    return {k: _np(v) for k, v in out.items()}
+
+
+JOBS = {"functions": job_functions, "engine": job_engine, "ring": job_ring,
+        "treepm": job_treepm, "block3d": job_block3d}
 
 
 def _rank_main(rank: int, job: str, n_ranks: int, root: str, payload,
@@ -157,17 +268,31 @@ def _rank_main(rank: int, job: str, n_ranks: int, root: str, payload,
         torch.distributed.destroy_process_group()
 
 
+def start_ranks(job: str, n_ranks: int, tmp_path, payload,
+                device: str = "cpu"):
+    """Start the ranks of JOBS[job] and return `finish()`, which waits for
+    them and returns each rank's result in rank order (the caller works
+    meanwhile)."""
+    import torch.multiprocessing as mp
+    root = str(tmp_path)
+    ctx = mp.start_processes(_rank_main,
+                             args=(job, n_ranks, root, payload, device),
+                             nprocs=n_ranks, join=False,
+                             start_method="spawn")
+
+    def finish() -> list:
+        while not ctx.join():
+            pass
+        out = []
+        for r in range(n_ranks):
+            with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+    return finish
+
+
 def run_ranks(job: str, n_ranks: int, tmp_path, payload,
               device: str = "cpu") -> list:
     """Each rank's result of JOBS[job] computed on `device`, in rank
     order."""
-    import torch.multiprocessing as mp
-    root = str(tmp_path)
-    mp.start_processes(_rank_main,
-                       args=(job, n_ranks, root, payload, device),
-                       nprocs=n_ranks, join=True, start_method="spawn")
-    out = []
-    for r in range(n_ranks):
-        with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
-            out.append(pickle.load(f))
-    return out
+    return start_ranks(job, n_ranks, tmp_path, payload, device)()

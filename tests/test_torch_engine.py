@@ -212,24 +212,34 @@ def test_builder_device_and_refusals(tmp_path):
     fresh.load_checkpoint(str(tmp_path / "x"))
     assert int(fresh.state.step) == 2
     assert torch.equal(fresh.state.positions, e.state.positions)
-    for kind, axes in (("treepm_fast", None), ("treepm", None),
-                       ("direct", {"shx": 2, "shy": 4})):
+    # treepm_fast where the JAX engine takes a fast mesh stepper (slab,
+    # pencil, block) refuses on any number of ranks
+    for axes in (None, {"shx": 2}, {"shx": 2, "shy": 4},
+                 {"shx": 2, "shy": 2, "shz": 2}):
         c = tlc.SimulationConfig()
-        c.forces.type = kind
+        c.forces.type = "treepm_fast"
         c.compute.mesh.enabled = True
         if axes:
             c.compute.mesh.axes = axes
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tlc.SimulationEngine(c, device="cpu").initialize()
-    c = tlc.SimulationConfig.from_dict(
-        {"particles": {"num_particles": 512, "box_size": 64.0},
-         "forces": {"type": "direct", "softening_length": 0.5},
-         "compute": {"mesh": {"enabled": True}}})
-    c.particles.initial_conditions.grid_size = 8
-    e = tlc.SimulationEngine(c, device="cpu")
-    e.initialize()
-    assert e._mesh is None and e.state.positions.shape == (512, 3)
-    e.step(1)
+    # every other mesh config runs; on one rank, single-device
+    for kind, axes in (("direct", None), ("treepm", None),
+                       ("direct", {"shx": 2, "shy": 4}),
+                       ("pm_fast", {"shx": 2, "shy": 2, "shz": 2}),
+                       ("treepm_fast", {"shz": 4})):
+        c = tlc.SimulationConfig.from_dict(
+            {"particles": {"num_particles": 512, "box_size": 64.0},
+             "forces": {"type": kind, "softening_length": 0.5,
+                        "pm_grid_size": 32},
+             "compute": {"mesh": {"enabled": True}}})
+        if axes:
+            c.compute.mesh.axes = axes
+        c.particles.initial_conditions.grid_size = 8
+        e = tlc.SimulationEngine(c, device="cpu")
+        e.initialize()
+        assert e._mesh is None and e.state.positions.shape == (512, 3)
+        e.step(1)
 
 
 def _check_pm_fast_run():
