@@ -3765,9 +3765,17 @@ MESH_RUNS = (
     ("treepm C", MULTICHIP_CONFIG, 2,
      {"box": 62.5, "side": 64, "ng": 64,
       "axes": {"shx": 1, "shy": 2, "shz": 2}}),
-    ("direct_10k pencils", DIRECT_CONFIG, 20, {"axes": {"shx": 2, "shy": 2}}))
+    ("direct_10k pencils", DIRECT_CONFIG, 20, {"axes": {"shx": 2, "shy": 2}}),
+    # the sharded fast stepper at treepm_1m.json's full size (its plan:
+    # nc 24, capacity 128: 6 cell planes and 48 PM planes a rank)
+    ("treepm_fast slab", CONFIG, 8,
+     {"axes": {"shard": -1}, "fast": True, "rebucket_every": 4}))
 MESH_FORCE_TOL = 1e-5    # ring: K4's bar; sharded PM and TreePM: the
                          # stateless pm bar, over the same pair set
+FAST_MESH_K123_TOL = 2e-4  # against K1/K2/K3 with K3's x-space split, the
+                           # mesh's polynomial (tests/test_fast_mesh.py:91)
+FAST_MESH_TRAJ_TOL = 1e-3  # Mpc/h after 8 steps against the single-device
+                           # run (tests/test_fast_mesh.py:127)
 MESH_ENERGY_TOL = 1e-6
 MESH_RING_TOL = 2e-3     # ring against halo: the split tail past r_cut
                          # (tests/test_sharded_treepm.py:82)
@@ -3896,6 +3904,84 @@ def _mesh_rank_run(label: str, path: str, steps: int, change: dict,
     return out
 
 
+def _fast_rank_run(label: str, path: str, steps: int, change: dict,
+                   device: str) -> dict:
+    """The sharded fast stepper (treepm_fast on the slab mesh) on this
+    rank: the start state's global buckets and mesh forces, one force
+    evaluation timed, the +0.6-cell drift's rebucket on the start state,
+    then the run (launch counts reset just before and summed over the
+    ranks just after) and its final global state."""
+    import torch
+    from lambda_cdm_tpu_torch.core.engine import SimulationEngine
+    from lambda_cdm_tpu_torch.parallel import fast_mesh as fm
+    from lambda_cdm_tpu_torch.utils.profiling import synchronize
+    cfg = mesh_config(path, change)
+    cfg.forces.rebucket_every = change["rebucket_every"]
+    eng = SimulationEngine(cfg, device=device)
+    t0 = time.perf_counter()
+    eng.initialize()
+    synchronize(eng._fstate.acc)
+    init_s = time.perf_counter() - t0
+    mesh, fs = eng._mesh, eng._fstate
+    kw = dict(eng._fast_mesh_kw)
+    g = fm.gather_fast_state(fs, mesh)
+    out = {"kw": kw, "dims": mesh.dims, "transport": mesh.transport,
+           "init_s": init_s, "start_overflow": int(fs.overflow),
+           "start_dropped": int(fs.dropped),
+           **{f"start_{k}": getattr(g, f).cpu().numpy() for k, f in
+              (("bpos", "bpos"), ("bmass", "bmass"), ("ids", "ids"),
+               ("acc", "acc"))}}
+    del g
+    accel = {k: kw[k] for k in fm.ACCEL_KEYS}
+    mesh.barrier()
+    t0 = time.perf_counter()
+    acc, _ = fm.mesh_fast_accel(fs.bpos, fs.bmass, mesh=mesh, **accel)
+    synchronize(acc)
+    mesh.barrier()
+    out["force_s"] = time.perf_counter() - t0
+    del acc
+    # every live slot +0.6 cells in x, wrapped; the emigrant capacity a
+    # whole cell plane's slots (the default's nc^2 K / 8 rows hold a
+    # fifth of the ~25k rows that leave a 1M slab a side)
+    nc, cap = kw["ncell"], kw["capacity"]
+    live = fs.bmass > 0
+    moved = fs.bpos.clone()
+    moved[0] = torch.where(live, torch.remainder(
+        fs.bpos[0] + 0.6 * kw["box_size"] / nc, kw["box_size"]), 0.0)
+    nbp, _, nbm, nbi, _, ovf, mig = fm.mesh_rebucket(
+        moved, fs.bvel, fs.bmass, fs.ids, fs.acc, mesh=mesh,
+        box_size=kw["box_size"], ncell=nc, capacity=cap,
+        mig_capacity=nc * nc * cap)
+    out.update(mig_pos=mesh.all_gather(nbp.transpose(0, 1).contiguous())
+               .transpose(0, 1).cpu().numpy(),
+               mig_mass=mesh.all_gather(nbm).cpu().numpy(),
+               mig_ids=mesh.all_gather(nbi).cpu().numpy(),
+               mig_lost=int(ovf), mig_moved=int(mig))
+    del moved, nbp, nbm, nbi
+    synchronize(eng._fstate.acc)
+    mesh.barrier()
+    reset_counts()
+    t0 = time.perf_counter()
+    eng.run(num_steps=steps)
+    synchronize(eng._state.positions)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    keys = sorted(counts)
+    summed = mesh.all_reduce(torch.tensor([counts[k] for k in keys],
+                                          dtype=torch.int64))
+    st = eng.state
+    out.update(end_pos=st.positions.cpu().numpy(),
+               end_mass=st.masses.cpu().numpy(), end_step=int(st.step),
+               end_a=float(st.scale_factor),
+               overflow=int(eng._fstate.overflow),
+               dropped=int(eng._fstate.dropped),
+               end_cap=eng._fast_mesh_kw["capacity"],
+               steps=eng.statistics.total_steps,
+               compute_s=eng.statistics.compute_time_s, wall_s=wall,
+               launches=dict(zip(keys, summed.tolist())))
+    return out
+
+
 def mesh_rank(rank: int, n_ranks: int, root: str, runs, device: str
               ) -> None:
     """A rank of the mesh phase (spawned): the gloo group, then each run;
@@ -3911,7 +3997,8 @@ def mesh_rank(rank: int, n_ranks: int, root: str, runs, device: str
     try:
         out = {}
         for label, path, steps, change in runs:
-            out[label] = _mesh_rank_run(label, path, steps, change, device)
+            run = _fast_rank_run if change.get("fast") else _mesh_rank_run
+            out[label] = run(label, path, steps, change, device)
             # each run's card memory goes before the next
             import torch
             torch.cuda.empty_cache()
@@ -4029,6 +4116,157 @@ def cross_kernel_check(pos_i, pos_j, m_i, m_j, box, soft, card, label):
     return rec
 
 
+def plain_fast_forces(bpos, bmass, kw: dict):
+    """The sharded fast stepper's force function on one device, in plain
+    PyTorch over the same buckets: K1's and K2's plain versions around the
+    FFT with ops/bucketed_pm._greens, plus G times the polynomial-split
+    27-cell pass (forces/treepm.short_range_bucketed) over the occupied
+    slot depth; 0 on zero-mass slots."""
+    import torch
+    from lambda_cdm_tpu_torch.forces.treepm import short_range_bucketed
+    from lambda_cdm_tpu_torch.ops import bucketed_pm, pm_rods
+    box, ng, nc = kw["box_size"], kw["ng"], kw["ncell"]
+    geo = dict(ncell=nc, ng=ng, box_size=box, margin=kw["margin"])
+    counts = bucketed_pm.live_counts(bmass)
+    grid, _ = pm_rods.cic_deposit_plain(bpos, bmass, counts, **geo)
+    rho_k = torch.fft.rfftn(grid / (box / ng) ** 3)
+    green = bucketed_pm._greens(ng, float(box), float(kw["rs"]),
+                                str(bpos.device))
+    phi = torch.fft.irfftn(green * rho_k, s=(ng, ng, ng))
+    acc_long = pm_rods.fd4_gather_plain(phi, bpos, counts, **geo)
+    k = max(1, int(counts.max()))
+    short = short_range_bucketed(
+        bpos[:, :, :k].permute(1, 2, 0).contiguous(),
+        bmass[:, :k].contiguous(), box, kw["rs"], kw["softening"],
+        ncell=nc, capacity=k, use_poly=True)
+    acc_short = torch.zeros_like(bpos)
+    acc_short[:, :, :k] = short.permute(2, 0, 1)
+    return torch.where((bmass > 0)[None],
+                       kw["g_const"] * (acc_long + acc_short), 0.0)
+
+
+def fast_mesh_checks(label: str, r: dict, cfg, steps: int, device,
+                     card) -> None:
+    """The "treepm_fast slab" run's checks: its plan and counters; the
+    mesh forces on the start state against K1/K2/K3 on the same global
+    buckets (2e-4 of the largest |a|) and against the plain single-device
+    sum of the same function (1e-5); the +0.6-cell rebucket keeps every
+    id once, each in its cell's bucket; after the run, the particles and
+    masses conserved and the positions within 1e-3 Mpc/h of the
+    single-device run of the config from the same ICs; ms/step beside
+    the plain single-device force evaluation."""
+    import numpy as np
+    import torch
+    from lambda_cdm_tpu_torch.core.engine import SimulationEngine
+    from lambda_cdm_tpu_torch.core.state import host_scalar
+    from lambda_cdm_tpu_torch.ops.fast_treepm import FastState, _accel
+    kw = r["kw"]
+    box, nc, cap = kw["box_size"], kw["ncell"], kw["capacity"]
+    n = cfg.particles.num_particles
+    grid = f"{label} on {'x'.join(map(str, r['dims']))} ranks"
+    bpos = torch.as_tensor(r["start_bpos"], device=device)
+    bmass = torch.as_tensor(r["start_bmass"], device=device)
+    acc = torch.as_tensor(r["start_acc"], device=device)
+    live = (bmass > 0)[None].expand_as(bpos)
+    counts = torch.sum(bmass > 0, dim=1)
+    print(f"mesh {grid}: plan nc {nc}, capacity {cap}, rs {kw['rs']:.4f}, "
+          f"ng {kw['ng']} ({kw['ng'] // r['dims'][0]} PM planes and "
+          f"{nc // r['dims'][0]} cell planes a rank), occupied depth "
+          f"{int(counts.max())}: {nc ** 3 * 27 * int(counts.max()) ** 2:.3e} "
+          f"padded pair slots a force evaluation; init "
+          f"{r['init_s']:.2f} s; start overflow {r['start_overflow']} "
+          f"dropped {r['start_dropped']}, live {int(counts.sum())} of {n}")
+    check(f"mesh {label}", r["start_overflow"] == 0 == r["start_dropped"]
+          and int(counts.sum()) == n, "the start lost particles")
+    zero = torch.zeros((), dtype=torch.int32, device=device)
+    fs = FastState(bpos=bpos, bvel=torch.zeros_like(bpos), bmass=bmass,
+                   ids=torch.as_tensor(r["start_ids"], device=device),
+                   acc=torch.zeros_like(bpos), scale_factor=host_scalar(1.0),
+                   time=host_scalar(0.0), step=host_scalar(0, torch.int32),
+                   overflow=zero, dropped=zero)
+    accel_kw = {k: kw[k] for k in ("box_size", "ng", "ncell", "capacity",
+                                    "margin", "rs", "softening", "g_const")}
+    # K3's "vpu" split form is the mesh's polynomial; the plan's vpu3 (the
+    # single-device engine's even split in r^2) is printed beside it
+    ref_k, _ = _accel(fs, variant="vpu", **accel_kw)
+    err_k, rel_k = rel_err(acc, ref_k, live)
+    _, rel_even = rel_err(acc, _accel(fs, variant="vpu3", **accel_kw)[0],
+                          live)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_p = plain_fast_forces(bpos, bmass, kw)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err_p, rel_p = rel_err(acc, ref_p, live)
+    print(f"mesh {grid} start: forces against K1/K2/K3 (K3's vpu split) "
+          f"on the same global buckets max_abs_err {err_k:.3e} (rel "
+          f"{rel_k:.3e}, tol {FAST_MESH_K123_TOL:g}; with the even split of "
+          f"the engine's vpu3 rel {rel_even:.3e}); against the plain single-device sum "
+          f"of the same function {err_p:.3e} (rel {rel_p:.3e}, tol "
+          f"{MESH_FORCE_TOL:g}); zero-mass slots "
+          f"{'all 0' if bool(torch.all(acc[~live] == 0)) else 'NONZERO'}")
+    check(f"mesh {label} start", rel_k <= FAST_MESH_K123_TOL,
+          f"forces against K1/K2/K3 rel err {rel_k}")
+    check(f"mesh {label} start", rel_p <= MESH_FORCE_TOL,
+          f"forces against the plain sum rel err {rel_p}")
+    check(f"mesh {label} start", bool(torch.all(acc[~live] == 0)),
+          "a zero-mass slot got a force")
+    del fs, ref_k, ref_p, acc
+
+    ids = r["mig_ids"].reshape(-1)
+    mass = r["mig_mass"].reshape(-1)
+    keep = mass > 0
+    pos = r["mig_pos"].reshape(3, -1).T[keep]
+    cid = np.arange(nc ** 3).repeat(cap)[keep]
+    cell = np.clip(np.floor(pos / box * nc).astype(np.int64), 0, nc - 1)
+    home = (cell[:, 0] * nc + cell[:, 1]) * nc + cell[:, 2]
+    once = np.array_equal(np.sort(ids[keep]), np.arange(n))
+    print(f"mesh {grid}: +0.6-cell drift rebucket: {r['mig_moved']} rows "
+          f"migrated, {r['mig_lost']} lost; every id once "
+          f"{once}; rows outside their cell's bucket "
+          f"{int(np.sum(cid != home))}")
+    check(f"mesh {label} migration", once and r["mig_lost"] == 0
+          and r["mig_moved"] > 0 and np.array_equal(cid, home),
+          "the drift's rebucket lost or misplaced rows")
+
+    check(f"mesh {label}", r["steps"] == steps == r["end_step"],
+          "steps not taken")
+    check(f"mesh {label}", r["overflow"] == 0 == r["dropped"],
+          f"overflow {r['overflow']} dropped {r['dropped']}")
+    end_mass = r["end_mass"]
+    check(f"mesh {label}", int(np.sum(end_mass > 0)) == n and
+          np.array_equal(np.sort(end_mass), np.sort(r["start_bmass"].reshape(
+              -1)[r["start_bmass"].reshape(-1) > 0])),
+          "the particles or masses changed across the run")
+    one = SimulationEngine(cfg, device=device)
+    one.initialize()
+    check(f"mesh {label}", one._mesh is None and one._fstate is not None,
+          "one rank did not take the single-device fast path")
+    torch.cuda.synchronize()
+    one.run(num_steps=steps)
+    one_ms = 1e3 * one.statistics.compute_time_s / steps
+    d = np.abs(r["end_pos"] - one.state.positions.cpu().numpy())
+    d = np.minimum(d, box - d)
+    del one
+    torch.cuda.empty_cache()
+    mesh_ms = 1e3 * r["compute_s"] / steps
+    print(f"mesh {grid}: {steps} steps, rebucket every "
+          f"{cfg.forces.rebucket_every}: positions against the single-device "
+          f"run (K1/K2/K3) from the same ICs max {d.max():.3e} Mpc/h (tol "
+          f"{FAST_MESH_TRAJ_TOL:g}); overflow {r['overflow']} dropped "
+          f"{r['dropped']}; capacity {r['end_cap']}; a "
+          f"{r['end_a']:.6f}")
+    print(f"mesh {grid}: {MESH_RANKS} ranks on one card {mesh_ms:.3f} "
+          f"ms/step ({1e3 * r['wall_s'] / steps:.3f} with the chunk-end "
+          f"syncs; one force evaluation {1e3 * r['force_s']:.1f} ms), "
+          f"transport: {r['transport']} (not a production transport); the "
+          f"plain single-device force evaluation over the same pair set "
+          f"{plain_ms:.1f} ms; the single-device run (K1/K2/K3) "
+          f"{one_ms:.3f} ms/step; launches {r['launches']} on {card}")
+    check(f"mesh {label}", float(d.max()) <= FAST_MESH_TRAJ_TOL,
+          f"positions differ by {d.max()} from the single-device run")
+
+
 def mesh_phase(device, card):
     """The multi-rank path, MESH_RUNS as MESH_RANKS spawned ranks on the
     one card (gloo, every exchange staged through host memory): on the 1D
@@ -4075,6 +4313,10 @@ def mesh_phase(device, card):
     for label, path, steps, change in MESH_RUNS:
         r = res[label]
         cfg = mesh_config(path, change)
+        if change.get("fast"):
+            cfg.forces.rebucket_every = change["rebucket_every"]
+            fast_mesh_checks(label, r, cfg, steps, device, card)
+            continue
         box, soft, g = (cfg.particles.box_size, cfg.forces.softening_length,
                         cfg.units.G)
         n = cfg.particles.num_particles

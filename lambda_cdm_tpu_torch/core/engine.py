@@ -30,21 +30,31 @@ the first step; `profiling.trace_dir` traces run() with torch.profiler
 compute.mesh (the JAX engine's _init_mesh_path / _mesh_migrate) runs on
 the ranks of an initialised torch.distributed process group when there
 are more than one (on one rank the run is the single-device one, as the
-JAX engine's on one device): every rank builds the same global initial
-state, pads it (compute.mesh.migrate_capacity_factor) and keeps its
-rows (parallel/mesh.shard_state) on the 1D slab mesh, or on the 3D block
-mesh of compute.mesh.axes {shx, shy, shz} ({shx, shy}: the (dx, dy, 1)
-grid); the forces are the ring direct sum (direct, direct_reference),
-the sharded TreePM (treepm, and treepm_fast with shz but not the full
-3-axis spec: halo short range, or the ring where the slab plan is None),
-or the sharded PM (pm, pm_fast); energy is
-parallel/sharded.sharded_energy, and the run loop re-homes particles
-between chunks (emigrant-only exchange with grow-and-retry; adaptive
-bounds for direct, direct_reference and pm, uniform slabs or blocks
-otherwise). `state` is then the global padded state gathered in rank
-order (a collective: every rank reads it together), and rank 0 writes
-the files. treepm_fast where the JAX engine takes a fast mesh stepper
-raises NotImplementedError naming ROADMAP.md, on any number of ranks.
+JAX engine's on one device). treepm_fast on the 1D slab mesh (axes
+without shz and without both shx and shy) runs the sharded fast stepper
+parallel/fast_mesh (the JAX engine's _try_init_mesh_fast_path): every
+rank buckets the same global state and keeps its x-slab of cells
+between steps, the stepper migrates inside its rebucket, the chunk
+grows the capacity and retries (6 times, then counts the loss), and
+`state` is the global state in the original particle order on every
+rank, synced at each chunk end; where its plan is None the run takes the
+stateless sharded TreePM, as the JAX engine does. Otherwise every rank
+builds the same global initial state, pads it
+(compute.mesh.migrate_capacity_factor) and keeps its rows
+(parallel/mesh.shard_state) on the 1D slab mesh, or on the 3D block mesh
+of compute.mesh.axes {shx, shy, shz} ({shx, shy}: the (dx, dy, 1) grid);
+the forces are the ring direct sum (direct, direct_reference), the
+sharded TreePM (treepm, and treepm_fast with shz but not the full 3-axis
+spec: halo short range, or the ring where the slab plan is None), or the
+sharded PM (pm, pm_fast); energy is parallel/sharded.sharded_energy, and
+the run loop re-homes particles between chunks (emigrant-only exchange
+with grow-and-retry; adaptive bounds for direct, direct_reference and
+pm, uniform slabs or blocks otherwise). `state` is then the global
+padded state gathered in rank order (a collective: every rank reads it
+together), and rank 0 writes the files. treepm_fast on {shx, shy} and
+{shx, shy, shz}, where the JAX engine takes its pencil and block fast
+steppers, raises NotImplementedError naming ROADMAP.md, on any number of
+ranks.
 """
 
 from __future__ import annotations
@@ -134,7 +144,10 @@ class SimulationEngine:
         self._state: SimState | None = None
         self._fstate = None
         self._fast_kw: dict | None = None
-        self._fast_rebuild = False        # re-bucket at the next run/step
+        self._fast_mesh_kw: dict | None = None   # parallel/fast_mesh's
+        # "single" or "mesh": re-bucket at the next run/step
+        self._fast_rebuild = None
+        self._state_sharded = False       # _state holds this rank's rows
         self._acc = None                  # accelerations at state.positions
         self._accel_fn = None
         self._dt = None
@@ -147,24 +160,28 @@ class SimulationEngine:
     # -- properties ---------------------------------------------------------
     @property
     def state(self) -> SimState:
-        """The simulation state; on a mesh the global (padded) state
-        gathered in rank order, a collective every rank reads together."""
+        """The simulation state; on the stateless mesh path the global
+        (padded) state gathered in rank order, a collective every rank
+        reads together (the sharded fast stepper keeps the global state on
+        every rank)."""
         if self._state is None:
             raise RuntimeError("engine not initialized")
-        if self._mesh is not None:
+        if self._state_sharded:
             from ..parallel.mesh import gather_state
             return gather_state(self._state, self._mesh)
         return self._state
 
     @state.setter
     def state(self, new_state: SimState) -> None:
-        if self._mesh is not None:
+        if self._state_sharded:
             from ..parallel.mesh import shard_state
             self._state = shard_state(new_state, self._mesh)
         else:
             self._state = self._on_device(new_state)
         self._acc = None
-        if self._fstate is not None:
+        if self._fast_mesh_kw is not None:
+            self._init_mesh_fast_or_stateless(self._state)
+        elif self._fstate is not None:
             self._init_fast_path()
 
     @property
@@ -193,7 +210,9 @@ class SimulationEngine:
             if state is None:
                 from ..physics.initial_conditions import generate_state
                 state = generate_state(cfg, device=self.device)
-            if use_mesh:
+            if use_mesh and cfg.forces.type == "treepm_fast":
+                self._init_mesh_fast_or_stateless(state)
+            elif use_mesh:
                 self._init_mesh_path(state)
             else:
                 if not use_fast:
@@ -234,22 +253,74 @@ class SimulationEngine:
     # -- multi-rank path: the rank mesh on torch.distributed -----------------
     def _check_mesh_config(self) -> bool:
         """Whether compute.mesh runs on ranks: raise for the mesh configs
-        this port does not cover (treepm_fast where the JAX engine takes a
-        fast mesh stepper; on any number of ranks: none falls back to one
-        device quietly), then True when the process group has more than
-        one rank (on one rank the JAX engine runs its single-device path,
-        and so does this one)."""
+        this port does not cover (treepm_fast on {shx, shy} and {shx, shy,
+        shz}, where the JAX engine takes its pencil and block fast
+        steppers; on any number of ranks: none falls back to one device
+        quietly), then True when the process group has more than one rank
+        (on one rank the JAX engine runs its single-device path, and so
+        does this one)."""
         from ..parallel.mesh import world_size
         cfg = self.config
         axes = dict(cfg.compute.mesh.axes or {})
-        full3 = all(a in axes for a in ("shx", "shy", "shz"))
-        if cfg.forces.type == "treepm_fast" and (full3 or "shz" not in axes):
-            # shz without the full 3-axis spec takes the stateless sharded
-            # TreePM on the slab mesh in the JAX engine, and here
+        if cfg.forces.type == "treepm_fast" and "shx" in axes \
+                and "shy" in axes:
             raise _not_ported("compute.mesh with forces.type='treepm_fast' "
-                              "(the sharded fast steppers parallel/fast_mesh"
-                              ", fast_mesh2d, fast_mesh3d)")
+                              "on the {shx, shy} and {shx, shy, shz} axes "
+                              "(the sharded fast steppers "
+                              "parallel/fast_mesh2d, fast_mesh3d)")
         return world_size() > 1
+
+    def _init_mesh_fast_or_stateless(self, state: SimState) -> None:
+        """treepm_fast on ranks: the sharded fast stepper where it applies
+        (_try_init_mesh_fast_path), else the stateless sharded TreePM."""
+        if not self._try_init_mesh_fast_path(state):
+            self._init_mesh_path(state)
+
+    def _try_init_mesh_fast_path(self, state: SimState) -> bool:
+        """The sharded fast stepper (parallel/fast_mesh) on the 1D slab
+        mesh from the global state: the buckets stay resident and sharded
+        between steps. False where the JAX engine takes the stateless
+        sharded TreePM instead: shz in compute.mesh.axes (without shx and
+        shy), or a box whose plan is None (logged)."""
+        from ..forces import auto_pm_grid
+        from ..parallel.fast_mesh import initialize_mesh_fast
+        from ..parallel.mesh import make_mesh
+        cfg = self.config
+        if "shz" in dict(cfg.compute.mesh.axes or {}):
+            return False
+        cosmological = cfg.cosmology.model != "Newtonian"
+        mesh = make_mesh(device=self.device)
+        t0 = time.perf_counter()
+        try:
+            self._fstate, self._fast_mesh_kw = initialize_mesh_fast(
+                state.positions, state.velocities, state.masses,
+                state.scale_factor, mesh=mesh,
+                box_size=cfg.particles.box_size, pm_grid=auto_pm_grid(cfg),
+                softening=cfg.forces.softening_length, g_const=cfg.units.G,
+                split_factor=cfg.forces.split_factor,
+                cut_factor=cfg.forces.cut_factor,
+                capacity=cfg.forces.bucket_capacity,
+                time=state.time, step=state.step,
+                h0_internal=cfg.units.H0_internal,
+                kick_mode=(cfg.integration.kick_mode if cosmological
+                           else "newtonian"),
+                sf_method=cfg.integration.scale_factor_update,
+                cosmological=cosmological)
+        except ValueError as exc:
+            _log.info("mesh treepm_fast unavailable (%s); falling back to "
+                      "the stateless sharded TreePM", exc)
+            self._fstate = self._fast_mesh_kw = None
+            return False
+        synchronize(self._fstate.acc)
+        self.statistics.compile_time_s += time.perf_counter() - t0
+        self._mesh = mesh
+        self._mesh_bounds = None
+        self._state = self._on_device(state)
+        self._state_sharded = False
+        self._fast_n = state.positions.shape[0]
+        self._fast_since_rebucket = 0
+        self._accel_fn = None
+        return True
 
     def _init_mesh_path(self, state: SimState) -> None:
         """Shard the run over the rank mesh (the JAX engine's
@@ -287,6 +358,7 @@ class SimulationEngine:
         self._mesh = mesh
         self._state = shard_state(state.replace(
             positions=pos, velocities=vel, masses=mass), mesh)
+        self._state_sharded = True
         box = cfg.particles.box_size
         soft = cfg.forces.softening_length
         g = cfg.units.G
@@ -457,15 +529,19 @@ class SimulationEngine:
         configured (or halved) cadence, bounded by the drift guard and
         snapped to a divisor of `n`."""
         from ..physics.integrators import drift_factor
-        kw = self._fast_kw
+        kw = self._fast_mesh_kw or self._fast_kw
         rebucket_every = getattr(self, "_fast_rebucket_every", None) \
             or self.config.forces.rebucket_every
         # proactive drift guard: bound the steps between rebuckets by the
         # distance the fastest particle can drift into the deposit margin
-        # (one vmax readback per chunk)
+        # (one vmax readback per chunk; on ranks the largest over them, so
+        # every rank picks the same cadence)
         a0 = float(self._fstate.scale_factor)
         df = float(drift_factor(a0, kw.get("kick_mode", "reference")))
-        vmax = float(torch.max(torch.abs(self._fstate.bvel)))
+        vmax = torch.max(torch.abs(self._fstate.bvel)).reshape(1)
+        if self._fast_mesh_kw is not None:
+            vmax = self._mesh.all_reduce(vmax, "max")
+        vmax = float(vmax[0])
         step_drift = vmax * float(self._dt) * df
         margin_dist = (float(kw.get("margin", 1)) * kw["box_size"]
                        / max(kw.get("ng", kw["ncell"]), kw["ncell"]))
@@ -483,28 +559,47 @@ class SimulationEngine:
     def _fast_chunk(self, n: int) -> None:
         from ..ops.fast_treepm import (BucketOverflowError, fast_run,
                                        next_rebucket_offset)
+        from ..parallel.fast_mesh import mesh_fast_run
         params = self.config.cosmology_params()
-        kw = self._fast_kw
+        on_mesh = self._fast_mesh_kw is not None
+        # the counters are totals over the ranks on every rank, so every
+        # rank takes the decisions below alike
         dropped_before = int(self._fstate.dropped)
         rebucket_every = self._fast_cadence(n)
         since = getattr(self, "_fast_since_rebucket", 0)
         # grow-and-retry: re-plan with a doubled capacity from the intact
-        # pre-rebucket state instead of zero-massing the overflow
+        # pre-rebucket state instead of zero-massing the overflow; on ranks
+        # 6 attempts, then the loss is counted (strays farther than a
+        # neighbour slab are not cured by capacity)
         remaining = n
+        grow_attempts = 0
         while remaining > 0:
             try:
-                self._fstate = fast_run(
-                    self._fstate, params, float(self._dt),
-                    n_steps=remaining, on_overflow="raise",
-                    rebucket_every=rebucket_every,
-                    steps_since_rebucket=since, **kw)
+                if on_mesh:
+                    self._fstate = mesh_fast_run(
+                        self._fstate, params, float(self._dt),
+                        mesh=self._mesh, n_steps=remaining,
+                        rebucket_every=rebucket_every,
+                        steps_since_rebucket=since,
+                        on_overflow="raise" if grow_attempts < 6
+                        else "count", **self._fast_mesh_kw)
+                else:
+                    self._fstate = fast_run(
+                        self._fstate, params, float(self._dt),
+                        n_steps=remaining, on_overflow="raise",
+                        rebucket_every=rebucket_every,
+                        steps_since_rebucket=since, **self._fast_kw)
                 since = next_rebucket_offset(since, remaining,
                                              rebucket_every)
                 remaining = 0
             except BucketOverflowError as exc:
                 remaining -= exc.steps_done
                 since = 0
-                self._grow_fast_capacity(exc.fstate)
+                grow_attempts += 1
+                if on_mesh:
+                    self._grow_mesh_fast_capacity(exc.fstate)
+                else:
+                    self._grow_fast_capacity(exc.fstate)
         self._fast_since_rebucket = since
         new_drops = int(self._fstate.dropped) - dropped_before
         if new_drops > 0:
@@ -561,26 +656,73 @@ class SimulationEngine:
         self._fstate = st.replace(acc=acc, dropped=st.dropped + dropped)
         self.statistics.compile_time_s += time.perf_counter() - t0
 
+    def _grow_mesh_fast_capacity(self, fstate) -> None:
+        """_grow_fast_capacity on ranks: every rank's live rows and ids
+        (gathered, wrapped) rebuilt into the sharded stepper at a doubled
+        capacity until the rebuild is lossless or the capacity reaches the
+        row count, keeping ncell, rs, margin and the ids (the JAX
+        engine's _grow_mesh_fast_capacity)."""
+        from ..parallel.fast_mesh import initialize_mesh_fast
+        from ..physics.integrators import wrap_positions
+        kw = self._fast_mesh_kw
+        old_cap = kw["capacity"]
+        pos, vel, mass, ids = self._fast_rows(fstate)
+        pos = wrap_positions(pos, kw["box_size"])
+        t0 = time.perf_counter()
+        new_cap = old_cap
+        while True:
+            new_cap *= 2
+            plan = {"ncell": kw["ncell"], "capacity": new_cap,
+                    "margin": kw["margin"], "rs": kw["rs"]}
+            st, kw2 = initialize_mesh_fast(
+                pos, vel, mass, fstate.scale_factor, mesh=self._mesh,
+                box_size=kw["box_size"], pm_grid=kw["ng"],
+                softening=kw["softening"], g_const=kw["g_const"],
+                time=fstate.time, step=fstate.step,
+                h0_internal=kw["h0_internal"], kick_mode=kw["kick_mode"],
+                sf_method=kw["sf_method"], cosmological=kw["cosmological"],
+                plan_override=plan, ids=ids)
+            if int(st.overflow) == 0 or new_cap >= pos.shape[0]:
+                break
+        _log.warning(
+            "mesh treepm_fast: bucket capacity %d exceeded by clustering; "
+            "re-planned with capacity %d (no particles lost)",
+            old_cap, new_cap)
+        self._fstate = st.replace(overflow=fstate.overflow,
+                                  dropped=fstate.dropped)
+        self._fast_mesh_kw = kw2
+        self.statistics.compile_time_s += time.perf_counter() - t0
+
+    def _fast_rows(self, fstate):
+        """(positions, velocities, masses, ids) of the slots of fstate
+        that hold a particle (id >= 0), every rank's in the global slot
+        order on the sharded stepper (a collective there)."""
+        from ..ops.fast_treepm import flatten_fast_state
+        if self._fast_mesh_kw is not None:
+            from ..parallel.fast_mesh import gather_fast_state
+            fstate = gather_fast_state(fstate, self._mesh)
+        pos, vel, mass, ids = flatten_fast_state(fstate, with_ids=True)
+        live = ids >= 0
+        return pos[live], vel[live], mass[live], ids[live]
+
     def _sync_state_from_fast(self) -> None:
         """Restore the bucket layout into the public SimState in the
         original particle order (via the persistent ids), positions
         wrapped into [0, box); overflowed particles leave zero-mass rows.
-        Runs on the device with index ops."""
-        from ..ops.fast_treepm import flatten_fast_state
+        Runs on the device with index ops; on ranks every rank gathers
+        every rank's slots and holds the global state."""
         from ..physics.integrators import wrap_positions
-        fpos, fvel, fmass, fids = flatten_fast_state(self._fstate,
-                                                     with_ids=True)
+        fpos, fvel, fmass, ids = self._fast_rows(self._fstate)
         fpos = wrap_positions(fpos, self.config.particles.box_size)
-        live = fids >= 0
-        ids = fids[live].to(torch.int64)
+        ids = ids.to(torch.int64)
         n = self._fast_n
         dev = fpos.device
         pos = torch.zeros((n, 3), dtype=torch.float32, device=dev)
         vel = torch.zeros((n, 3), dtype=torch.float32, device=dev)
         mass = torch.zeros((n,), dtype=torch.float32, device=dev)
-        pos[ids] = fpos[live]
-        vel[ids] = fvel[live]
-        mass[ids] = fmass[live]
+        pos[ids] = fpos
+        vel[ids] = fvel
+        mass[ids] = fmass
         self._state = self._state.replace(
             positions=pos, velocities=vel, masses=mass,
             scale_factor=self._fstate.scale_factor.clone(),
@@ -595,17 +737,26 @@ class SimulationEngine:
         counters before releasing."""
         if self._fstate is None:
             return
+        self._fast_rebuild = "single" if self._fast_mesh_kw is None \
+            else "mesh"
         self._fstate = None
+        self._fast_mesh_kw = None
         self._acc = None
         self._fast_since_rebucket = 0
-        self._fast_rebuild = True
 
     def _maybe_rebuild_fast(self) -> None:
-        """Re-bucket `state` after a release_force_state(), once."""
-        if not self._fast_rebuild:
+        """Re-bucket `state` after a release_force_state(), once (on ranks
+        into the sharded stepper, or the stateless sharded TreePM where
+        its plan is None, as initialize() does)."""
+        mode = self._fast_rebuild
+        if mode is None:
             return
-        self._fast_rebuild = False
-        if self._fstate is None:
+        self._fast_rebuild = None
+        if self._fstate is not None:
+            return
+        if mode == "mesh":
+            self._init_mesh_fast_or_stateless(self._state)
+        else:
             self._init_fast_path()
 
     # -- stateless solvers: a loop of the fused KDK step ---------------------
@@ -661,6 +812,9 @@ class SimulationEngine:
         if self._dt is None:
             raise RuntimeError("warmup() requires initialize() first")
         t0 = time.perf_counter()
+        if self._fast_mesh_kw is not None:
+            # the JAX engine's warmup covers no mesh path either
+            return {"programs": 0, "seconds": time.perf_counter() - t0}
         if self.device.type == "cuda":
             from ..ops import cuda_build
             cuda_build.library()
@@ -703,7 +857,14 @@ class SimulationEngine:
         each chunk to force time."""
         if getattr(self, "_force_eval_s", None) is not None:
             return
-        if self._fstate is not None:
+        if self._fast_mesh_kw is not None:
+            from ..parallel.fast_mesh import ACCEL_KEYS, mesh_fast_accel
+            kw = {k: self._fast_mesh_kw[k] for k in ACCEL_KEYS}
+
+            def force():
+                return mesh_fast_accel(self._fstate.bpos, self._fstate.bmass,
+                                       mesh=self._mesh, **kw)[0]
+        elif self._fstate is not None:
             from ..ops.fast_treepm import _accel
             kw = _accel_kw(self._fast_kw)
 
@@ -797,7 +958,8 @@ class SimulationEngine:
                 if cfg.integration.adaptive_timestep \
                         or cfg.integration.max_dloga > 0:
                     self._update_dt()
-                if self._mesh is not None:
+                # the sharded fast stepper migrates inside its rebucket
+                if self._mesh is not None and self._fstate is None:
                     with self.profiler.timer("run.migrate"):
                         self._mesh_migrate()
                 steps_done += n
@@ -849,7 +1011,7 @@ class SimulationEngine:
     def _num_particles(self) -> int:
         """Rows of the (global) state."""
         n = self._state.num_particles
-        return n if self._mesh is None else n * self._mesh.size
+        return n * self._mesh.size if self._state_sharded else n
 
     def _all_ranks(self, ok: bool) -> bool:
         """`ok` on every rank of the mesh (a collective), or `ok` itself
@@ -897,12 +1059,14 @@ class SimulationEngine:
 
     def reset(self) -> None:
         self._state = None
+        self._state_sharded = False
         self._mesh = None
         self._mesh_bounds = None
         self.mesh_force_diagnostics = None
         self._fstate = None
         self._fast_kw = None
-        self._fast_rebuild = False
+        self._fast_mesh_kw = None
+        self._fast_rebuild = None
         self._acc = None
         self._accel_fn = None
         self.statistics = SimulationStatistics()
@@ -913,12 +1077,24 @@ class SimulationEngine:
         """KE, PE (the O(N^2) pair sum: K9 on the card, its plain version
         on the CPU) and their total, as 0-d tensors on the engine's
         device; on a mesh parallel/sharded.sharded_energy (K9's cross form
-        a ring step), equal on every rank."""
+        a ring step), equal on every rank. The sharded fast stepper's
+        global state gives each rank its contiguous share of the rows,
+        padded with zero-mass rows to a multiple of the ranks."""
         from ..forces.direct import kinetic_energy, potential_energy
         cfg = self.config
         if self._mesh is not None:
             from ..parallel.sharded import sharded_energy
             st = self._state
+            if not self._state_sharded:
+                from ..parallel.mesh import shard_state
+                pad = -st.num_particles % self._mesh.size
+
+                def padded(x):
+                    return torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+                st = shard_state(st.replace(
+                    positions=padded(st.positions),
+                    velocities=padded(st.velocities),
+                    masses=padded(st.masses)), self._mesh)
             return sharded_energy(
                 st.positions, st.velocities, st.masses,
                 box_size=cfg.particles.box_size,

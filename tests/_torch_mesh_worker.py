@@ -249,8 +249,115 @@ def job_block3d(mesh, p) -> dict:
     return {k: _np(v) for k, v in out.items()}
 
 
+def _fast_engine(p, name, d):
+    """The port's engine on config d from p["states"][name], run for
+    p["steps"][name] steps: the path it took, its capacity, the state in id
+    order after the run, the counters and the energies."""
+    import lambda_cdm_tpu_torch as tlc
+    from lambda_cdm_tpu_torch.core.state import make_state
+    s = p["states"][name]
+    eng = tlc.SimulationBuilder(device="cpu").with_config(
+        tlc.SimulationConfig.from_dict(d)).with_initial_state(make_state(
+            *(_t(s[k]) for k in ("pos", "vel", "mass")),
+            scale_factor=s["a"])).build()
+    fast = eng._fast_mesh_kw is not None
+    out = {f"{name}_fast_mesh": fast,
+           f"{name}_stateless": eng._fstate is None
+           and eng._accel_fn is not None and eng._mesh is not None,
+           f"{name}_cap0": eng._fast_mesh_kw["capacity"] if fast else None}
+    eng.run(num_steps=p["steps"][name])
+    g = eng.state
+    e = eng.compute_energy()
+    out.update({f"{name}_pos": g.positions, f"{name}_vel": g.velocities,
+                f"{name}_mass": g.masses, f"{name}_step": int(g.step),
+                f"{name}_ke": float(e["kinetic"]),
+                f"{name}_pe": float(e["potential"])})
+    if fast:
+        out.update({f"{name}_cap": eng._fast_mesh_kw["capacity"],
+                    f"{name}_overflow": int(eng._fstate.overflow),
+                    f"{name}_dropped": int(eng._fstate.dropped)})
+    return out
+
+
+def job_fast_mesh(mesh, p) -> dict:
+    """Every check of tests/test_torch_fast_mesh.py on this group's ranks:
+    mesh_fast_accel on each p["accel"] bucket set and mesh_rebucket on each
+    p["rebucket"] case (global [C, K, ...] arrays, JAX's layout: each rank
+    takes its cell range), the p["run"] stepper run from
+    initialize_mesh_fast with its overflowing rebucket, and the engine
+    configs p["engine"]. Slots come back as the rank's [Cl, K, ...]."""
+    from lambda_cdm_tpu_torch.ops.fast_treepm import BucketOverflowError
+    from lambda_cdm_tpu_torch.parallel import fast_mesh as fm
+    from lambda_cdm_tpu_torch.physics.cosmology import CosmologyParams
+    geo = p["geo"]
+    kw = dict(box_size=geo["box"], ncell=geo["nc"], capacity=geo["cap"])
+
+    def cells(x, dtype=torch.float32):
+        n = x.shape[0] // mesh.size
+        return _t(x[mesh.rank * n:(mesh.rank + 1) * n]).to(dtype)
+
+    def soa(x):
+        return cells(x).permute(2, 0, 1).contiguous()
+
+    def aos(x):
+        return x.permute(1, 2, 0)
+
+    out = {}
+    for name, (bpos, bmass) in p.get("accel", {}).items():
+        acc, dropped = fm.mesh_fast_accel(
+            soa(bpos), cells(bmass), mesh=mesh, ng=geo["ng"],
+            margin=1, rs=geo["rs"], softening=geo["soft"], g_const=geo["g"],
+            **kw)
+        out.update({name: aos(acc), f"{name}_dropped": int(dropped)})
+    for name, c in p.get("rebucket", {}).items():
+        r = fm.mesh_rebucket(soa(c["bpos"]), soa(c["bvel"]),
+                             cells(c["bmass"]), cells(c["ids"], torch.int32),
+                             soa(c["acc"]), mesh=mesh,
+                             mig_capacity=c["mig"], **kw)
+        out.update({f"{name}_pos": aos(r[0]), f"{name}_vel": aos(r[1]),
+                    f"{name}_mass": r[2], f"{name}_ids": r[3],
+                    f"{name}_acc": aos(r[4]), f"{name}_overflow": int(r[5]),
+                    f"{name}_migrated": int(r[6])})
+    if "run" in p:
+        run = p["run"]
+        fs, fkw = fm.initialize_mesh_fast(
+            _t(run["pos"]), _t(run["vel"]), _t(run["mass"]), run["a"],
+            mesh=mesh, box_size=geo["box"], pm_grid=geo["ng"],
+            softening=geo["soft"], plan_override=run.get("plan"),
+            **run["kw"])
+        out.update(run_kw=fkw, run_init_acc=aos(fs.acc),
+                   run_init_ids=fs.ids, run_init_dropped=int(fs.dropped))
+        params = CosmologyParams()
+        end = fm.mesh_fast_run(fs, params, run["dt"], mesh=mesh,
+                               n_steps=run["steps"], rebucket_every=4, **fkw)
+        g = fm.gather_fast_state(end, mesh)
+        out.update(run_ids=g.ids, run_pos=aos(g.bpos), run_vel=aos(g.bvel),
+                   run_mass=g.bmass, run_step=int(end.step),
+                   run_a=float(end.scale_factor),
+                   run_overflow=int(end.overflow),
+                   run_dropped=int(end.dropped))
+        # a rebucket that would lose rows raises with the state it was
+        # given, before any step
+        live = (fs.bmass > 0) & (torch.arange(fs.bmass.shape[0])[:, None]
+                                 < run["n_src"])
+        tight = fs.replace(bpos=torch.where(live[None], 1.0, fs.bpos))
+        try:
+            fm.mesh_fast_run(tight, params, run["dt"], mesh=mesh, n_steps=1,
+                             rebucket_every=1, steps_since_rebucket=1,
+                             on_overflow="raise", **fkw)
+            out["raised"] = None
+        except BucketOverflowError as exc:
+            same = all(torch.equal(getattr(exc.fstate, f), getattr(tight, f))
+                       for f in ("bpos", "bvel", "bmass", "ids", "acc"))
+            out["raised"] = (exc.steps_done, same)
+    for name, d in p.get("engine", {}).items():
+        out.update(_fast_engine(p, name, d))
+    return {k: _np(v) for k, v in out.items()}
+
+
 JOBS = {"functions": job_functions, "engine": job_engine, "ring": job_ring,
-        "treepm": job_treepm, "block3d": job_block3d}
+        "treepm": job_treepm, "block3d": job_block3d,
+        "fast_mesh": job_fast_mesh}
 
 
 def _rank_main(rank: int, job: str, n_ranks: int, root: str, payload,

@@ -212,22 +212,22 @@ def test_builder_device_and_refusals(tmp_path):
     fresh.load_checkpoint(str(tmp_path / "x"))
     assert int(fresh.state.step) == 2
     assert torch.equal(fresh.state.positions, e.state.positions)
-    # treepm_fast where the JAX engine takes a fast mesh stepper (slab,
-    # pencil, block) refuses on any number of ranks
-    for axes in (None, {"shx": 2}, {"shx": 2, "shy": 4},
-                 {"shx": 2, "shy": 2, "shz": 2}):
+    # treepm_fast where the JAX engine takes its pencil or block fast
+    # stepper refuses on any number of ranks
+    for axes in ({"shx": 2, "shy": 4}, {"shx": 2, "shy": 2, "shz": 2}):
         c = tlc.SimulationConfig()
         c.forces.type = "treepm_fast"
         c.compute.mesh.enabled = True
-        if axes:
-            c.compute.mesh.axes = axes
+        c.compute.mesh.axes = axes
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tlc.SimulationEngine(c, device="cpu").initialize()
-    # every other mesh config runs; on one rank, single-device
+    # every other mesh config runs (treepm_fast on the slab mesh: the
+    # sharded fast stepper on ranks); on one rank, single-device
     for kind, axes in (("direct", None), ("treepm", None),
                        ("direct", {"shx": 2, "shy": 4}),
                        ("pm_fast", {"shx": 2, "shy": 2, "shz": 2}),
-                       ("treepm_fast", {"shz": 4})):
+                       ("treepm_fast", {"shz": 4}), ("treepm_fast", None),
+                       ("treepm_fast", {"shx": 2})):
         c = tlc.SimulationConfig.from_dict(
             {"particles": {"num_particles": 512, "box_size": 64.0},
              "forces": {"type": kind, "softening_length": 0.5,
