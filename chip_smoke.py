@@ -3769,7 +3769,15 @@ MESH_RUNS = (
     # the sharded fast stepper at treepm_1m.json's full size (its plan:
     # nc 24, capacity 128: 6 cell planes and 48 PM planes a rank)
     ("treepm_fast slab", CONFIG, 8,
-     {"axes": {"shard": -1}, "fast": True, "rebucket_every": 4}))
+     {"axes": {"shard": -1}, "fast": True, "rebucket_every": 4}),
+    # the pencil and block fast steppers at the same size (both plans: nc
+    # 24, capacity 128; 12 x 12 cell rods a rank on (2, 2), 24 x 12 x 12
+    # cell blocks on (1, 2, 2))
+    ("treepm_fast pencils", CONFIG, 8,
+     {"axes": {"shx": 2, "shy": 2}, "fast": True, "rebucket_every": 4}),
+    ("treepm_fast blocks", CONFIG, 8,
+     {"axes": {"shx": 1, "shy": 2, "shz": 2}, "fast": True,
+      "rebucket_every": 4}))
 MESH_FORCE_TOL = 1e-5    # ring: K4's bar; sharded PM and TreePM: the
                          # stateless pm bar, over the same pair set
 FAST_MESH_K123_TOL = 2e-4  # against K1/K2/K3 with K3's x-space split, the
@@ -3777,6 +3785,8 @@ FAST_MESH_K123_TOL = 2e-4  # against K1/K2/K3 with K3's x-space split, the
 FAST_MESH_TRAJ_TOL = 1e-3  # Mpc/h after 8 steps against the single-device
                            # run (tests/test_fast_mesh.py:127)
 MESH_ENERGY_TOL = 1e-6
+PENCIL_IRFFT_TOL = 1e-5    # the card's pencil inverse against the CPU's on
+                           # a non-Hermitian spectrum (the largest value)
 MESH_RING_TOL = 2e-3     # ring against halo: the split tail past r_cut
                          # (tests/test_sharded_treepm.py:82)
 
@@ -3904,13 +3914,55 @@ def _mesh_rank_run(label: str, path: str, steps: int, change: dict,
     return out
 
 
+def block_order(kw: dict, dims: tuple):
+    """p[block-major cell] = x-major cell of a mesh fast stepper's global
+    state on the rank grid `dims` (the slab stepper's cells are x-major:
+    the identity)."""
+    import torch
+    from lambda_cdm_tpu_torch.parallel.fast_mesh2d import cell_order2d
+    from lambda_cdm_tpu_torch.parallel.fast_mesh3d import cell_order3d
+    nc = kw["ncell"]
+    if len(dims) == 2:
+        return cell_order2d(nc, *dims)
+    if len(dims) == 3:
+        return cell_order3d(nc, *dims)
+    return torch.arange(nc ** 3)
+
+
+def pencil_irfftn_check(mesh, ng: int, seed: int = 5) -> dict:
+    """parallel/fft.pencil_irfftn of one spectrum on the card and on the
+    CPU, on this rank's block of the 2D pencil grid `mesh`: a random
+    complex spectrum times -i kx (a gradient's, not Hermitian on the kz =
+    0 and Nyquist bins). Returns the largest difference and value over
+    the ranks."""
+    import torch
+    from lambda_cdm_tpu_torch.parallel import fft
+    axes = mesh.axis_names
+    dy = mesh.dims[1]
+    zp = -(-(ng // 2 + 1) // dy) * dy
+    g = torch.Generator().manual_seed(seed)
+    spec = torch.complex(torch.randn((ng, ng, zp), generator=g),
+                         torch.randn((ng, ng, zp), generator=g))
+    kx = fft.k_vectors_pencil(ng, 100.0, dy, device="cpu")[0]
+    spec = fft.pencil_block(-1j * kx * spec, mesh, axes).contiguous()
+    cpu = fft.pencil_irfftn(spec, ng=ng, mesh=mesh, axes=axes)
+    card = fft.pencil_irfftn(spec.to(mesh.device), ng=ng, mesh=mesh,
+                             axes=axes).cpu()
+    err = mesh.all_reduce(torch.max(torch.abs(card - cpu)).reshape(1),
+                          "max")
+    big = mesh.all_reduce(torch.max(torch.abs(cpu)).reshape(1), "max")
+    return {"err": float(err[0]), "max": float(big[0])}
+
+
 def _fast_rank_run(label: str, path: str, steps: int, change: dict,
                    device: str) -> dict:
-    """The sharded fast stepper (treepm_fast on the slab mesh) on this
-    rank: the start state's global buckets and mesh forces, one force
-    evaluation timed, the +0.6-cell drift's rebucket on the start state,
-    then the run (launch counts reset just before and summed over the
-    ranks just after) and its final global state."""
+    """A sharded fast stepper (treepm_fast on the slab, pencil or block
+    mesh) on this rank: the start state's global buckets and mesh forces,
+    one force evaluation timed, the +0.6-cell drift's rebucket on the
+    start state (along x on the slabs, along every axis on the pencils
+    and blocks), then the run (launch counts reset just before and summed
+    over the ranks just after) and its final global state; on the pencil
+    grid also pencil_irfftn on the card against the CPU."""
     import torch
     from lambda_cdm_tpu_torch.core.engine import SimulationEngine
     from lambda_cdm_tpu_torch.parallel import fast_mesh as fm
@@ -3926,38 +3978,59 @@ def _fast_rank_run(label: str, path: str, steps: int, change: dict,
     kw = dict(eng._fast_mesh_kw)
     g = fm.gather_fast_state(fs, mesh)
     out = {"kw": kw, "dims": mesh.dims, "transport": mesh.transport,
+           "stepper": (eng._fast_mesh_2d, eng._fast_mesh_3d),
            "init_s": init_s, "start_overflow": int(fs.overflow),
            "start_dropped": int(fs.dropped),
            **{f"start_{k}": getattr(g, f).cpu().numpy() for k, f in
               (("bpos", "bpos"), ("bmass", "bmass"), ("ids", "ids"),
                ("acc", "acc"))}}
     del g
+    accel_fn = eng._mesh_fast.accel
     accel = {k: kw[k] for k in fm.ACCEL_KEYS}
     mesh.barrier()
     t0 = time.perf_counter()
-    acc, _ = fm.mesh_fast_accel(fs.bpos, fs.bmass, mesh=mesh, **accel)
+    acc, _ = accel_fn(fs.bpos, fs.bmass, mesh=mesh, **accel)
     synchronize(acc)
     mesh.barrier()
     out["force_s"] = time.perf_counter() - t0
     del acc
-    # every live slot +0.6 cells in x, wrapped; the emigrant capacity a
-    # whole cell plane's slots (the default's nc^2 K / 8 rows hold a
-    # fifth of the ~25k rows that leave a 1M slab a side)
+    # every live slot +0.6 cells (in x on the slabs, along every axis on
+    # the pencils and blocks), wrapped; the emigrant capacity the slots of
+    # a whole cell plane of the rank's block (the slab stepper's default
+    # nc^2 K / 8 rows hold a fifth of the ~25k rows that leave a 1M slab
+    # a side)
     nc, cap = kw["ncell"], kw["capacity"]
     live = fs.bmass > 0
     moved = fs.bpos.clone()
-    moved[0] = torch.where(live, torch.remainder(
-        fs.bpos[0] + 0.6 * kw["box_size"] / nc, kw["box_size"]), 0.0)
-    nbp, _, nbm, nbi, _, ovf, mig = fm.mesh_rebucket(
-        moved, fs.bvel, fs.bmass, fs.ids, fs.acc, mesh=mesh,
-        box_size=kw["box_size"], ncell=nc, capacity=cap,
-        mig_capacity=nc * nc * cap)
+    along = range(1) if mesh.ndim == 1 else range(3)
+    for a in along:
+        moved[a] = torch.where(live, torch.remainder(
+            fs.bpos[a] + 0.6 * kw["box_size"] / nc, kw["box_size"]), 0.0)
+    if mesh.ndim == 1:
+        nbp, _, nbm, nbi, _, ovf, mig = fm.mesh_rebucket(
+            moved, fs.bvel, fs.bmass, fs.ids, fs.acc, mesh=mesh,
+            box_size=kw["box_size"], ncell=nc, capacity=cap,
+            mig_capacity=nc * nc * cap)
+        out["mig_moved"] = int(mig)
+    else:
+        from lambda_cdm_tpu_torch.parallel import fast_mesh2d, fast_mesh3d
+        # the block's cells along x, y, z (z whole on the pencils)
+        nloc = [nc // d for d in mesh.dims] + [nc] * (3 - mesh.ndim)
+        face = max(math.prod(nloc) // n for n in nloc)
+        rebucket = (fast_mesh2d.mesh_rebucket2d if mesh.ndim == 2
+                    else fast_mesh3d.mesh_rebucket3d)
+        nbp, _, nbm, nbi, _, ovf = rebucket(
+            moved, fs.bvel, fs.bmass, fs.ids, fs.acc, mesh=mesh,
+            box_size=kw["box_size"], ncell=nc, capacity=cap,
+            mig_capacity=face * cap)
     out.update(mig_pos=mesh.all_gather(nbp.transpose(0, 1).contiguous())
                .transpose(0, 1).cpu().numpy(),
                mig_mass=mesh.all_gather(nbm).cpu().numpy(),
                mig_ids=mesh.all_gather(nbi).cpu().numpy(),
-               mig_lost=int(ovf), mig_moved=int(mig))
+               mig_lost=int(ovf))
     del moved, nbp, nbm, nbi
+    if mesh.ndim == 2:
+        out["irfftn"] = pencil_irfftn_check(mesh, kw["ng"])
     synchronize(eng._fstate.acc)
     mesh.barrier()
     reset_counts()
@@ -4145,16 +4218,28 @@ def plain_fast_forces(bpos, bmass, kw: dict):
                        kw["g_const"] * (acc_long + acc_short), 0.0)
 
 
+def path_key(cfg) -> tuple:
+    """What sets a single-device run's trajectory: particles, box, PM grid,
+    softening, timestep."""
+    return (cfg.particles.num_particles, cfg.particles.box_size,
+            cfg.forces.pm_grid_size, cfg.forces.softening_length,
+            cfg.time.initial_timestep)
+
+
 def fast_mesh_checks(label: str, r: dict, cfg, steps: int, device,
-                     card) -> None:
-    """The "treepm_fast slab" run's checks: its plan and counters; the
-    mesh forces on the start state against K1/K2/K3 on the same global
-    buckets (2e-4 of the largest |a|) and against the plain single-device
-    sum of the same function (1e-5); the +0.6-cell rebucket keeps every
-    id once, each in its cell's bucket; after the run, the particles and
-    masses conserved and the positions within 1e-3 Mpc/h of the
-    single-device run of the config from the same ICs; ms/step beside
-    the plain single-device force evaluation."""
+                     card, single: dict) -> None:
+    """A "treepm_fast" mesh run's checks: its stepper (slab, pencil or
+    block, after the mesh axes), plan and counters; the mesh forces on the
+    start state against K1/K2/K3 on the same global buckets, permuted from
+    the block-major to the x-major cell order (2e-4 of the largest |a|),
+    and against the plain single-device sum of the same function (1e-5);
+    the +0.6-cell rebucket keeps every id once, each in its cell's
+    bucket; after the run, the particles and masses conserved and the
+    positions within 1e-3 Mpc/h of the single-device run of the config
+    from the same ICs (run once a config, kept in `single` for the later
+    runs);
+    ms/step beside the plain single-device force evaluation; on the
+    pencils, pencil_irfftn on the card against the CPU (1e-5)."""
     import numpy as np
     import torch
     from lambda_cdm_tpu_torch.core.engine import SimulationEngine
@@ -4163,24 +4248,35 @@ def fast_mesh_checks(label: str, r: dict, cfg, steps: int, device,
     kw = r["kw"]
     box, nc, cap = kw["box_size"], kw["ncell"], kw["capacity"]
     n = cfg.particles.num_particles
-    grid = f"{label} on {'x'.join(map(str, r['dims']))} ranks"
-    bpos = torch.as_tensor(r["start_bpos"], device=device)
-    bmass = torch.as_tensor(r["start_bmass"], device=device)
-    acc = torch.as_tensor(r["start_acc"], device=device)
+    dims = tuple(r["dims"])
+    grid = f"{label} on {'x'.join(map(str, dims))} ranks"
+    want = (len(dims) == 2, len(dims) == 3)
+    check(f"mesh {label}", tuple(r["stepper"]) == want,
+          f"the engine took the stepper {r['stepper']}, expected {want}")
+    # block-major -> x-major: x-major cell x is block-major cell q[x]
+    order = block_order(kw, dims)
+    q = torch.argsort(order).to(device)
+    bpos = torch.as_tensor(r["start_bpos"], device=device)[:, q]
+    bmass = torch.as_tensor(r["start_bmass"], device=device)[q]
+    acc = torch.as_tensor(r["start_acc"], device=device)[:, q]
     live = (bmass > 0)[None].expand_as(bpos)
     counts = torch.sum(bmass > 0, dim=1)
-    print(f"mesh {grid}: plan nc {nc}, capacity {cap}, rs {kw['rs']:.4f}, "
-          f"ng {kw['ng']} ({kw['ng'] // r['dims'][0]} PM planes and "
-          f"{nc // r['dims'][0]} cell planes a rank), occupied depth "
-          f"{int(counts.max())}: {nc ** 3 * 27 * int(counts.max()) ** 2:.3e} "
-          f"padded pair slots a force evaluation; init "
-          f"{r['init_s']:.2f} s; start overflow {r['start_overflow']} "
-          f"dropped {r['start_dropped']}, live {int(counts.sum())} of {n}")
+    nloc = [nc // d for d in dims] + [nc] * (3 - len(dims))
+    ngl = [kw["ng"] // d for d in dims] + [kw["ng"]] * (3 - len(dims))
+    print(f"mesh {grid}: stepper "
+          f"{('slab', 'pencil', 'block')[len(dims) - 1]}, plan nc {nc}, "
+          f"capacity {cap}, rs {kw['rs']:.4f}, ng {kw['ng']} (a rank: "
+          f"{'x'.join(map(str, nloc))} cells, {'x'.join(map(str, ngl))} PM "
+          f"cells), occupied depth {int(counts.max())}: "
+          f"{nc ** 3 * 27 * int(counts.max()) ** 2:.3e} padded pair slots a "
+          f"force evaluation; init {r['init_s']:.2f} s; start overflow "
+          f"{r['start_overflow']} dropped {r['start_dropped']}, live "
+          f"{int(counts.sum())} of {n}")
     check(f"mesh {label}", r["start_overflow"] == 0 == r["start_dropped"]
           and int(counts.sum()) == n, "the start lost particles")
     zero = torch.zeros((), dtype=torch.int32, device=device)
     fs = FastState(bpos=bpos, bvel=torch.zeros_like(bpos), bmass=bmass,
-                   ids=torch.as_tensor(r["start_ids"], device=device),
+                   ids=torch.as_tensor(r["start_ids"], device=device)[q],
                    acc=torch.zeros_like(bpos), scale_factor=host_scalar(1.0),
                    time=host_scalar(0.0), step=host_scalar(0, torch.int32),
                    overflow=zero, dropped=zero)
@@ -4199,11 +4295,11 @@ def fast_mesh_checks(label: str, r: dict, cfg, steps: int, device,
     plain_ms = 1e3 * (time.perf_counter() - t0)
     err_p, rel_p = rel_err(acc, ref_p, live)
     print(f"mesh {grid} start: forces against K1/K2/K3 (K3's vpu split) "
-          f"on the same global buckets max_abs_err {err_k:.3e} (rel "
-          f"{rel_k:.3e}, tol {FAST_MESH_K123_TOL:g}; with the even split of "
-          f"the engine's vpu3 rel {rel_even:.3e}); against the plain single-device sum "
-          f"of the same function {err_p:.3e} (rel {rel_p:.3e}, tol "
-          f"{MESH_FORCE_TOL:g}); zero-mass slots "
+          f"on the same global buckets (x-major) max_abs_err {err_k:.3e} "
+          f"(rel {rel_k:.3e}, tol {FAST_MESH_K123_TOL:g}; with the even "
+          f"split of the engine's vpu3 rel {rel_even:.3e}); against the "
+          f"plain single-device sum of the same function {err_p:.3e} (rel "
+          f"{rel_p:.3e}, tol {MESH_FORCE_TOL:g}); zero-mass slots "
           f"{'all 0' if bool(torch.all(acc[~live] == 0)) else 'NONZERO'}")
     check(f"mesh {label} start", rel_k <= FAST_MESH_K123_TOL,
           f"forces against K1/K2/K3 rel err {rel_k}")
@@ -4217,17 +4313,36 @@ def fast_mesh_checks(label: str, r: dict, cfg, steps: int, device,
     mass = r["mig_mass"].reshape(-1)
     keep = mass > 0
     pos = r["mig_pos"].reshape(3, -1).T[keep]
-    cid = np.arange(nc ** 3).repeat(cap)[keep]
+    cid = order.numpy()[np.arange(nc ** 3).repeat(cap)[keep]]
     cell = np.clip(np.floor(pos / box * nc).astype(np.int64), 0, nc - 1)
     home = (cell[:, 0] * nc + cell[:, 1]) * nc + cell[:, 2]
     once = np.array_equal(np.sort(ids[keep]), np.arange(n))
-    print(f"mesh {grid}: +0.6-cell drift rebucket: {r['mig_moved']} rows "
-          f"migrated, {r['mig_lost']} lost; every id once "
-          f"{once}; rows outside their cell's bucket "
-          f"{int(np.sum(cid != home))}")
+    # the rows whose rank changed (rank r holds the slots r Cl K ...)
+    per_rank = nc ** 3 // math.prod(dims) * cap
+    start_ids = r["start_ids"].reshape(-1)
+    rank_of = np.full(n, -1)
+    has = start_ids >= 0
+    rank_of[start_ids[has]] = np.flatnonzero(has) // per_rank
+    has = ids >= 0
+    moved = int(np.sum(rank_of[ids[has]] != np.flatnonzero(has) // per_rank))
+    print(f"mesh {grid}: +0.6-cell drift rebucket "
+          f"({'along x' if len(dims) == 1 else 'along every axis'}): "
+          f"{moved} rows changed rank"
+          + (f" ({r['mig_moved']} migrated by the stepper's count)"
+             if "mig_moved" in r else "")
+          + f", {r['mig_lost']} lost; every id once {once}; rows outside "
+          f"their cell's bucket {int(np.sum(cid != home))}")
     check(f"mesh {label} migration", once and r["mig_lost"] == 0
-          and r["mig_moved"] > 0 and np.array_equal(cid, home),
+          and moved > 0 and r.get("mig_moved", moved) == moved
+          and np.array_equal(cid, home),
           "the drift's rebucket lost or misplaced rows")
+    if "irfftn" in r:
+        rel = r["irfftn"]["err"] / r["irfftn"]["max"]
+        print(f"mesh {grid}: pencil_irfftn of a gradient's spectrum on the "
+              f"card against the CPU max_abs_err {r['irfftn']['err']:.3e} "
+              f"(rel {rel:.3e}, tol {PENCIL_IRFFT_TOL:g})")
+        check(f"mesh {label} pencil_irfftn", rel <= PENCIL_IRFFT_TOL,
+              f"the card's inverse differs by {rel}")
 
     check(f"mesh {label}", r["steps"] == steps == r["end_step"],
           "steps not taken")
@@ -4238,17 +4353,23 @@ def fast_mesh_checks(label: str, r: dict, cfg, steps: int, device,
           np.array_equal(np.sort(end_mass), np.sort(r["start_bmass"].reshape(
               -1)[r["start_bmass"].reshape(-1) > 0])),
           "the particles or masses changed across the run")
-    one = SimulationEngine(cfg, device=device)
-    one.initialize()
-    check(f"mesh {label}", one._mesh is None and one._fstate is not None,
-          "one rank did not take the single-device fast path")
-    torch.cuda.synchronize()
-    one.run(num_steps=steps)
-    one_ms = 1e3 * one.statistics.compute_time_s / steps
-    d = np.abs(r["end_pos"] - one.state.positions.cpu().numpy())
+    key = (path_key(cfg), steps, cfg.forces.rebucket_every)
+    if key not in single:
+        one = SimulationEngine(cfg, device=device)
+        one.initialize()
+        check(f"mesh {label}", one._mesh is None and one._fstate is not None,
+              "one rank did not take the single-device fast path")
+        torch.cuda.synchronize()
+        one.run(num_steps=steps)
+        single[key] = {"ms": 1e3 * one.statistics.compute_time_s / steps,
+                       "pos": one.state.positions.cpu().numpy(),
+                       "label": label}
+        del one
+        torch.cuda.empty_cache()
+    ref = single[key]
+    one_ms = ref["ms"]
+    d = np.abs(r["end_pos"] - ref["pos"])
     d = np.minimum(d, box - d)
-    del one
-    torch.cuda.empty_cache()
     mesh_ms = 1e3 * r["compute_s"] / steps
     print(f"mesh {grid}: {steps} steps, rebucket every "
           f"{cfg.forces.rebucket_every}: positions against the single-device "
@@ -4261,8 +4382,9 @@ def fast_mesh_checks(label: str, r: dict, cfg, steps: int, device,
           f"syncs; one force evaluation {1e3 * r['force_s']:.1f} ms), "
           f"transport: {r['transport']} (not a production transport); the "
           f"plain single-device force evaluation over the same pair set "
-          f"{plain_ms:.1f} ms; the single-device run (K1/K2/K3) "
-          f"{one_ms:.3f} ms/step; launches {r['launches']} on {card}")
+          f"{plain_ms:.1f} ms; the single-device run (K1/K2/K3, with the "
+          f"{ref['label']} run) {one_ms:.3f} ms/step; launches "
+          f"{r['launches']} on {card}")
     check(f"mesh {label}", float(d.max()) <= FAST_MESH_TRAJ_TOL,
           f"positions differ by {d.max()} from the single-device run")
 
@@ -4285,9 +4407,12 @@ def mesh_phase(device, card):
     energies against K9 and KE there (1e-6), and the two runs' closing
     energies (1e-6); migration and halo overflow 0, the particle
     count and the multiset of masses conserved exactly; ms/step of each,
-    labelled with the transport. Then K4's and K9's cross forms against
-    their plain versions at the slab ring's shapes. Returns (the cross
-    forms' records, their launches in the slab direct_10k run)."""
+    labelled with the transport. Then the sharded fast steppers on
+    treepm_1m.json at full size, 8 steps each (fast_mesh_checks): on the
+    slabs, on {shx: 2, shy: 2} (pencils) and on {shx: 1, shy: 2, shz: 2}
+    (blocks). Then K4's and K9's cross forms against their plain versions
+    at the slab ring's shapes. Returns (the cross forms' records, their
+    launches in the slab direct_10k run)."""
     import pickle
     import torch
     import torch.multiprocessing as mp
@@ -4310,12 +4435,13 @@ def mesh_phase(device, card):
         shutil.rmtree(root, ignore_errors=True)
     launches = {}
     rec = {}
+    single = {}            # the fast runs' single-device trajectory
     for label, path, steps, change in MESH_RUNS:
         r = res[label]
         cfg = mesh_config(path, change)
         if change.get("fast"):
             cfg.forces.rebucket_every = change["rebucket_every"]
-            fast_mesh_checks(label, r, cfg, steps, device, card)
+            fast_mesh_checks(label, r, cfg, steps, device, card, single)
             continue
         box, soft, g = (cfg.particles.box_size, cfg.forces.softening_length,
                         cfg.units.G)

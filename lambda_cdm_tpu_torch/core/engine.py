@@ -30,31 +30,30 @@ the first step; `profiling.trace_dir` traces run() with torch.profiler
 compute.mesh (the JAX engine's _init_mesh_path / _mesh_migrate) runs on
 the ranks of an initialised torch.distributed process group when there
 are more than one (on one rank the run is the single-device one, as the
-JAX engine's on one device). treepm_fast on the 1D slab mesh (axes
-without shz and without both shx and shy) runs the sharded fast stepper
-parallel/fast_mesh (the JAX engine's _try_init_mesh_fast_path): every
-rank buckets the same global state and keeps its x-slab of cells
-between steps, the stepper migrates inside its rebucket, the chunk
-grows the capacity and retries (6 times, then counts the loss), and
-`state` is the global state in the original particle order on every
-rank, synced at each chunk end; where its plan is None the run takes the
-stateless sharded TreePM, as the JAX engine does. Otherwise every rank
-builds the same global initial state, pads it
+JAX engine's on one device). treepm_fast runs a sharded fast stepper
+(the JAX engine's _try_init_mesh_fast_path): parallel/fast_mesh on the
+1D slab mesh (axes without shz and without both shx and shy),
+parallel/fast_mesh2d on {shx, shy} (z-pencil rods), parallel/fast_mesh3d
+on {shx, shy, shz} (blocks). Every rank buckets the same global state
+and keeps its cells between steps, the stepper migrates inside its
+rebucket, the chunk grows the capacity and retries (6 times, then counts
+the loss), and `state` is the global state in the original particle
+order on every rank, synced at each chunk end; where the stepper's plan
+is None, or with shz alone, the run takes the stateless sharded TreePM,
+as the JAX engine does. Otherwise every rank builds the same global
+initial state, pads it
 (compute.mesh.migrate_capacity_factor) and keeps its rows
 (parallel/mesh.shard_state) on the 1D slab mesh, or on the 3D block mesh
 of compute.mesh.axes {shx, shy, shz} ({shx, shy}: the (dx, dy, 1) grid);
 the forces are the ring direct sum (direct, direct_reference), the
-sharded TreePM (treepm, and treepm_fast with shz but not the full 3-axis
-spec: halo short range, or the ring where the slab plan is None), or the
+sharded TreePM (treepm, and treepm_fast where no fast stepper applies:
+halo short range, or the ring where the slab plan is None), or the
 sharded PM (pm, pm_fast); energy is parallel/sharded.sharded_energy, and
 the run loop re-homes particles between chunks (emigrant-only exchange
 with grow-and-retry; adaptive bounds for direct, direct_reference and
 pm, uniform slabs or blocks otherwise). `state` is then the global
 padded state gathered in rank order (a collective: every rank reads it
-together), and rank 0 writes the files. treepm_fast on {shx, shy} and
-{shx, shy, shz}, where the JAX engine takes its pencil and block fast
-steppers, raises NotImplementedError naming ROADMAP.md, on any number of
-ranks.
+together), and rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -64,6 +63,7 @@ import logging
 import math
 import time
 from dataclasses import dataclass
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -76,17 +76,19 @@ from ..utils.profiling import Profiler, synchronize
 _log = logging.getLogger("lambda_cdm_tpu")
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to lambda_cdm_tpu_torch yet; see "
-        f"ROADMAP.md (the JAX package lambda_cdm_tpu has it)")
-
-
 def _accel_kw(fast_kw: dict) -> dict:
     """The keys of initialize_fast's dict that fast_treepm._accel takes."""
     keys = ("box_size", "ng", "ncell", "capacity", "margin", "rs",
             "softening", "g_const", "gradient", "pm_only", "variant")
     return {k: fast_kw[k] for k in keys if k in fast_kw}
+
+
+class MeshStepper(NamedTuple):
+    """The sharded fast stepper the mesh axes chose: fast_mesh's,
+    fast_mesh2d's or fast_mesh3d's functions."""
+    initialize: Callable
+    run: Callable
+    accel: Callable
 
 
 class LifecycleState(enum.Enum):
@@ -145,6 +147,9 @@ class SimulationEngine:
         self._fstate = None
         self._fast_kw: dict | None = None
         self._fast_mesh_kw: dict | None = None   # parallel/fast_mesh's
+        # the sharded fast stepper on the pencil or the block grid
+        self._fast_mesh_2d = self._fast_mesh_3d = False
+        self._mesh_fast: MeshStepper | None = None   # the one they chose
         # "single" or "mesh": re-bucket at the next run/step
         self._fast_rebuild = None
         self._state_sharded = False       # _state holds this rank's rows
@@ -252,22 +257,10 @@ class SimulationEngine:
 
     # -- multi-rank path: the rank mesh on torch.distributed -----------------
     def _check_mesh_config(self) -> bool:
-        """Whether compute.mesh runs on ranks: raise for the mesh configs
-        this port does not cover (treepm_fast on {shx, shy} and {shx, shy,
-        shz}, where the JAX engine takes its pencil and block fast
-        steppers; on any number of ranks: none falls back to one device
-        quietly), then True when the process group has more than one rank
-        (on one rank the JAX engine runs its single-device path, and so
-        does this one)."""
+        """Whether compute.mesh runs on ranks: when the process group has
+        more than one (on one rank the JAX engine runs its single-device
+        path, and so does this one)."""
         from ..parallel.mesh import world_size
-        cfg = self.config
-        axes = dict(cfg.compute.mesh.axes or {})
-        if cfg.forces.type == "treepm_fast" and "shx" in axes \
-                and "shy" in axes:
-            raise _not_ported("compute.mesh with forces.type='treepm_fast' "
-                              "on the {shx, shy} and {shx, shy, shz} axes "
-                              "(the sharded fast steppers "
-                              "parallel/fast_mesh2d, fast_mesh3d)")
         return world_size() > 1
 
     def _init_mesh_fast_or_stateless(self, state: SimState) -> None:
@@ -277,22 +270,45 @@ class SimulationEngine:
             self._init_mesh_path(state)
 
     def _try_init_mesh_fast_path(self, state: SimState) -> bool:
-        """The sharded fast stepper (parallel/fast_mesh) on the 1D slab
-        mesh from the global state: the buckets stay resident and sharded
-        between steps. False where the JAX engine takes the stateless
-        sharded TreePM instead: shz in compute.mesh.axes (without shx and
-        shy), or a box whose plan is None (logged)."""
+        """A sharded fast stepper from the global state: the buckets stay
+        resident and sharded between steps. compute.mesh.axes with shx,
+        shy and shz takes the 3D block stepper (parallel/fast_mesh3d),
+        with shx and shy the 2D pencil one (fast_mesh2d), without shz the
+        1D slab one (fast_mesh). False where the JAX engine takes the
+        stateless sharded TreePM instead: shz without both shx and shy, or
+        a box whose plan is None (logged)."""
         from ..forces import auto_pm_grid
-        from ..parallel.fast_mesh import initialize_mesh_fast
-        from ..parallel.mesh import make_mesh
+        from ..parallel.mesh import make_mesh, make_mesh2d, make_mesh3d
         cfg = self.config
-        if "shz" in dict(cfg.compute.mesh.axes or {}):
+        axes = dict(cfg.compute.mesh.axes or {})
+        self._fast_mesh_3d = all(a in axes for a in ("shx", "shy", "shz"))
+        self._fast_mesh_2d = (not self._fast_mesh_3d and "shx" in axes
+                              and "shy" in axes)
+        if self._fast_mesh_3d:
+            from ..parallel import fast_mesh3d as m
+            mesh = make_mesh3d((int(axes["shx"]), int(axes["shy"]),
+                                int(axes["shz"])), device=self.device)
+            stepper = (m.initialize_mesh_fast3d, m.mesh_fast_run3d,
+                       m.mesh_fast_accel3d)
+        elif "shz" in axes:
             return False
+        elif self._fast_mesh_2d:
+            from ..parallel import fast_mesh2d as m
+            mesh = make_mesh2d((int(axes["shx"]), int(axes["shy"])),
+                               device=self.device)
+            stepper = (m.initialize_mesh_fast2d, m.mesh_fast_run2d,
+                       m.mesh_fast_accel2d)
+        else:
+            from ..parallel import fast_mesh as m
+            mesh = make_mesh(device=self.device)
+            stepper = (m.initialize_mesh_fast, m.mesh_fast_run,
+                       m.mesh_fast_accel)
+        self._mesh_fast = MeshStepper(*stepper)
+        initialize = self._mesh_fast.initialize
         cosmological = cfg.cosmology.model != "Newtonian"
-        mesh = make_mesh(device=self.device)
         t0 = time.perf_counter()
         try:
-            self._fstate, self._fast_mesh_kw = initialize_mesh_fast(
+            self._fstate, self._fast_mesh_kw = initialize(
                 state.positions, state.velocities, state.masses,
                 state.scale_factor, mesh=mesh,
                 box_size=cfg.particles.box_size, pm_grid=auto_pm_grid(cfg),
@@ -309,7 +325,7 @@ class SimulationEngine:
         except ValueError as exc:
             _log.info("mesh treepm_fast unavailable (%s); falling back to "
                       "the stateless sharded TreePM", exc)
-            self._fstate = self._fast_mesh_kw = None
+            self._fstate = self._fast_mesh_kw = self._mesh_fast = None
             return False
         synchronize(self._fstate.acc)
         self.statistics.compile_time_s += time.perf_counter() - t0
@@ -559,7 +575,6 @@ class SimulationEngine:
     def _fast_chunk(self, n: int) -> None:
         from ..ops.fast_treepm import (BucketOverflowError, fast_run,
                                        next_rebucket_offset)
-        from ..parallel.fast_mesh import mesh_fast_run
         params = self.config.cosmology_params()
         on_mesh = self._fast_mesh_kw is not None
         # the counters are totals over the ranks on every rank, so every
@@ -576,7 +591,7 @@ class SimulationEngine:
         while remaining > 0:
             try:
                 if on_mesh:
-                    self._fstate = mesh_fast_run(
+                    self._fstate = self._mesh_fast.run(
                         self._fstate, params, float(self._dt),
                         mesh=self._mesh, n_steps=remaining,
                         rebucket_every=rebucket_every,
@@ -662,7 +677,6 @@ class SimulationEngine:
         capacity until the rebuild is lossless or the capacity reaches the
         row count, keeping ncell, rs, margin and the ids (the JAX
         engine's _grow_mesh_fast_capacity)."""
-        from ..parallel.fast_mesh import initialize_mesh_fast
         from ..physics.integrators import wrap_positions
         kw = self._fast_mesh_kw
         old_cap = kw["capacity"]
@@ -674,7 +688,7 @@ class SimulationEngine:
             new_cap *= 2
             plan = {"ncell": kw["ncell"], "capacity": new_cap,
                     "margin": kw["margin"], "rs": kw["rs"]}
-            st, kw2 = initialize_mesh_fast(
+            st, kw2 = self._mesh_fast.initialize(
                 pos, vel, mass, fstate.scale_factor, mesh=self._mesh,
                 box_size=kw["box_size"], pm_grid=kw["ng"],
                 softening=kw["softening"], g_const=kw["g_const"],
@@ -858,12 +872,13 @@ class SimulationEngine:
         if getattr(self, "_force_eval_s", None) is not None:
             return
         if self._fast_mesh_kw is not None:
-            from ..parallel.fast_mesh import ACCEL_KEYS, mesh_fast_accel
+            from ..parallel.fast_mesh import ACCEL_KEYS
             kw = {k: self._fast_mesh_kw[k] for k in ACCEL_KEYS}
+            accel = self._mesh_fast.accel
 
             def force():
-                return mesh_fast_accel(self._fstate.bpos, self._fstate.bmass,
-                                       mesh=self._mesh, **kw)[0]
+                return accel(self._fstate.bpos, self._fstate.bmass,
+                             mesh=self._mesh, **kw)[0]
         elif self._fstate is not None:
             from ..ops.fast_treepm import _accel
             kw = _accel_kw(self._fast_kw)

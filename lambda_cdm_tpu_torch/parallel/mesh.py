@@ -12,7 +12,13 @@ the parallel modules need, in one place:
     all_gather, reduce_scatter and the ring shift;
   * along one named axis: `shift`, to the rank at coordinate +-1 (mod the
     axis size) inside that axis's sub-group (jax.lax.ppermute over one
-    mesh axis).
+    mesh axis);
+  * along one named axis or a tuple of axes in mesh order: `all_to_all`
+    and `axis_index` (jax.lax.all_to_all and jax.lax.axis_index over
+    those axes). A tuple's ranks are ordered first-major, the first axis
+    slowest (the (shy, shz) index is iy dz + iz), as JAX's tuple-axis
+    collectives order them; its sub-groups are built once with the mesh,
+    collectively on every rank.
 
 Three grids: `make_mesh`, the 1D "shard" axis (slabs); `make_mesh3d`,
 (dx, dy, dz) ranks with the axes ("shx", "shy", "shz") (blocks; a 2D
@@ -32,6 +38,7 @@ compute to the CPU.
 
 from __future__ import annotations
 
+import itertools
 import logging
 import math
 
@@ -66,7 +73,8 @@ class Mesh:
     `device` it computes on, and the collectives over the whole grid and
     along each axis."""
 
-    def __init__(self, device_mesh, device, axis_names=(SHARD_AXIS,)):
+    def __init__(self, device_mesh, device, axis_names=(SHARD_AXIS,),
+                 tuple_groups=None):
         self.device_mesh = device_mesh
         self.axis_names = tuple(axis_names)
         self.dims = tuple(int(d) for d in device_mesh.shape)
@@ -76,6 +84,8 @@ class Mesh:
         self.coords = tuple(device_mesh.get_coordinate())
         self._axis_groups = {a: device_mesh.get_group(a)
                              for a in self.axis_names}
+        self._axis_groups.update(tuple_groups or {})
+        self._axis_groups[self.axis_names] = self.group
         self.device = torch.device(device)
         self.backend = dist.get_backend(self.group)
         # gloo moves host tensors only: card tensors go through the host
@@ -120,15 +130,43 @@ class Mesh:
         dist.all_gather_into_tensor(out, src, group=self.group)
         return self._back(out, t)
 
-    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
-        """t [size, ...]: chunk d goes to rank d; returns [size, ...] whose
-        chunk d came from rank d (jax.lax.all_to_all over dim 0)."""
-        if t.shape[0] != self.size:
-            raise ValueError(f"all_to_all: dim 0 must be {self.size}, got "
+    def _axes(self, axis) -> tuple:
+        """`axis` (a name or a tuple of names) as a tuple in mesh order."""
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        pos = [self.axis_names.index(a) for a in axes]
+        if pos != sorted(set(pos)):
+            raise ValueError(f"axes {axes} must be distinct and in the "
+                             f"mesh's order {self.axis_names}")
+        return axes
+
+    def axis_index(self, axis) -> int:
+        """This rank's index along `axis`, a name or a tuple of names
+        (first-major: the first axis slowest; jax.lax.axis_index)."""
+        idx = 0
+        for a in self._axes(axis):
+            idx = idx * self.shape[a] + self.coord(a)
+        return idx
+
+    def all_to_all(self, t: torch.Tensor, axis=None) -> torch.Tensor:
+        """t [d, ...]: chunk i goes to the rank at index i along `axis` (a
+        name, a tuple of names in mesh order, or None: the whole grid in
+        the flattened order), the other coordinates kept; returns [d, ...]
+        whose chunk i came from the rank at index i (jax.lax.all_to_all
+        over dim 0, untiled). On an axis of one rank that is t itself."""
+        if axis is None:
+            group, d = self.group, self.size
+        else:
+            axes = self._axes(axis)
+            d = math.prod(self.shape[a] for a in axes)
+            group = self._axis_groups[axes[0] if len(axes) == 1 else axes]
+        if t.shape[0] != d:
+            raise ValueError(f"all_to_all: dim 0 must be {d}, got "
                              f"{t.shape[0]}")
+        if d == 1:
+            return t
         src = self._out(t)
         out = torch.empty_like(src)
-        dist.all_to_all_single(out, src, group=self.group)
+        dist.all_to_all_single(out, src, group=group)
         return self._back(out, t)
 
     def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
@@ -184,6 +222,23 @@ class Mesh:
         dist.barrier(group=self.group)
 
 
+def _tuple_groups(dims: tuple, axis_names: tuple) -> dict:
+    """{each tuple of two or more axes in mesh order, short of all of them:
+    this rank's sub-group over them}, its ranks in first-major order of
+    the tuple's coordinates (ascending global rank, as the row-major grid
+    numbers them). Every rank builds every sub-group, collectively."""
+    out = {}
+    grid = torch.arange(math.prod(dims)).reshape(dims)
+    for k in range(2, len(dims)):
+        for sub in itertools.combinations(range(len(dims)), k):
+            rest = [i for i in range(len(dims)) if i not in sub]
+            members = grid.permute(rest + list(sub)).reshape(
+                -1, math.prod(dims[i] for i in sub))
+            mine, _ = dist.new_subgroups_by_enumeration(members.tolist())
+            out[tuple(axis_names[i] for i in sub)] = mine
+    return out
+
+
 def _grid(dims: tuple, axis_names: tuple, device) -> Mesh:
     """The mesh of `dims` ranks (their product the world size) with
     `axis_names`, ranks in row-major order; `device` as make_mesh's."""
@@ -204,7 +259,7 @@ def _grid(dims: tuple, axis_names: tuple, device) -> Mesh:
     mesh = Mesh(DeviceMesh("cuda" if backend == "nccl" else "cpu",
                            torch.arange(n).reshape(dims),
                            mesh_dim_names=tuple(axis_names)),
-                device, axis_names)
+                device, axis_names, _tuple_groups(dims, axis_names))
     if mesh.staged and mesh.rank == 0:
         _log.warning("mesh %s of %d ranks on %s: gloo moves no card "
                      "tensor, so each collective is staged through host "

@@ -4,8 +4,8 @@ rows and returns its rows (or the global reduction), and is a collective:
 every rank of the mesh calls it. On a 2D or 3D mesh each runs over the
 flattened rank order (the JAX functions given a tuple of axes): the ring
 passes blocks to flat rank + 1, and the sharded PM cuts its grid into
-slabs over all D ranks, which needs ng divisible by D (a ValueError
-says so; the JAX GSPMD version needs no such divisibility).
+slabs over all D ranks where ng divides by D (the JAX GSPMD version
+needs no such divisibility: elsewhere every rank solves the whole grid).
 
   * `ring_direct_accelerations`: the O(N^2) sum as a ring. A rank keeps
     its rows and passes the block it holds to rank + 1 at each of the D
@@ -27,7 +27,9 @@ says so; the JAX GSPMD version needs no such divisibility).
     in), two all_to_all transposes a transform of ng^3 / D complex values
     a rank (1 forward, 3 inverse), and the all-gather of 3 ng^3 floats
     to every rank. A halo-only form (each rank sends only the planes its
-    neighbours' rows touch) is ROADMAP.md's.
+    neighbours' rows touch) is ROADMAP.md's. Where ng does not divide by
+    D, the deposit grids are all-reduced and every rank solves the whole
+    grid (the same forces, without the slabs).
 """
 
 from __future__ import annotations
@@ -35,8 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from .fft import check_slabs, distributed_irfftn, distributed_rfftn, \
-    ky_slab
+from .fft import distributed_irfftn, distributed_rfftn, ky_slab
 from .mesh import Mesh
 
 
@@ -82,14 +83,23 @@ def sharded_pm_accelerations(positions, masses, ng: int, box_size,
                              mesh: Mesh):
     """PM accelerations [n_loc, 3] at this rank's rows, the forces
     forces/pm.pm_accelerations gives the global set (see the module
-    docstring for the exchange). ng must divide by the number of ranks."""
+    docstring for the exchange; where ng does not divide by the ranks,
+    the whole grid on every rank)."""
     from ..analysis.power_spectrum import cic_deposit
     from ..forces.pm import cic_gather, poisson_greens_function
     from .fft import k_vectors_transposed
-    check_slabs(ng, mesh)
     box = torch.tensor(float(box_size), dtype=torch.float32)
     cell_volume = float((box / ng) ** 3)
     grid = cic_deposit(positions, ng, box_size, weights=masses)
+    if ng % mesh.size:
+        from ..forces.pm import _spectral
+        green, kx, ky, kz = _spectral(ng, float(box_size),
+                                      float(split_scale), True,
+                                      str(positions.device))
+        phi_k = green * torch.fft.rfftn(mesh.all_reduce(grid) / cell_volume)
+        acc = [cic_gather(torch.fft.irfftn(-1j * k * phi_k, s=(ng, ng, ng)),
+                          positions, ng, box_size) for k in (kx, ky, kz)]
+        return g_const * torch.stack(acc, dim=-1)
     slab = mesh.reduce_scatter(grid) / cell_volume      # [ng/D, ng, ng]
     rho_k = distributed_rfftn(slab, mesh=mesh)           # [ng/D, ng, nz]
     # the Green's function is symmetric in kx <-> ky, so its transposed

@@ -47,6 +47,11 @@ def job_functions(mesh, p) -> dict:
                                                  p["g"], mesh=mesh)
     out["pm_split"] = sharded.sharded_pm_accelerations(
         pos, mass, ng, box, p["g"], split_scale=1.5, mesh=mesh)
+    # a grid that does not divide by the ranks: the whole grid on each
+    for key, split in (("pm_whole", 0.0), ("pm_whole_split", 1.5)):
+        out[key] = sharded.sharded_pm_accelerations(
+            pos, mass, p["ng_whole"], box, p["g"], split_scale=split,
+            mesh=mesh)
     grid = _rows(p["grid"], mesh)
     gk = fft.distributed_rfftn(grid, mesh=mesh)
     out["rfftn"] = gk
@@ -262,6 +267,7 @@ def _fast_engine(p, name, d):
             scale_factor=s["a"])).build()
     fast = eng._fast_mesh_kw is not None
     out = {f"{name}_fast_mesh": fast,
+           f"{name}_grid": (eng._fast_mesh_2d, eng._fast_mesh_3d),
            f"{name}_stateless": eng._fstate is None
            and eng._accel_fn is not None and eng._mesh is not None,
            f"{name}_cap0": eng._fast_mesh_kw["capacity"] if fast else None}
@@ -355,9 +361,163 @@ def job_fast_mesh(mesh, p) -> dict:
     return {k: _np(v) for k, v in out.items()}
 
 
+def job_pencil_fft(mesh, p) -> dict:
+    """Every check of tests/test_torch_pencil_fft.py: the pencil FFT,
+    its inverse and Poisson on the p["dims"] pencil grid (rank r's
+    z-pencil of the global grid), the inverse of a non-Hermitian
+    spectrum, and the axis collectives on the 3D grids of p["grids3"]:
+    each rank's all_to_all of p["a2a"]'s chunks along each axis and axis
+    tuple, and its axis_index."""
+    from lambda_cdm_tpu_torch.parallel import fft
+    from lambda_cdm_tpu_torch.parallel.mesh import make_mesh2d, make_mesh3d
+    dx, dy = p["dims"]
+    grid2 = make_mesh2d((dx, dy), device=mesh.device)
+    ng, box = p["ng"], p["box"]
+    ix, iy = grid2.coords
+    xl, yl = ng // dx, ng // dy
+    g = _t(p["grid"][ix * xl:(ix + 1) * xl, iy * yl:(iy + 1) * yl])
+    gk = fft.pencil_rfftn(g, mesh=grid2)
+    out = {"coords": grid2.coords, "rfftn": gk,
+           "roundtrip": fft.pencil_irfftn(gk, ng=ng, mesh=grid2),
+           "poisson": fft.pencil_poisson_solve(
+               _t(p["rho"][ix * xl:(ix + 1) * xl, iy * yl:(iy + 1) * yl]),
+               ng=ng, box_size=box, mesh=grid2),
+           "poisson_split": fft.pencil_poisson_solve(
+               _t(p["rho"][ix * xl:(ix + 1) * xl, iy * yl:(iy + 1) * yl]),
+               ng=ng, box_size=box, mesh=grid2, split_scale=2.0)}
+    spec = fft.pencil_block(_t(p["spectrum"]), grid2, ("shx", "shy"))
+    out["irfftn_nonherm"] = fft.pencil_irfftn(spec.contiguous(), ng=ng,
+                                              mesh=grid2)
+    for name, dims in p["grids3"].items():
+        g3 = make_mesh3d(tuple(dims), device=mesh.device)
+        for axis in p["a2a_axes"]:
+            key = "_".join(axis) if isinstance(axis, tuple) else axis
+            n = 1
+            for a in (axis if isinstance(axis, tuple) else (axis,)):
+                n *= g3.shape[a]
+            chunks = _t(p["a2a"][g3.rank][:n])
+            out[f"{name}_a2a_{key}"] = g3.all_to_all(chunks, axis)
+            out[f"{name}_index_{key}"] = g3.axis_index(axis)
+    return {k: _np(v) for k, v in out.items()}
+
+
+def job_fast_mesh_nd(mesh, p) -> dict:
+    """Every check of tests/test_torch_fast_mesh2d.py (p["dims"] two
+    ranks' counts) or tests/test_torch_fast_mesh3d.py (three): on the
+    pencil or block grid of p["dims"], mesh_fast_accel* on each p["accel"]
+    bucket set and mesh_rebucket* on each p["rebucket"] case (global
+    block-major [C, K, ...] arrays, JAX's layout: rank r takes rows r Cl
+    ... (r + 1) Cl), the p["run"] stepper run from initialize_mesh_fast*,
+    its overflowing rebucket (raised with the state it was given) and the
+    regrowth from the raised state, then the engine configs p["engine"].
+    Slots come back as the rank's [Cl, K, ...]."""
+    from lambda_cdm_tpu_torch.ops.fast_treepm import BucketOverflowError
+    from lambda_cdm_tpu_torch.parallel import fast_mesh
+    from lambda_cdm_tpu_torch.parallel.mesh import make_mesh2d, make_mesh3d
+    from lambda_cdm_tpu_torch.physics.cosmology import CosmologyParams
+    dims = tuple(p["dims"])
+    if len(dims) == 2:
+        from lambda_cdm_tpu_torch.parallel import fast_mesh2d as m
+        grid = make_mesh2d(dims, device=mesh.device)
+        accel, rebucket = m.mesh_fast_accel2d, m.mesh_rebucket2d
+        init, run_fn = m.initialize_mesh_fast2d, m.mesh_fast_run2d
+    else:
+        from lambda_cdm_tpu_torch.parallel import fast_mesh3d as m
+        grid = make_mesh3d(dims, device=mesh.device)
+        accel, rebucket = m.mesh_fast_accel3d, m.mesh_rebucket3d
+        init, run_fn = m.initialize_mesh_fast3d, m.mesh_fast_run3d
+    r = grid.axis_index(grid.axis_names)
+    geo = p["geo"]
+    kw = dict(box_size=geo["box"], ncell=geo["nc"], capacity=geo["cap"])
+
+    def cells(x, dtype=torch.float32):
+        n = x.shape[0] // grid.size
+        return _t(x[r * n:(r + 1) * n]).to(dtype)
+
+    def soa(x):
+        return cells(x).permute(2, 0, 1).contiguous()
+
+    def aos(x):
+        return x.permute(1, 2, 0)
+
+    out = {"rank": r}
+    for name, (bpos, bmass) in p.get("accel", {}).items():
+        acc, dropped = accel(soa(bpos), cells(bmass), mesh=grid,
+                             ng=geo["ng"], margin=1, rs=geo["rs"],
+                             softening=geo["soft"], g_const=geo["g"], **kw)
+        out.update({name: aos(acc), f"{name}_dropped": int(dropped)})
+    for name, c in p.get("rebucket", {}).items():
+        res = rebucket(soa(c["bpos"]), soa(c["bvel"]), cells(c["bmass"]),
+                       cells(c["ids"], torch.int32), soa(c["acc"]),
+                       mesh=grid, mig_capacity=c["mig"], **kw)
+        out.update({f"{name}_pos": aos(res[0]), f"{name}_vel": aos(res[1]),
+                    f"{name}_mass": res[2], f"{name}_ids": res[3],
+                    f"{name}_acc": aos(res[4]),
+                    f"{name}_overflow": int(res[5])})
+    if "run" in p:
+        run = p["run"]
+        fs, fkw = init(_t(run["pos"]), _t(run["vel"]), _t(run["mass"]),
+                       run["a"], mesh=grid, box_size=geo["box"],
+                       pm_grid=geo["ng"], softening=geo["soft"],
+                       **run["kw"])
+        out.update(run_kw=fkw, run_init_acc=aos(fs.acc),
+                   run_init_ids=fs.ids, run_init_dropped=int(fs.dropped),
+                   run_init_overflow=int(fs.overflow))
+        params = CosmologyParams()
+        end = run_fn(fs, params, run["dt"], mesh=grid, n_steps=run["steps"],
+                     rebucket_every=run["every"], **fkw)
+        g = fast_mesh.gather_fast_state(end, grid)
+        out.update(run_ids=g.ids, run_pos=aos(g.bpos), run_vel=aos(g.bvel),
+                   run_mass=g.bmass, run_step=int(end.step),
+                   run_a=float(end.scale_factor),
+                   run_overflow=int(end.overflow),
+                   run_dropped=int(end.dropped))
+        # a rebucket that would lose rows raises with the state it was
+        # given, before any step; the raised state regrows losslessly
+        blob = cells(run["blob"])
+        tight = fs.replace(bpos=torch.where(
+            ~torch.isnan(blob[..., 0])[None], blob.permute(2, 0, 1),
+            fs.bpos))
+        try:
+            run_fn(tight, params, 1e-5, mesh=grid, n_steps=1,
+                   rebucket_every=1, steps_since_rebucket=1,
+                   on_overflow="raise", **fkw)
+            out["raised"] = None
+        except BucketOverflowError as exc:
+            same = all(torch.equal(getattr(exc.fstate, f), getattr(tight, f))
+                       for f in ("bpos", "bvel", "bmass", "ids", "acc"))
+            out["raised"] = (exc.steps_done, same)
+            flat = fast_mesh.gather_fast_state(exc.fstate, grid)
+            keep = flat.ids.reshape(-1) >= 0
+            plan = {"ncell": fkw["ncell"], "capacity": run["regrow_cap"],
+                    "margin": fkw["margin"], "rs": fkw["rs"]}
+            # the regrowth is checked by its slots: the forces priming it
+            # at the grown capacity (a 27 K^2 pair pass a cell, a minute
+            # on these ranks) are left out
+            primed = getattr(m, accel.__name__)
+            setattr(m, accel.__name__, lambda bp, bm, **_: (
+                torch.zeros_like(bp), torch.zeros((), dtype=torch.int32)))
+            try:
+                st, kw3 = init(flat.bpos.reshape(3, -1).T[keep],
+                               flat.bvel.reshape(3, -1).T[keep],
+                               flat.bmass.reshape(-1)[keep],
+                               exc.fstate.scale_factor, mesh=grid,
+                               box_size=geo["box"], pm_grid=geo["ng"],
+                               softening=geo["soft"], plan_override=plan,
+                               ids=flat.ids.reshape(-1)[keep], **run["kw"])
+            finally:
+                setattr(m, accel.__name__, primed)
+            out.update(regrow_ids=st.ids, regrow_overflow=int(st.overflow),
+                       regrow_cap=kw3["capacity"])
+    for name, d in p.get("engine", {}).items():
+        out.update(_fast_engine(p, name, d))
+    return {k: _np(v) for k, v in out.items()}
+
+
 JOBS = {"functions": job_functions, "engine": job_engine, "ring": job_ring,
         "treepm": job_treepm, "block3d": job_block3d,
-        "fast_mesh": job_fast_mesh}
+        "fast_mesh": job_fast_mesh, "pencil_fft": job_pencil_fft,
+        "fast_mesh_nd": job_fast_mesh_nd}
 
 
 def _rank_main(rank: int, job: str, n_ranks: int, root: str, payload,

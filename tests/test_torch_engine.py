@@ -177,10 +177,11 @@ def test_builder_device_and_refusals(tmp_path):
     and step on the CPU (their parity with the JAX engine is
     test_stateless_run_matches); pm_fast runs as the JAX engine does
     (_check_pm_fast_run); warmup needs initialize() first, as the JAX
-    engine's does; the orbax form round-trips through the engine; a
+    engine's does; the orbax form round-trips through the engine; every
     mesh config at world size 1 runs on one device, as the JAX engine
-    does on one device, and the mesh configs this port does not cover
-    (treepm_fast, the shx/shy axes) raise."""
+    does on one device (treepm_fast on the shx/shy and shx/shy/shz axes
+    too, which ranks run on the pencil and block fast steppers: the
+    port refuses no mesh config the JAX engine runs)."""
     cfg = tlc.SimulationConfig()
     cfg.forces.type = "treepm_fast"
     b = tlc.SimulationBuilder()
@@ -212,22 +213,15 @@ def test_builder_device_and_refusals(tmp_path):
     fresh.load_checkpoint(str(tmp_path / "x"))
     assert int(fresh.state.step) == 2
     assert torch.equal(fresh.state.positions, e.state.positions)
-    # treepm_fast where the JAX engine takes its pencil or block fast
-    # stepper refuses on any number of ranks
-    for axes in ({"shx": 2, "shy": 4}, {"shx": 2, "shy": 2, "shz": 2}):
-        c = tlc.SimulationConfig()
-        c.forces.type = "treepm_fast"
-        c.compute.mesh.enabled = True
-        c.compute.mesh.axes = axes
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlc.SimulationEngine(c, device="cpu").initialize()
-    # every other mesh config runs (treepm_fast on the slab mesh: the
-    # sharded fast stepper on ranks); on one rank, single-device
+    # every mesh config runs (treepm_fast: the sharded fast steppers on
+    # ranks); on one rank, single-device
     for kind, axes in (("direct", None), ("treepm", None),
                        ("direct", {"shx": 2, "shy": 4}),
                        ("pm_fast", {"shx": 2, "shy": 2, "shz": 2}),
                        ("treepm_fast", {"shz": 4}), ("treepm_fast", None),
-                       ("treepm_fast", {"shx": 2})):
+                       ("treepm_fast", {"shx": 2}),
+                       ("treepm_fast", {"shx": 2, "shy": 4}),
+                       ("treepm_fast", {"shx": 2, "shy": 2, "shz": 2})):
         c = tlc.SimulationConfig.from_dict(
             {"particles": {"num_particles": 512, "box_size": 64.0},
              "forces": {"type": kind, "softening_length": 0.5,

@@ -2,8 +2,9 @@
 at reduced sizes, held against the JAX package's examples/: the JAX script
 run in-process at the same size (its printed numbers parsed) where its
 command line sets the size (basic_simulation through a config file,
-nbody_benchmark, solver_accuracy, cosmology_tables, multichip_demo on the
-conftest's 8 virtual devices against 8 spawned gloo ranks), otherwise the
+nbody_benchmark, solver_accuracy, cosmology_tables, multichip_demo,
+pencil2d_demo and mesh3d_demo on the conftest's 8 virtual devices against
+8 spawned gloo ranks), otherwise the
 JAX functions the script calls, at the port's reduced size
 (twolpt_comparison, zeldovich_demo, lensing_demo).
 
@@ -137,6 +138,89 @@ def test_multichip_demo(capsys, monkeypatch):
     assert out["kinetic"] == pytest.approx(float(ke), rel=1e-3)
     assert out["potential"] == pytest.approx(float(pe), rel=1e-3)
     assert out["live"] == 512 * 8 and out["transport"] == "gloo"
+
+
+def _run_jax_jitted(capsys, monkeypatch, name: str) -> str:
+    """The JAX example's stdout with its mesh steppers' shard_map functions
+    under jax.jit (called eagerly, they compile again at every call),
+    patched into their modules for the script's references."""
+    from lambda_cdm_tpu.parallel import fast_mesh2d, fast_mesh3d
+    accel = ("mesh", "box_size", "ng", "ncell", "capacity", "margin", "rs",
+             "softening", "g_const")
+    rebucket = ("mesh", "box_size", "ncell", "capacity", "mig_capacity")
+    for mod, sfx in ((fast_mesh2d, "2d"), (fast_mesh3d, "3d")):
+        monkeypatch.setattr(mod, f"mesh_fast_accel{sfx}", jax.jit(
+            getattr(mod, f"mesh_fast_accel{sfx}"), static_argnames=accel))
+        monkeypatch.setattr(mod, f"mesh_rebucket{sfx}", jax.jit(
+            getattr(mod, f"mesh_rebucket{sfx}"), static_argnames=rebucket))
+    return _run_jax(capsys, monkeypatch, name)
+
+
+def test_pencil2d_demo(capsys, monkeypatch):
+    """The JAX demo on the 8 virtual devices ((2, 4)), the port's on 8
+    spawned gloo ranks: the same plan, steps, scale factor, overflow and
+    dropped counts of the direct run and the engine's steps and scale
+    factor (the engine on the pencil stepper)."""
+    ref = _run_jax_jitted(capsys, monkeypatch, "pencil2d_demo")
+    _, out = _run_port(capsys, "pencil2d_demo", "--ranks", "8")
+    nc, cap, rs = re.search(r"plan: ncell=(\d+) capacity=(\d+) rs=(\S+)",
+                            ref).groups()
+    assert (out["ncell"], out["capacity"]) == (int(nc), int(cap))
+    assert abs(out["rs"] - float(rs)) <= 1e-3
+    steps, a, ovf, drop = re.search(
+        r"ran (\d+) steps: a=(\S+) overflow=(\d+) dropped=(\d+)",
+        ref).groups()
+    assert (out["steps"], out["overflow"], out["dropped"]) == \
+        (int(steps), int(ovf), int(drop))
+    assert abs(out["a"] - float(a)) <= 1e-4 + 1e-4 * float(a)
+    esteps, ea = re.search(r"engine \(2D mesh\): (\d+) steps, a=(\S+)",
+                           ref).groups()
+    assert out["engine_steps"] == int(esteps) and out["engine_pencils"]
+    assert abs(out["engine_a"] - float(ea)) <= 1e-4 + 1e-4 * float(ea)
+
+
+def test_mesh3d_demo(capsys, monkeypatch):
+    """The JAX demo on the 8 virtual devices ((2, 2, 2)), the port's on 8
+    spawned gloo ranks: the migration, the block-halo TreePM (plan,
+    overflow, median |a|) and the 3D fast stepper (plan, steps, counters)
+    print the same numbers. The JAX script's last section raises
+    KeyError in SimulationEngine.compute_energy on the 3D fast mesh (it
+    passes sharded_energy the 1D axis name; ROADMAP Queue 3); the port's
+    engine runs its 4 steps on the block stepper, and its energies (the
+    ring over the ranks) are the plain single-device sums on its gathered
+    state to 1e-6."""
+    with pytest.raises(KeyError, match="shard"):
+        _run_jax_jitted(capsys, monkeypatch, "mesh3d_demo")
+    ref = capsys.readouterr().out
+    _, out = _run_port(capsys, "mesh3d_demo", "--ranks", "8")
+    ovf, live = re.search(r"overflow=(\d+) \(live rows per block: (\d+)",
+                          ref).groups()
+    assert (out["migration_overflow"], out["live"]) == (int(ovf), int(live))
+    nc, cap, hovf, p50 = re.search(
+        r"plan nc=(\d+) cap=(\d+) overflow=(\d+) \|acc\| p50=(\S+)",
+        ref).groups()
+    assert (out["halo_nc"], out["halo_cap"], out["halo_overflow"]) == \
+        (int(nc), int(cap), int(hovf))
+    assert out["acc_p50"] == pytest.approx(float(p50), rel=1e-3)
+    fnc, fcap, fstep, fovf, fdrop = re.search(
+        r"fast stepper: ncell=(\d+) cap=(\d+) step=(\d+) overflow=(\d+) "
+        r"dropped=(\d+)", ref).groups()
+    assert (out["fast_ncell"], out["fast_cap"], out["fast_step"],
+            out["fast_overflow"], out["fast_dropped"]) == \
+        tuple(int(x) for x in (fnc, fcap, fstep, fovf, fdrop))
+    assert out["engine_blocks"] and out["engine_step"] == 4
+    import torch
+    from lambda_cdm_tpu_torch.core.config import SimulationConfig
+    from lambda_cdm_tpu_torch.forces.direct import kinetic_energy, \
+        potential_energy
+    pos, vel, mass = (torch.tensor(x, dtype=torch.float32)
+                      for x in out["engine_state"])
+    cfg = SimulationConfig()
+    ke = float(kinetic_energy(vel, mass))
+    pe = float(potential_energy(pos, mass, 100.0, 0.5, cfg.units.G))
+    assert abs(out["engine_kinetic"] - ke) <= 1e-6 * ke
+    assert abs(out["engine_potential"] - pe) <= 1e-6 * abs(pe)
+    assert out["engine_total"] == pytest.approx(ke + pe, rel=1e-6)
 
 
 def test_twolpt_comparison(capsys):

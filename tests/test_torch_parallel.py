@@ -28,6 +28,7 @@ from lambda_cdm_tpu.parallel.mesh import make_mesh
 N_RANKS = 4
 N = 1024
 BOX, SOFT, NG, G = 50.0, 0.5, 16, 1.3
+NG_WHOLE = 18                     # 18 % N_RANKS != 0
 CAP, CAP_SMALL = 96, 16
 
 
@@ -54,9 +55,9 @@ def _payload():
     mig_vel[dead] = 0.0
     # a cluster, so the pair-cost weights and bounds differ from counts
     mig_pos[:60] = (BOX * 0.3 + rng.normal(size=(60, 3)) * 1.5).astype(f32)
-    return dict(box=BOX, soft=SOFT, ng=NG, g=G, pos=pos, vel=vel, mass=mass,
-                grid=grid, spectrum_t=spectrum_t, mig_pos=mig_pos,
-                mig_vel=mig_vel, mig_mass=mig_mass,
+    return dict(box=BOX, soft=SOFT, ng=NG, ng_whole=NG_WHOLE, g=G, pos=pos,
+                vel=vel, mass=mass, grid=grid, spectrum_t=spectrum_t,
+                mig_pos=mig_pos, mig_vel=mig_vel, mig_mass=mig_mass,
                 bounds=np.array([0.0, 12.0, 25.0, 38.0, BOX], f32),
                 cap=CAP, cap_small=CAP_SMALL)
 
@@ -105,11 +106,15 @@ def test_sharded_energy(ranks, jmesh):
         assert abs(vals.pop() - float(ref[k])) <= 1e-6 * abs(float(ref[k]))
 
 
-@pytest.mark.parametrize("key, split", [("pm", 0.0), ("pm_split", 1.5)])
-def test_sharded_pm_accelerations(ranks, jmesh, key, split):
+@pytest.mark.parametrize("key, ng, split", [
+    ("pm", NG, 0.0), ("pm_split", NG, 1.5),
+    ("pm_whole", NG_WHOLE, 0.0), ("pm_whole_split", NG_WHOLE, 1.5)])
+def test_sharded_pm_accelerations(ranks, jmesh, key, ng, split):
+    """The slab PM, and at a grid that does not divide by the ranks the
+    whole-grid solve on every rank, against JAX's GSPMD PM."""
     p, res = ranks
     ref = jsh.sharded_pm_accelerations(
-        jnp.asarray(p["pos"]), jnp.asarray(p["mass"]), NG, BOX, G,
+        jnp.asarray(p["pos"]), jnp.asarray(p["mass"]), ng, BOX, G,
         split_scale=split, mesh=jmesh)
     assert max_rel(joined(res, key), ref) <= 1e-5
 
