@@ -270,9 +270,14 @@ class LoggingConfig:
 @dataclass
 class ProfilingConfig:
     enabled: bool = True
+    # run() opens utils/profiling.tracing() (the program's spans and
+    # counters): statistics.force_time_s takes the measured device seconds
+    # of each chunk's `fast.accel` spans, integration_time_s the rest of
+    # the chunk; both stay 0.0 on the sharded fast steppers, which have no
+    # `fast.accel` span
     detailed_timing: bool = True
     output_file: str = "profiling_report.json"
-    # non-empty: capture a jax.profiler device trace of the run loop
+    # non-empty: capture a torch.profiler device trace of the run loop
     # into this directory (TensorBoard-viewable; the working analogue of
     # the reference's unused cuda_profiler_api include)
     trace_dir: str = ""

@@ -25,7 +25,10 @@ resume follow the JAX engine.
 
 `warmup` builds the kernels and runs the run loop's programs once before
 the first step; `profiling.trace_dir` traces run() with torch.profiler
-(utils/profiling.trace_dir).
+(utils/profiling.trace_dir). The run loop, the reset and the fast stepper
+record spans and counters (utils/profiling.span, count) while a torch
+profiler is active or `profiling.tracing()` is open, which
+profiling.detailed_timing opens for a run.
 
 compute.mesh (the JAX engine's _init_mesh_path / _mesh_migrate) runs on
 the ranks of an initialised torch.distributed process group when there
@@ -58,6 +61,7 @@ together), and rank 0 writes the files.
 
 from __future__ import annotations
 
+import contextlib
 import enum
 import logging
 import math
@@ -71,9 +75,16 @@ from .config import SimulationConfig
 from .observers import Observer, ObserverBus
 from .state import SimState, host_scalar
 from ..ops.direct import check_range
-from ..utils.profiling import Profiler, synchronize
+from ..utils import profiling
+from ..utils.profiling import Profiler, count, span, synchronize
 
 _log = logging.getLogger("lambda_cdm_tpu")
+
+
+def _force_seconds() -> tuple:
+    """(count, device seconds) of the `fast.accel` spans reduced so far."""
+    tot = profiling.totals_of("fast.accel")
+    return (tot.count, tot.device_s) if tot is not None else (0, 0.0)
 
 
 def _accel_kw(fast_kw: dict) -> dict:
@@ -514,6 +525,8 @@ class SimulationEngine:
 
     # -- treepm_fast path: persistent cell-list state ------------------------
     def _init_fast_path(self) -> None:
+        """Bucket `state` into the fast stepper and evaluate its first
+        force (span `engine.init_fast`)."""
         from ..forces import auto_pm_grid
         from ..ops.fast_treepm import initialize_fast
         cfg = self.config
@@ -521,56 +534,60 @@ class SimulationEngine:
         cosmological = cfg.cosmology.model != "Newtonian"
         self._fast_n = st.positions.shape[0]
         t0 = time.perf_counter()
-        self._fstate, self._fast_kw = initialize_fast(
-            st.positions, st.velocities, st.masses, st.scale_factor,
-            box_size=cfg.particles.box_size, pm_grid=auto_pm_grid(cfg),
-            softening=cfg.forces.softening_length, g_const=cfg.units.G,
-            split_factor=cfg.forces.split_factor,
-            cut_factor=cfg.forces.cut_factor,
-            capacity=cfg.forces.bucket_capacity,
-            gradient=cfg.forces.gradient,
-            pm_only=(cfg.forces.type == "pm_fast"),
-            time=st.time, step=st.step,
-            h0_internal=cfg.units.H0_internal,
-            kick_mode=(cfg.integration.kick_mode if cosmological
-                       else "newtonian"),
-            sf_method=cfg.integration.scale_factor_update,
-            cosmological=cosmological)
-        self._fast_since_rebucket = 0
-        synchronize(self._fstate.acc)
+        with span("engine.init_fast", device=st.positions.is_cuda):
+            profiling.set_step(st.step)
+            self._fstate, self._fast_kw = initialize_fast(
+                st.positions, st.velocities, st.masses, st.scale_factor,
+                box_size=cfg.particles.box_size, pm_grid=auto_pm_grid(cfg),
+                softening=cfg.forces.softening_length, g_const=cfg.units.G,
+                split_factor=cfg.forces.split_factor,
+                cut_factor=cfg.forces.cut_factor,
+                capacity=cfg.forces.bucket_capacity,
+                gradient=cfg.forces.gradient,
+                pm_only=(cfg.forces.type == "pm_fast"),
+                time=st.time, step=st.step,
+                h0_internal=cfg.units.H0_internal,
+                kick_mode=(cfg.integration.kick_mode if cosmological
+                           else "newtonian"),
+                sf_method=cfg.integration.scale_factor_update,
+                cosmological=cosmological)
+            self._fast_since_rebucket = 0
+            synchronize(self._fstate.acc)
         self.statistics.compile_time_s += time.perf_counter() - t0
 
     def _fast_cadence(self, n: int) -> int:
         """The rebucket cadence of a fast chunk of `n` steps: the
         configured (or halved) cadence, bounded by the drift guard and
-        snapped to a divisor of `n`."""
+        snapped to a divisor of `n` (span `engine.cadence`)."""
         from ..physics.integrators import drift_factor
-        kw = self._fast_mesh_kw or self._fast_kw
-        rebucket_every = getattr(self, "_fast_rebucket_every", None) \
-            or self.config.forces.rebucket_every
-        # proactive drift guard: bound the steps between rebuckets by the
-        # distance the fastest particle can drift into the deposit margin
-        # (one vmax readback per chunk; on ranks the largest over them, so
-        # every rank picks the same cadence)
-        a0 = float(self._fstate.scale_factor)
-        df = float(drift_factor(a0, kw.get("kick_mode", "reference")))
-        vmax = torch.max(torch.abs(self._fstate.bvel)).reshape(1)
-        if self._fast_mesh_kw is not None:
-            vmax = self._mesh.all_reduce(vmax, "max")
-        vmax = float(vmax[0])
-        step_drift = vmax * float(self._dt) * df
-        margin_dist = (float(kw.get("margin", 1)) * kw["box_size"]
-                       / max(kw.get("ng", kw["ncell"]), kw["ncell"]))
-        if step_drift > 0:
-            safe = max(1, int(0.6 * margin_dist / step_drift))
-            if safe < rebucket_every:
-                rebucket_every = safe
-        # snap the cadence to a divisor of the chunk length (as the JAX
-        # engine does, so both packages rebucket at the same steps)
-        d = max(1, min(rebucket_every, n))
-        while n % d:
-            d -= 1
-        return d
+        with span("engine.cadence"):
+            kw = self._fast_mesh_kw or self._fast_kw
+            rebucket_every = getattr(self, "_fast_rebucket_every", None) \
+                or self.config.forces.rebucket_every
+            # proactive drift guard: bound the steps between rebuckets by
+            # the distance the fastest particle can drift into the deposit
+            # margin (one vmax readback per chunk; on ranks the largest over
+            # them, so every rank picks the same cadence)
+            a0 = float(self._fstate.scale_factor)
+            df = float(drift_factor(a0, kw.get("kick_mode", "reference")))
+            vmax = torch.max(torch.abs(self._fstate.bvel)).reshape(1)
+            if self._fast_mesh_kw is not None:
+                vmax = self._mesh.all_reduce(vmax, "max")
+            count("readbacks")
+            vmax = float(vmax[0])
+            step_drift = vmax * float(self._dt) * df
+            margin_dist = (float(kw.get("margin", 1)) * kw["box_size"]
+                           / max(kw.get("ng", kw["ncell"]), kw["ncell"]))
+            if step_drift > 0:
+                safe = max(1, int(0.6 * margin_dist / step_drift))
+                if safe < rebucket_every:
+                    rebucket_every = safe
+            # snap the cadence to a divisor of the chunk length (as the
+            # JAX engine does, so both packages rebucket at the same steps)
+            d = max(1, min(rebucket_every, n))
+            while n % d:
+                d -= 1
+            return d
 
     def _fast_chunk(self, n: int) -> None:
         from ..ops.fast_treepm import (BucketOverflowError, fast_run,
@@ -579,6 +596,7 @@ class SimulationEngine:
         on_mesh = self._fast_mesh_kw is not None
         # the counters are totals over the ranks on every rank, so every
         # rank takes the decisions below alike
+        count("readbacks")
         dropped_before = int(self._fstate.dropped)
         rebucket_every = self._fast_cadence(n)
         since = getattr(self, "_fast_since_rebucket", 0)
@@ -616,6 +634,7 @@ class SimulationEngine:
                 else:
                     self._grow_fast_capacity(exc.fstate)
         self._fast_since_rebucket = since
+        count("readbacks")
         new_drops = int(self._fstate.dropped) - dropped_before
         if new_drops > 0:
             if rebucket_every > 1:
@@ -634,78 +653,85 @@ class SimulationEngine:
 
     def _grow_fast_capacity(self, fstate) -> None:
         """Rebuild the fast state from an intact pre-rebucket state with
-        doubled bucket capacity until the rebuild itself is lossless."""
+        doubled bucket capacity until the rebuild itself is lossless
+        (span `engine.grow`)."""
         from ..ops.fast_treepm import _accel, build_fast_state, \
             flatten_fast_state
         from ..physics.integrators import wrap_positions
-        kw = self._fast_kw
-        old_cap = kw["capacity"]
-        pos, vel, mass, ids = flatten_fast_state(fstate, with_ids=True)
-        pos = wrap_positions(pos, kw["box_size"])
-        n_live = pos.shape[0]
-        t0 = time.perf_counter()
-        new_cap = old_cap
-        while True:
-            new_cap *= 2
-            plan = {"ncell": kw["ncell"], "capacity": new_cap,
-                    "margin": kw["margin"], "rs": kw["rs"]}
-            st = build_fast_state(
-                pos, vel, mass, fstate.scale_factor,
-                box_size=kw["box_size"], plan=plan,
-                time=fstate.time, step=fstate.step, ids=ids)
-            if int(st.overflow) == 0 or new_cap >= n_live:
-                break
-        _log.warning(
-            "treepm_fast: bucket capacity %d exceeded by clustering; "
-            "re-planned with capacity %d (no particles lost)",
-            old_cap, new_cap)
-        st = st.replace(overflow=fstate.overflow, dropped=fstate.dropped)
-        kw["capacity"] = new_cap
-        # the JAX engine's variant switch (a grown capacity leaves the
-        # vpu4b pairing; above 128 it plans vpu5): one split function here
-        if new_cap > 128:
-            kw["variant"] = "vpu5"
-        elif kw.get("variant") == "vpu4b" and new_cap != 64:
-            kw["variant"] = "vpu3"
-        acc, dropped = _accel(st, **_accel_kw(kw))
-        self._fstate = st.replace(acc=acc, dropped=st.dropped + dropped)
-        self.statistics.compile_time_s += time.perf_counter() - t0
+        with span("engine.grow"):
+            kw = self._fast_kw
+            old_cap = kw["capacity"]
+            pos, vel, mass, ids = flatten_fast_state(fstate, with_ids=True)
+            pos = wrap_positions(pos, kw["box_size"])
+            n_live = pos.shape[0]
+            t0 = time.perf_counter()
+            new_cap = old_cap
+            while True:
+                new_cap *= 2
+                plan = {"ncell": kw["ncell"], "capacity": new_cap,
+                        "margin": kw["margin"], "rs": kw["rs"]}
+                with span("fast.build", device=pos.is_cuda):
+                    st = build_fast_state(
+                        pos, vel, mass, fstate.scale_factor,
+                        box_size=kw["box_size"], plan=plan,
+                        time=fstate.time, step=fstate.step, ids=ids)
+                count("readbacks")
+                if int(st.overflow) == 0 or new_cap >= n_live:
+                    break
+            _log.warning(
+                "treepm_fast: bucket capacity %d exceeded by clustering; "
+                "re-planned with capacity %d (no particles lost)",
+                old_cap, new_cap)
+            st = st.replace(overflow=fstate.overflow, dropped=fstate.dropped)
+            kw["capacity"] = new_cap
+            # the JAX engine's variant switch (a grown capacity leaves the
+            # vpu4b pairing; above 128 it plans vpu5): one split function
+            # here
+            if new_cap > 128:
+                kw["variant"] = "vpu5"
+            elif kw.get("variant") == "vpu4b" and new_cap != 64:
+                kw["variant"] = "vpu3"
+            acc, dropped = _accel(st, **_accel_kw(kw))
+            self._fstate = st.replace(acc=acc, dropped=st.dropped + dropped)
+            self.statistics.compile_time_s += time.perf_counter() - t0
 
     def _grow_mesh_fast_capacity(self, fstate) -> None:
         """_grow_fast_capacity on ranks: every rank's live rows and ids
         (gathered, wrapped) rebuilt into the sharded stepper at a doubled
         capacity until the rebuild is lossless or the capacity reaches the
         row count, keeping ncell, rs, margin and the ids (the JAX
-        engine's _grow_mesh_fast_capacity)."""
+        engine's _grow_mesh_fast_capacity; span `engine.grow`)."""
         from ..physics.integrators import wrap_positions
-        kw = self._fast_mesh_kw
-        old_cap = kw["capacity"]
-        pos, vel, mass, ids = self._fast_rows(fstate)
-        pos = wrap_positions(pos, kw["box_size"])
-        t0 = time.perf_counter()
-        new_cap = old_cap
-        while True:
-            new_cap *= 2
-            plan = {"ncell": kw["ncell"], "capacity": new_cap,
-                    "margin": kw["margin"], "rs": kw["rs"]}
-            st, kw2 = self._mesh_fast.initialize(
-                pos, vel, mass, fstate.scale_factor, mesh=self._mesh,
-                box_size=kw["box_size"], pm_grid=kw["ng"],
-                softening=kw["softening"], g_const=kw["g_const"],
-                time=fstate.time, step=fstate.step,
-                h0_internal=kw["h0_internal"], kick_mode=kw["kick_mode"],
-                sf_method=kw["sf_method"], cosmological=kw["cosmological"],
-                plan_override=plan, ids=ids)
-            if int(st.overflow) == 0 or new_cap >= pos.shape[0]:
-                break
-        _log.warning(
-            "mesh treepm_fast: bucket capacity %d exceeded by clustering; "
-            "re-planned with capacity %d (no particles lost)",
-            old_cap, new_cap)
-        self._fstate = st.replace(overflow=fstate.overflow,
-                                  dropped=fstate.dropped)
-        self._fast_mesh_kw = kw2
-        self.statistics.compile_time_s += time.perf_counter() - t0
+        with span("engine.grow"):
+            kw = self._fast_mesh_kw
+            old_cap = kw["capacity"]
+            pos, vel, mass, ids = self._fast_rows(fstate)
+            pos = wrap_positions(pos, kw["box_size"])
+            t0 = time.perf_counter()
+            new_cap = old_cap
+            while True:
+                new_cap *= 2
+                plan = {"ncell": kw["ncell"], "capacity": new_cap,
+                        "margin": kw["margin"], "rs": kw["rs"]}
+                st, kw2 = self._mesh_fast.initialize(
+                    pos, vel, mass, fstate.scale_factor, mesh=self._mesh,
+                    box_size=kw["box_size"], pm_grid=kw["ng"],
+                    softening=kw["softening"], g_const=kw["g_const"],
+                    time=fstate.time, step=fstate.step,
+                    h0_internal=kw["h0_internal"], kick_mode=kw["kick_mode"],
+                    sf_method=kw["sf_method"], cosmological=kw["cosmological"],
+                    plan_override=plan, ids=ids)
+                count("readbacks")
+                if int(st.overflow) == 0 or new_cap >= pos.shape[0]:
+                    break
+            _log.warning(
+                "mesh treepm_fast: bucket capacity %d exceeded by clustering; "
+                "re-planned with capacity %d (no particles lost)",
+                old_cap, new_cap)
+            self._fstate = st.replace(overflow=fstate.overflow,
+                                      dropped=fstate.dropped)
+            self._fast_mesh_kw = kw2
+            self.statistics.compile_time_s += time.perf_counter() - t0
 
     def _fast_rows(self, fstate):
         """(positions, velocities, masses, ids) of the slots of fstate
@@ -717,6 +743,7 @@ class SimulationEngine:
             fstate = gather_fast_state(fstate, self._mesh)
         pos, vel, mass, ids = flatten_fast_state(fstate, with_ids=True)
         live = ids >= 0
+        count("readbacks", 4)            # each boolean mask waits
         return pos[live], vel[live], mass[live], ids[live]
 
     def _sync_state_from_fast(self) -> None:
@@ -724,24 +751,26 @@ class SimulationEngine:
         original particle order (via the persistent ids), positions
         wrapped into [0, box); overflowed particles leave zero-mass rows.
         Runs on the device with index ops; on ranks every rank gathers
-        every rank's slots and holds the global state."""
+        every rank's slots and holds the global state (span
+        `engine.sync_state`)."""
         from ..physics.integrators import wrap_positions
-        fpos, fvel, fmass, ids = self._fast_rows(self._fstate)
-        fpos = wrap_positions(fpos, self.config.particles.box_size)
-        ids = ids.to(torch.int64)
-        n = self._fast_n
-        dev = fpos.device
-        pos = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-        vel = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-        mass = torch.zeros((n,), dtype=torch.float32, device=dev)
-        pos[ids] = fpos
-        vel[ids] = fvel
-        mass[ids] = fmass
-        self._state = self._state.replace(
-            positions=pos, velocities=vel, masses=mass,
-            scale_factor=self._fstate.scale_factor.clone(),
-            time=self._fstate.time.clone(),
-            step=self._fstate.step.clone())
+        with span("engine.sync_state", device=self._fstate.bpos.is_cuda):
+            fpos, fvel, fmass, ids = self._fast_rows(self._fstate)
+            fpos = wrap_positions(fpos, self.config.particles.box_size)
+            ids = ids.to(torch.int64)
+            n = self._fast_n
+            dev = fpos.device
+            pos = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+            vel = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+            mass = torch.zeros((n,), dtype=torch.float32, device=dev)
+            pos[ids] = fpos
+            vel[ids] = fvel
+            mass[ids] = fmass
+            self._state = self._state.replace(
+                positions=pos, velocities=vel, masses=mass,
+                scale_factor=self._fstate.scale_factor.clone(),
+                time=self._fstate.time.clone(),
+                step=self._fstate.step.clone())
 
     def release_force_state(self) -> None:
         """Drop the fast stepper's bucket state (and its accelerations) to
@@ -776,7 +805,13 @@ class SimulationEngine:
     # -- stateless solvers: a loop of the fused KDK step ---------------------
     def _ensure_acc(self) -> None:
         if self._acc is None and self._fstate is None:
-            self._acc = self._accel_fn(self._state)
+            self._acc = self._force(self._state)
+
+    def _force(self, st: SimState):
+        """The stateless solver's accelerations at `st` (span
+        `fast.accel`, as the fast stepper's force)."""
+        with span("fast.accel", device=st.positions.is_cuda):
+            return self._accel_fn(st)
 
     def _kdk_steps(self, st: SimState, acc, n: int):
         """`n` fused KDK steps from (st, acc), one force evaluation each
@@ -794,7 +829,7 @@ class SimulationEngine:
             periodic=cfg.particles.periodic_boundaries,
             cosmological=cosmological)
         for _ in range(n):
-            st, acc = kdk_step_fused(st, acc, self._accel_fn, params,
+            st, acc = kdk_step_fused(st, acc, self._force, params,
                                      self._dt, cfg.particles.box_size,
                                      **step_kw)
         return st, acc
@@ -865,37 +900,19 @@ class SimulationEngine:
         self.statistics.total_steps += num_steps
         return self._state
 
-    def _measure_force_fraction(self) -> None:
-        """profiling.detailed_timing: time one standalone force
-        evaluation; the run loop attributes min(chunk, n * t_force) of
-        each chunk to force time."""
-        if getattr(self, "_force_eval_s", None) is not None:
-            return
-        if self._fast_mesh_kw is not None:
-            from ..parallel.fast_mesh import ACCEL_KEYS
-            kw = {k: self._fast_mesh_kw[k] for k in ACCEL_KEYS}
-            accel = self._mesh_fast.accel
-
-            def force():
-                return accel(self._fstate.bpos, self._fstate.bmass,
-                             mesh=self._mesh, **kw)[0]
-        elif self._fstate is not None:
-            from ..ops.fast_treepm import _accel
-            kw = _accel_kw(self._fast_kw)
-
-            def force():
-                return _accel(self._fstate, **kw)[0]
-        else:
-            def force():
-                return self._accel_fn(self._state)
-        synchronize(force())                            # warm caches
-        t0 = time.perf_counter()
-        synchronize(force())
-        self._force_eval_s = time.perf_counter() - t0
-
     def run(self, num_steps: int | None = None) -> SimState:
         """Advance in output-cadence chunks, firing observers between
-        chunks, until max_steps, final_redshift or final_time."""
+        chunks, until max_steps, final_redshift or final_time.
+
+        Each chunk is the span `engine.chunk` (utils/profiling: spans and
+        counters record while a torch profiler is active or a
+        `profiling.tracing()` context is open) and ends in a synchronize,
+        after which the chunk's spans are reduced to the totals that
+        `profiling.trace_totals()` returns. profiling.detailed_timing
+        opens `profiling.tracing()` for the run: `statistics.force_time_s`
+        accumulates the device seconds of the chunks' `fast.accel` spans
+        and `integration_time_s` the rest of each such chunk's wall
+        time."""
         if self.lifecycle == LifecycleState.UNINITIALIZED:
             self.initialize()
         self._maybe_rebuild_fast()
@@ -909,15 +926,15 @@ class SimulationEngine:
         self.observers.notify("on_simulation_start", self)
         t_start = time.perf_counter()
         steps_done = 0
-        trace_ctx = None
+        trace_ctx = contextlib.ExitStack()
         if cfg.profiling.enabled and cfg.profiling.trace_dir:
-            from ..utils.profiling import trace_dir
-            trace_ctx = trace_dir(cfg.profiling.trace_dir)
-            trace_ctx.__enter__()
+            trace_ctx.enter_context(profiling.trace_dir(
+                cfg.profiling.trace_dir))
+        if cfg.profiling.detailed_timing:
+            trace_ctx.enter_context(profiling.tracing())
         try:
             self._ensure_acc()
-            if cfg.profiling.detailed_timing:
-                self._measure_force_fraction()
+            profiling.flush()            # a chunk's force time is its own
             if cfg.integration.adaptive_timestep \
                     or cfg.integration.max_dloga > 0:
                 self._update_dt()
@@ -940,12 +957,16 @@ class SimulationEngine:
                         n = 1 << (need.bit_length() - 1)
                 self.observers.notify("on_step_start", self,
                                       int(self._state.step))
+                profiling.set_step(self._state.step)
+                accel0 = _force_seconds()
                 t_chunk0 = time.perf_counter()
-                with self.profiler.timer("run.chunk"):
+                with self.profiler.timer("run.chunk",
+                                         span_name="engine.chunk"):
                     self._chunk(n)
                     synchronize(self._state.positions)
                 check_range()
                 dt_chunk = time.perf_counter() - t_chunk0
+                profiling.flush()
                 self.statistics.compute_time_s += dt_chunk
                 a_after = float(self._state.scale_factor)
                 if a_after > a > 0:
@@ -957,19 +978,22 @@ class SimulationEngine:
                         a_after, 1e3 * dt_chunk / n,
                         n * self._num_particles() / max(dt_chunk,
                                                             1e-9))
-                t_force = getattr(self, "_force_eval_s", None)
-                if t_force is not None:
-                    f_share = min(dt_chunk, n * t_force)
-                    self.statistics.force_time_s += f_share
-                    self.statistics.integration_time_s += \
-                        dt_chunk - f_share
-                if cfg.validation.check_finite and not self._all_ranks(
-                        bool(torch.all(torch.isfinite(
-                            self._state.positions)))):
-                    raise FloatingPointError(
-                        f"non-finite positions after step "
-                        f"{self.statistics.total_steps + n} "
-                        f"(validation.check_finite)")
+                if cfg.profiling.detailed_timing:
+                    accel1 = _force_seconds()
+                    if accel1[0] > accel0[0]:
+                        f_chunk = accel1[1] - accel0[1]
+                        self.statistics.force_time_s += f_chunk
+                        self.statistics.integration_time_s += \
+                            dt_chunk - f_chunk
+                if cfg.validation.check_finite:
+                    count("readbacks")
+                    finite = bool(torch.all(torch.isfinite(
+                        self._state.positions)))
+                    if not self._all_ranks(finite):
+                        raise FloatingPointError(
+                            f"non-finite positions after step "
+                            f"{self.statistics.total_steps + n} "
+                            f"(validation.check_finite)")
                 if cfg.integration.adaptive_timestep \
                         or cfg.integration.max_dloga > 0:
                     self._update_dt()
@@ -997,8 +1021,7 @@ class SimulationEngine:
             self.observers.notify("on_error", self, exc)
             raise
         finally:
-            if trace_ctx is not None:
-                trace_ctx.__exit__(None, None, None)
+            trace_ctx.close()
             wall = time.perf_counter() - t_start
             st = self.statistics
             st.total_time_s += wall
@@ -1059,6 +1082,7 @@ class SimulationEngine:
             # reduces its sharded array
             amax = self._mesh.all_reduce(torch.max(torch.sqrt(torch.sum(
                 acc * acc, dim=-1))).reshape(1), "max")[0]
+        count("readbacks")
         self._dt = host_scalar(adaptive_dt(
             acc, cfg.forces.softening_length, cfg.time.initial_timestep,
             cfg.integration.min_timestep, cfg.integration.max_timestep,

@@ -17,6 +17,8 @@ import math
 import numpy as np
 import torch
 
+from ..utils.profiling import count
+
 
 def _fit_short_poly(degree: int = 10, x_max: float = 3.0):
     """Least-squares polynomial fit of S(x) = erfc(x) + (2x/sqrt(pi))e^-x^2
@@ -47,6 +49,7 @@ def bucket_src_map(positions, masses, box_size, *, ncell: int,
     # a 0-d tensor divisor: PyTorch's CUDA division by a Python scalar
     # multiplies by its reciprocal, which can move a particle on a cell
     # boundary; a tensor divides exactly on every device, as XLA does
+    count("readbacks")          # the copy to a card waits for its stream
     box = torch.tensor(box_size, dtype=comps[0].dtype,
                        device=comps[0].device)
     cx, cy, cz = (torch.clamp(torch.floor(c / box * ncell)

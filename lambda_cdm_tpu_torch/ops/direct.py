@@ -48,6 +48,7 @@ import torch
 
 from ..forces.direct import min_image
 from . import cuda_build
+from ..utils.profiling import count
 
 THREADS = 128     # threads a block of K4 (kThreads in direct.cu)
 TILE_ROWS = 128   # i rows a block of K4 (kTileRows in direct.cu)
@@ -112,6 +113,7 @@ def check_range() -> None:
     and clear the flag: one readback for each device K4 has run on,
     none before its first launch."""
     for device, flag in _range_flags.items():
+        count("readbacks")
         if int(flag):
             flag.zero_()
             raise ValueError(

@@ -29,6 +29,7 @@ from ..forces.treepm import bucket_gather, bucket_src_map
 from ..physics.cosmology import CosmologyParams
 from ..physics.integrators import (drift_factor, kick_factor,
                                    update_scale_factor, wrap_positions)
+from ..utils.profiling import count, set_step, span
 from .bucketed_pm import live_counts, pm_accelerations_bucketed
 from .short_range import short_range
 
@@ -168,19 +169,25 @@ def _accel(fstate: FastState, *, box_size, ng, ncell, capacity, margin,
     PM long range (K1, FFT, K2 or the spectral/interp gradient) plus
     g_const times K3's short range in the split form of `variant`.
     pm_only: the unsplit PM alone (split_scale 0, no short range), the
-    persistent-bucket PM solver of forces.type="pm_fast"."""
-    counts = live_counts(fstate.bmass)
-    acc_long, dropped = pm_accelerations_bucketed(
-        fstate.bpos, fstate.bmass, ncell=ncell, ng=ng, box_size=box_size,
-        g_const=g_const, split_scale=0.0 if pm_only else rs, margin=margin,
-        gradient=gradient, counts=counts)
-    if pm_only:
-        return acc_long, dropped
-    acc_short = short_range(
-        fstate.bpos, fstate.bmass, counts, ncell=ncell, capacity=capacity,
-        box_size=float(box_size), rs=float(rs), softening=float(softening),
-        variant=variant)
-    return acc_long + g_const * acc_short, dropped
+    persistent-bucket PM solver of forces.type="pm_fast". Spans
+    `fast.accel`, around the host's launches of the PM `fast.pm` and of
+    K3 `fast.short_range`."""
+    with span("fast.accel", device=fstate.bpos.is_cuda):
+        counts = live_counts(fstate.bmass)
+        with span("fast.pm"):
+            acc_long, dropped = pm_accelerations_bucketed(
+                fstate.bpos, fstate.bmass, ncell=ncell, ng=ng,
+                box_size=box_size, g_const=g_const,
+                split_scale=0.0 if pm_only else rs, margin=margin,
+                gradient=gradient, counts=counts)
+        if pm_only:
+            return acc_long, dropped
+        with span("fast.short_range"):
+            acc_short = short_range(
+                fstate.bpos, fstate.bmass, counts, ncell=ncell,
+                capacity=capacity, box_size=float(box_size), rs=float(rs),
+                softening=float(softening), variant=variant)
+        return acc_long + g_const * acc_short, dropped
 
 
 def _rebucket(fstate: FastState, *, box_size, ncell, capacity,
@@ -235,6 +242,7 @@ def _rebucket_compact(fstate: FastState, *, box_size, ncell, capacity,
     bshape = fstate.bmass.shape
     s = bshape[0] * bshape[1]
     pos3, mass = _wrapped_rows(fstate, box_size)
+    count("readbacks")
     live_idx = torch.nonzero(mass > 0)[:n_rows, 0]
     pad = torch.full((n_rows - live_idx.numel(),), s, dtype=live_idx.dtype,
                      device=live_idx.device)
@@ -300,19 +308,25 @@ def fast_run(fstate: FastState, params: CosmologyParams, dt, *,
     pre-rebucket state; "drop" counts the overflow and zero-masses the
     particles that did not fit. `kw` is initialize_fast's dict (either
     package's): the geometry, the integration knobs, `variant`, `pm_only`
-    and `n_rows` (rows of the compact rebucket, 0 for the gather form)."""
+    and `n_rows` (rows of the compact rebucket, 0 for the gather form).
+    A rebucket pass, with its overflow check, is the span
+    `fast.rebucket` and counts in `rebuckets`."""
     remaining = n_steps
     since = max(0, int(steps_since_rebucket))
     kw = dict(kw)                    # callers reuse their kw dict
     n_rows = kw.pop("n_rows", 0)     # the rebucket's compact-form knob
     while remaining > 0:
         if since >= rebucket_every:
-            rb = _rebucket(fstate, box_size=kw["box_size"],
-                           ncell=kw["ncell"], capacity=kw["capacity"],
-                           n_rows=n_rows)
-            if (on_overflow == "raise"
-                    and int(rb.overflow) > int(fstate.overflow)):
-                raise BucketOverflowError(fstate, n_steps - remaining)
+            count("rebuckets")
+            with span("fast.rebucket", device=fstate.bpos.is_cuda):
+                rb = _rebucket(fstate, box_size=kw["box_size"],
+                               ncell=kw["ncell"], capacity=kw["capacity"],
+                               n_rows=n_rows)
+                if on_overflow == "raise":
+                    count("readbacks", 2)
+                    if int(rb.overflow) > int(fstate.overflow):
+                        raise BucketOverflowError(fstate,
+                                                  n_steps - remaining)
             fstate = rb
             since = 0
         seg = min(rebucket_every - since, remaining)
@@ -330,34 +344,42 @@ def _fast_segment(fstate: FastState, params: CosmologyParams, dt, *,
                   cosmological: bool = True, pm_only: bool = False,
                   variant: str = "vpu3", n_steps: int = 1) -> FastState:
     """Advance `n_steps` KDK steps with one force evaluation each (the
-    closing half-kick force of one step opens the next)."""
+    closing half-kick force of one step opens the next). Spans: each half
+    kick `fast.kick`, the drift with the scale factor's update
+    `fast.drift`, the force `fast.accel`."""
     kw = dict(box_size=box_size, ng=ng, ncell=ncell, capacity=capacity,
               margin=margin, rs=rs, softening=softening, g_const=g_const,
               gradient=gradient, pm_only=pm_only, variant=variant)
     dt = float(dt)
     fs = fstate
+    on_card = fs.bpos.is_cuda
     live = (fs.bmass > 0)[None]
     for _ in range(n_steps):
+        set_step(fs.step)
         a0 = fs.scale_factor
-        vel = fs.bvel + fs.acc * (0.5 * dt) * kick_factor(a0, kick_mode)
-        if cosmological:
-            a_half = update_scale_factor(params, a0, 0.5 * dt, h0_internal,
-                                         sf_method)
-            a1 = update_scale_factor(params, a_half, 0.5 * dt, h0_internal,
-                                     sf_method)
-        else:
-            a_half, a1 = a0, a0
-        # no box wrap between rebuckets: the kernels take positions
-        # slightly outside the box (cell-index shifts, wrapped mesh
-        # indices); positions wrap at rebucket time and on export
-        pos = fs.bpos + vel * dt * drift_factor(a_half, kick_mode)
-        pos = torch.where(live, pos, 0.0)
+        with span("fast.kick", device=on_card):
+            vel = fs.bvel + fs.acc * (0.5 * dt) * kick_factor(a0, kick_mode)
+        with span("fast.drift", device=on_card):
+            if cosmological:
+                a_half = update_scale_factor(params, a0, 0.5 * dt,
+                                             h0_internal, sf_method)
+                a1 = update_scale_factor(params, a_half, 0.5 * dt,
+                                         h0_internal, sf_method)
+            else:
+                a_half, a1 = a0, a0
+            # no box wrap between rebuckets: the kernels take positions
+            # slightly outside the box (cell-index shifts, wrapped mesh
+            # indices); positions wrap at rebucket time and on export
+            pos = fs.bpos + vel * dt * drift_factor(a_half, kick_mode)
+            pos = torch.where(live, pos, 0.0)
         fs = fs.replace(bpos=pos, bvel=vel, scale_factor=a1,
                         time=fs.time + dt, step=fs.step + 1)
         acc_new, dropped = _accel(fs, **kw)
-        vel = fs.bvel + acc_new * (0.5 * dt) * kick_factor(a1, kick_mode)
+        with span("fast.kick", device=on_card):
+            vel = fs.bvel + acc_new * (0.5 * dt) * kick_factor(a1, kick_mode)
         fs = fs.replace(bvel=vel, acc=acc_new,
                         dropped=fs.dropped + dropped)
+    set_step(fs.step)
     return fs
 
 
@@ -377,9 +399,10 @@ def initialize_fast(positions, velocities, masses, scale_factor, *,
     if plan["ncell"] < 3 and not pm_only:
         raise ValueError("treepm_fast needs a box of at least 3 r_cut "
                          "cells per axis")
-    fstate = build_fast_state(positions, velocities, masses, scale_factor,
-                              box_size=box_size, plan=plan,
-                              time=time, step=step)
+    with span("fast.build", device=positions.is_cuda):
+        fstate = build_fast_state(positions, velocities, masses,
+                                  scale_factor, box_size=box_size,
+                                  plan=plan, time=time, step=step)
     accel_kw = dict(box_size=float(box_size), ng=pm_grid,
                     ncell=plan["ncell"], capacity=plan["capacity"],
                     margin=plan["margin"], rs=float(plan["rs"]),
