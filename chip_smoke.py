@@ -18,7 +18,12 @@ fatal on failure and each printing its seconds:
      K3 again on a clustered state whose largest cell holds several
      thousand particles (half the sampled rows from it), and K1 and K2
      there too; K3's plan of units built on the card against its plain
-     version on both states;
+     version on both states; the fast stepper's KDK kernels
+     (ops/kdk_update.py: the open into zeroed new buffers and into its
+     own buffers, the kick as closing half kick and as the force's
+     combine) against their plain versions on the main-path state's own
+     buckets, bit for bit, dead slots 0, the inputs unchanged, each timed
+     beside its plain version;
   3. stepper path: reset the launch counters, build the engine from
      treepm_1m.json through SimulationBuilder (2LPT ICs from the JAX
      package's key for the config's seed, utils/prng) and run 32 steps; K1-K3 must have launched,
@@ -58,9 +63,10 @@ fatal on failure and each printing its seconds:
   6. CLI phase: treepm_1m.json as shipped through the CLI's
      _build_engine -> initialize -> run for 40 steps with every observer
      the config asks for (P(k) every 20 steps, FoF halos, snapshot and
-     checkpoint at 40, energy conservation on); K1-K5 and K9 must have
-     launched, K5 through the halo-finder observer, K9 once for each
-     compute_energy, each call under 10 s; then `resume` from the
+     checkpoint at 40, energy conservation on); K1-K5, K9 and the KDK
+     kernels must have launched, K5 through the halo-finder observer, K9
+     once for each compute_energy, each call under 10 s, the open once a
+     step and the kick twice a step and once for the first force; then `resume` from the
      checkpoint and `analyze` of the snapshot through cli.main;
   7. reference check: a small run with every observer on (energy too) on
      the card against the same run on the CPU (the kernels' plain
@@ -127,7 +133,8 @@ Then the fast stepper's other options:
      buckets of capacity 128) against the exact-erfc sum over all N at
      256 particles, and the times;
  16. pm_fast phase: pm_128_256.json with --forces.type=pm_fast through the
-     CLI's engine for 10 steps, beside the stateless pm run of phase 11:
+     CLI's engine for 10 steps (an open and a kick of the KDK kernels a
+     step), beside the stateless pm run of phase 11:
      validate_force_accuracy, pm_fast's own force against the oracle at
      1.25x the pm run's errors, and pm_fast's force against the stateless
      pm force on a clustered box of the same geometry, where a planted
@@ -151,7 +158,8 @@ Then this slice's paths:
      Layzer-Irvine ledger through K9, K3 timed on the initial buckets
      (z = 24) and the final-state step breakdown, the FoF/SO catalogue
      with the HMF against Sheth-Tormen and the Born map;
-     K1-K3, K5 and K9 must have launched, overflow and drops 0, every
+     K1-K3, K5, K9 and the KDK kernels must have launched, overflow and
+     drops 0, every
      check of its certificate must pass; then --analyze-only on the
      record (certificate and record in chiprun_out/chip_smoke_science/),
      find_halos's split on the run's final state (as in phase 5) and
@@ -161,7 +169,8 @@ Then this slice's paths:
      kernels line's K9 numbers), and K3 against its plain version on that
      state bucketed by the run's plan (half the sampled rows from the
      fullest cell), with its plan against the plain one, and K1 and K2
-     against theirs on the same buckets, timed there. The ICs come from
+     against theirs on the same buckets, timed there, and the KDK kernels
+     against theirs there as in phase 2. The ICs come from
      PRNGKey(2026), the JAX run's key: the run prints its low-k
      pk_table.ratio_over_growth, steps, HMF geometric mean and
      Layzer-Irvine worst beside SCIENCE.json's (the TPU run).
@@ -268,6 +277,14 @@ FLOPS = {"cic_deposit": 47, "fd4_gather": 175, "short_range": 44,
          "short_range_vpu": 44, "short_range_vpu2": 48,
          "short_range_mxu": 44, "short_range_rd": 44}
 
+# the KDK kernels' checks (chip_smoke.kdk_check): scalars that round in
+# float32 (the stepper passes its own), and the bytes a live row each
+# kernel must move: the open reads bpos, bvel and acc and writes pos and
+# vel, the kick reads x and y and writes x (float32 3-vectors)
+KDK_SCALARS = {"half_dt": 2.5e-3, "kf": 1.7, "dt": 5e-3, "df": 0.6,
+               "g": 43.0071057317063}
+KDK_ROW_BYTES = {"kdk_open": 60, "kdk_kick": 36}
+
 # K4/K4s against their plain versions (relative to the plain result's
 # largest |a|): every variant holds the JAX package's bar for its kernel
 DIRECT_TOL = {"v1": 1e-5, "sym": 1e-5, "v2": 1e-5, "sym2": 1e-5}
@@ -347,9 +364,9 @@ def stencil_pairs(counts, ncell: int) -> float:
 
 def _counted():
     from lambda_cdm_tpu_torch.ops import alias_probe, direct, fof_hook, \
-        lens_sample, pm_rods, short_range, short_range_rd
+        kdk_update, lens_sample, pm_rods, short_range, short_range_rd
     return (pm_rods, short_range, fof_hook, direct, lens_sample,
-            short_range_rd, alias_probe)
+            short_range_rd, alias_probe, kdk_update)
 
 
 def reset_counts() -> None:
@@ -610,7 +627,8 @@ def main_path(cfg, device, card):
           f"{int(eng._fstate.dropped)}; launches {json.dumps(launches)}")
     check("main path", stats.total_steps == N_STEPS, "steps not taken")
     check("main path", all(launches[k] > 0 for k in
-                            ("cic_deposit", "fd4_gather", "short_range")),
+                            ("cic_deposit", "fd4_gather", "short_range",
+                             "kdk_open", "kdk_kick")),
           "a kernel of the path was not launched")
     check("main path", bool(torch.all(torch.isfinite(st.positions))),
           "non-finite positions")
@@ -990,6 +1008,12 @@ def cli_phase(device, card):
         check("CLI", all(launches[k] > 0 for k in (
             "cic_deposit", "fd4_gather", "short_range", "fof_hook",
             "pair_potential")), "a kernel of the path was not launched")
+        # the KDK kernels: an open a step; a kick a step and a combine a
+        # force (one a step and the first)
+        check("CLI", launches["kdk_open"] == stats.total_steps
+              and launches["kdk_kick"] == 2 * stats.total_steps + 1,
+              f"KDK launches {launches['kdk_open']} open, "
+              f"{launches['kdk_kick']} kick for {stats.total_steps} steps")
         energy = eng.profiler.get("diagnostics.energy")
         print(f"CLI energy: {energy.count} compute_energy calls at N="
               f"{eng.state.num_particles} through K9 ({launches['pair_potential']}"
@@ -1446,7 +1470,8 @@ def science_phase(device, card):
           and cert["config"]["pm_grid"] == 192, "not the 1M geometry")
     check("science", all(launches[k] > 0 for k in (
         "cic_deposit", "fd4_gather", "short_range", "fof_hook",
-        "pair_potential")), "a kernel of the path was not launched")
+        "pair_potential", "kdk_open", "kdk_kick")),
+        "a kernel of the path was not launched")
     check("science", launches["pair_potential"] == len(li),
           f"{launches['pair_potential']} K9 launches for {len(li)} ledger "
           f"samples")
@@ -1565,6 +1590,7 @@ def science_kernel_check(final, g, device, card):
     check("K3 science", rel <= TOL["short_range"], f"rel err {rel} > tol")
     pm_kernel_check(fs.bpos, fs.bmass, counts, kw, device, card,
                     "science run's final state")
+    kdk_check(fs, device, card, "science run's final state")
 
 
 def pm_kernel_check(bpos, bmass, counts, kw, device, card, label):
@@ -1617,6 +1643,95 @@ def pm_kernel_check(bpos, bmass, counts, kw, device, card, label):
     check(f"K1 ({label})", int(drop_k) == int(drop_p), "drop counts differ")
     check(f"K2 ({label})", grel <= TOL["fd4_gather"], f"rel err {grel}")
     check(f"K2 ({label})", dead_max == 0.0, "dead slots not zero")
+
+
+def kdk_check(fs, device, card, label):
+    """The KDK kernels (ops/kdk_update.py) against their plain versions
+    on the bucket layout of fast state `fs`, on its own positions,
+    velocities and forces: the open into zeroed new buffers and with
+    `owned` into copies of bpos and bvel, the kick as the closing half
+    kick and as the force's combine (y the velocities, g the stepper's
+    G), each equal to its plain version bit for bit (tolerance 0), dead
+    slots 0 and the inputs unchanged; each timed with CUDA events beside
+    its plain version (the chain of PyTorch kernels the stepper ran
+    before, over every slot), against the bytes of the live rows.
+    Returns the kernels line's records of the open in place and the
+    closing kick: (max_abs_err, 0, ms, plain_ms, bound_ms, bound_by)."""
+    import torch
+    from lambda_cdm_tpu_torch.ops import kdk_update as ku
+    from lambda_cdm_tpu_torch.ops.bucketed_pm import live_counts
+    counts = live_counts(fs.bmass)
+    dead = (fs.bmass == 0)[None].expand_as(fs.bpos)
+    rows = float(counts.sum())
+    sc = KDK_SCALARS
+    h, kf, dt, df, g = (sc[k] for k in ("half_dt", "kf", "dt", "df", "g"))
+    kept = [t.clone() for t in (fs.bpos, fs.bvel, fs.acc)]
+    pos_p, vel_p = ku.kdk_open_plain(fs.bpos, fs.bvel, fs.acc, counts, h,
+                                     kf, dt, df)
+    kick_p = ku.kdk_kick_plain(vel_p, fs.acc, h, kf)
+    comb_p = fs.acc + g * fs.bvel
+    scal = dict(half_dt=h, kf=kf, dt=dt, df=df)
+    got = {"open new": ku.kdk_open(fs.bpos, fs.bvel, fs.acc, counts,
+                                   **scal),
+           "open owned": ku.kdk_open(fs.bpos.clone(), fs.bvel.clone(),
+                                     fs.acc, counts, owned=True, **scal),
+           "kick": ku.kdk_kick(vel_p.clone(), fs.acc, counts, s1=h, s2=kf),
+           "combine": ku.kdk_kick(fs.acc.clone(), fs.bvel, counts, s1=g,
+                                  s2=1.0)}
+    want = {"open new": (pos_p, vel_p), "open owned": (pos_p, vel_p),
+            "kick": (kick_p,), "combine": (comb_p,)}
+    err = {}
+    for key, outs in got.items():
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(outs, want[key]))
+        err[key] = max(float((a - b).abs().max())
+                       for a, b in zip(outs, want[key]))
+        dead_max = max(float(a.masked_select(dead).abs().max())
+                       for a in outs)
+        check(f"KDK {key} ({label})", same and dead_max == 0.0,
+              f"not bit for bit its plain version (max_abs_err "
+              f"{err[key]:g}) or dead slots not 0 ({dead_max:g})")
+    check(f"KDK ({label})", all(
+        torch.equal(t, t0) for t, t0 in zip((fs.bpos, fs.bvel, fs.acc),
+                                            kept)), "an input was written")
+    del got, kept
+    bufs = [t.clone() for t in (fs.bpos, fs.bvel, vel_p, fs.acc)]
+    ms = {
+        "open new": cuda_ms(lambda: ku.kdk_open(
+            fs.bpos, fs.bvel, fs.acc, counts, **scal), 10),
+        "open owned": cuda_ms(lambda: ku.kdk_open(
+            bufs[0], bufs[1], fs.acc, counts, owned=True, **scal), 10),
+        "kick": cuda_ms(lambda: ku.kdk_kick(bufs[2], fs.acc, counts, s1=h,
+                                            s2=kf), 10),
+        "combine": cuda_ms(lambda: ku.kdk_kick(bufs[3], fs.bvel, counts,
+                                               s1=g, s2=1.0), 10)}
+    plain = {
+        "open": cuda_ms(lambda: ku.kdk_open_plain(
+            fs.bpos, fs.bvel, fs.acc, counts, h, kf, dt, df), 10),
+        "kick": cuda_ms(lambda: ku.kdk_kick_plain(vel_p, fs.acc, h, kf),
+                        10),
+        "combine": cuda_ms(lambda: fs.acc + g * fs.bvel, 10)}
+    del bufs
+    # bytes: the live rows (KDK_ROW_BYTES); the open into new buffers
+    # also zeroes both outputs' dead slots (24 B a dead slot)
+    b_open = bound(KDK_ROW_BYTES["kdk_open"] * rows, 0.0)
+    b_new = bound(KDK_ROW_BYTES["kdk_open"] * rows
+                  + 24 * (fs.bmass.numel() - rows), 0.0)
+    b_kick = bound(KDK_ROW_BYTES["kdk_kick"] * rows, 0.0)
+    print(f"KDK kernels ({label}: {fs.bmass.shape[0]} cells of capacity "
+          f"{fs.bmass.shape[1]}, {int(rows)} live rows, fullest cell "
+          f"{int(counts.max())}): bit for bit their plain versions, dead "
+          f"slots 0, inputs unchanged; open into new buffers "
+          f"{ms['open new']:.4f} ms (bound {b_new[0]:.4f}), into its own "
+          f"{ms['open owned']:.4f} ms (bound {b_open[0]:.4f}), plain "
+          f"{plain['open']:.4f} ms; kick {ms['kick']:.4f} ms, combine "
+          f"{ms['combine']:.4f} ms (bound {b_kick[0]:.4f}), plain "
+          f"{plain['kick']:.4f} / {plain['combine']:.4f} ms on {card}")
+    return {"kdk_open": (err["open owned"], 0.0, ms["open owned"],
+                         plain["open"], *b_open),
+            "kdk_kick": (err["kick"], 0.0, ms["kick"], plain["kick"],
+                         *b_kick)}
 
 
 def direct_inputs(n: int, box: float, seed: int, device):
@@ -3189,7 +3304,10 @@ def pm_fast_phase(device, card, pm_ms, pm_res):
         check("pm_fast", stats.total_steps == 10, "steps not taken")
         check("pm_fast", kw["pm_only"] and launches["short_range"] == 0
               and launches["cic_deposit"] >= 10
-              and launches["fd4_gather"] >= 10, "kernel launches")
+              and launches["fd4_gather"] >= 10
+              # the KDK kernels: an open and a kick a step, no combine
+              and launches["kdk_open"] == launches["kdk_kick"] == 10,
+              "kernel launches")
         check("pm_fast", bool(torch.all(torch.isfinite(eng.state.positions)))
               and int(eng._fstate.overflow) == 0, "non-finite or overflow")
         check("pm_fast", res["solver"] == "pm" and math.isfinite(
@@ -4600,6 +4718,8 @@ def main() -> int:
     cfg.profiling.output_file = ""
     fs, kw = timed("main-path state", main_path_state, cfg, device)
     rec = timed("kernel phase K1-K3", kernel_phase, fs, kw, device, card)
+    rec.update(timed("KDK kernels", kdk_check, fs, device, card,
+                     "the main-path state"))
     rec.update(timed("row-7 kernel phase", row7_kernel_phase, fs, kw, device,
                      card))
     row7_launches = timed("row-7 path", row7_path_phase, fs, kw,
@@ -4697,8 +4817,17 @@ def main() -> int:
                                 "lambda_cdm_tpu/parallel/sharded.py:39"),
                "pair_potential_cross": (
                    "csrc/direct.cu",
-                   "lambda_cdm_tpu/parallel/sharded.py:105")}
-    # launches: K1-K3 and K5 on the CLI run of treepm_1m, K4 on the
+                   "lambda_cdm_tpu/parallel/sharded.py:105"),
+               # the fast stepper's KDK updates over live slots: XLA
+               # fused the JAX package's elementwise step
+               "kdk_open": ("csrc/kdk_update.cu", "none: XLA fused "
+                            "lambda_cdm_tpu/ops/fast_treepm.py "
+                            "_fast_segment"),
+               "kdk_kick": ("csrc/kdk_update.cu", "none: XLA fused "
+                            "lambda_cdm_tpu/ops/fast_treepm.py "
+                            "_fast_segment")}
+    # launches: K1-K3, K5 and the KDK kernels on the CLI run of
+    # treepm_1m (the counts reset just before it), K4 on the
     # direct_10k run, K4s on its own path (sym and sym2 at 100k in the K4
     # phase; no engine path runs it, the JAX package drives its kernel only
     # from bench.py); K4 and K4s report their v1 and sym variants; K6/K7's public entries and the trace

@@ -45,7 +45,8 @@ end):
   rd_1m        row 13's geometry (benchmarks/bench_short_range_rd.py: 1M
                uniform particles from seed 0 in 100 Mpc/h, 24^2 rods).
 
---only keeps some groups: pm (the bucket states: K1-K3), k9, k4, k5 (K5
+--only keeps some groups: pm (the bucket states: K1-K3 and the fast
+stepper's KDK updates), k9, k4, k5 (K5
 states, fof_1m and fof_science), lens (K6/K7 and trace_rays), k8 (K8
 and its packing and tables).
 
@@ -67,7 +68,13 @@ padded stack), and trace_rays (lens_plane_fields and auto_sample_window
 made once) on the host clock around 20 traces that end in a synchronise,
 with the device launches of one trace (torch.profiler); on rd_1m rd_pack,
 rd_window_tables and K8 (short_range_rd) with CUDA events, two K8 calls
-compared byte for byte. It prints one JSON line with each result's
+compared byte for byte; on the bucket states, in a root that has them,
+the fast stepper's KDK updates (ops/kdk_update.py: the open into new
+and its own buffers, the kick as closing half kick and as the force's
+combine) eagerly and as a CUDA
+graph, each held bit for bit to its plain version, with the bytes of
+the live rows as their bound, beside the plain versions' eager times.
+It prints one JSON line with each result's
 SHA-256 (K2 and K3: the raw bytes of the
 [3, C, K] output; K9: U as a float64; K1: its grid where two calls give
 equal bytes, else none; K4: the [N, 3] accelerations; K5: the [C, K]
@@ -573,6 +580,69 @@ def pm_kernels(res, name, z, bpos, bmass, counts, device) -> None:
                          "sha256": _sha(acc)}
 
 
+def kdk_calls(res, name, bpos, bmass, counts, device) -> None:
+    """Time the fast stepper's KDK updates (ops/kdk_update.py; a root
+    without them is skipped) on one bucket state into res, eagerly and
+    as a CUDA graph: the open into zeroed new buffers and in place, the
+    closing kick and the combine, each held bit for bit to its plain
+    version; and the plain versions, the chain of PyTorch kernels they
+    replace, over every slot."""
+    import torch
+    try:
+        from lambda_cdm_tpu_torch.ops import kdk_update as ku
+    except ImportError:
+        return
+    from lambda_cdm_tpu_torch.ops import cuda_build
+    smoke = _chip_smoke()
+    live = (bmass > 0)[None]
+    gen = torch.Generator(device=device).manual_seed(5)
+    bvel, acc, acc_short = (torch.where(live, torch.randn(
+        bpos.shape, generator=gen, device=device), 0.0) for _ in range(3))
+    sc = dict(half_dt=2.5e-3, kf=1.7, dt=5e-3, df=0.6)
+    g = 43.0071057317063
+    rows = float(counts.sum())
+    dead = bmass.numel() - rows
+    pos_p, vel_p = ku.kdk_open_plain(bpos, bvel, acc, counts, *sc.values())
+    kick_p = ku.kdk_kick_plain(vel_p, acc, sc["half_dt"], sc["kf"])
+    comb_p = acc + g * acc_short
+
+    def in_place(fn, *bufs):
+        bufs = [b.clone() for b in bufs]
+        return lambda: fn(*bufs)
+
+    calls = {
+        "open_new": (lambda: ku.kdk_open(bpos, bvel, acc, counts, **sc),
+                     60 * rows + 24 * dead, (pos_p, vel_p)),
+        "open_in_place": (in_place(lambda p, v: ku.kdk_open(
+            p, v, acc, counts, owned=True, **sc), bpos, bvel), 60 * rows,
+            (pos_p, vel_p)),
+        "kick": (in_place(lambda v: ku.kdk_kick(
+            v, acc, counts, s1=sc["half_dt"], s2=sc["kf"]), vel_p),
+            36 * rows, kick_p),
+        "combine": (in_place(lambda a: ku.kdk_kick(
+            a, acc_short, counts, s1=g, s2=1.0), acc), 36 * rows, comb_p),
+    }
+    for key, (fn, n_bytes, want) in calls.items():
+        got = fn()          # the first call: the in-place forms' inputs
+        same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                   for x, y in zip(got if isinstance(got, tuple) else
+                                   (got,), want if isinstance(want, tuple)
+                                   else (want,)))
+        res[f"{name}/kdk_{key}"] = {
+            "ms": cuda_build.cuda_ms(fn, PM_REPS),
+            "graph_ms": smoke.graph_ms(fn, PM_REPS), "sha256": None,
+            "plain": same, "bound": smoke.bound(n_bytes, 0.0)}
+    plains = {
+        "open": lambda: ku.kdk_open_plain(bpos, bvel, acc, counts,
+                                          *sc.values()),
+        "kick": lambda: ku.kdk_kick_plain(vel_p, acc, sc["half_dt"],
+                                          sc["kf"]),
+        "combine": lambda: acc + g * acc_short}
+    for key, fn in plains.items():
+        res[f"{name}/kdk_{key}_plain"] = {
+            "ms": cuda_build.cuda_ms(fn, PM_REPS), "sha256": None}
+
+
 def k4_kernels(res, name, z, geo, device) -> None:
     """Time K4 (v1, v2) and K4s (sym, sym2) on one direct-sum input into
     res and hash it."""
@@ -732,6 +802,7 @@ def worker(root: str, out: str, names: list, sass_out=None) -> dict:
             res[f"{name}/{v}"] = {"ms": ms, "sha256": _sha(acc)}
         del acc
         pm_kernels(res, name, z, bpos, bmass, counts, device)
+        kdk_calls(res, name, bpos, bmass, counts, device)
     return res
 
 

@@ -61,6 +61,8 @@ _SIGNATURES = {
     "lcdm_pair_potential": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
     "lcdm_alias_probe": [_P, _I, _I, _I, _P],
     "lcdm_launch_floor": [_P, _I, _I, _P],
+    "lcdm_kdk_open": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P],
+    "lcdm_kdk_kick": [_P, _P, _P, _I, _I, _F, _F, _P],
 }
 
 

@@ -31,6 +31,7 @@ from ..physics.integrators import (drift_factor, kick_factor,
                                    update_scale_factor, wrap_positions)
 from ..utils.profiling import count, set_step, span
 from .bucketed_pm import live_counts, pm_accelerations_bucketed
+from .kdk_update import kdk_kick, kdk_open
 from .short_range import short_range
 
 
@@ -164,16 +165,20 @@ def flatten_fast_state(fstate: FastState, with_ids: bool = False):
 
 def _accel(fstate: FastState, *, box_size, ng, ncell, capacity, margin,
            rs, softening, g_const, gradient="fd4", pm_only=False,
-           variant="vpu3"):
+           variant="vpu3", counts=None):
     """One force evaluation -> (acc [3, C, K], dropped 0-d int32): the
     PM long range (K1, FFT, K2 or the spectral/interp gradient) plus
-    g_const times K3's short range in the split form of `variant`.
+    g_const times K3's short range in the split form of `variant`, added
+    on live slots (kdk_update.kdk_kick with the scalars (g_const, 1),
+    into the PM's output).
     pm_only: the unsplit PM alone (split_scale 0, no short range), the
-    persistent-bucket PM solver of forces.type="pm_fast". Spans
-    `fast.accel`, around the host's launches of the PM `fast.pm` and of
-    K3 `fast.short_range`."""
+    persistent-bucket PM solver of forces.type="pm_fast". `counts`: the
+    live slots a bucket ([C] int32), derived from the masses when not
+    given. Spans `fast.accel`, around the host's launches of the PM
+    `fast.pm` and of K3 `fast.short_range`."""
     with span("fast.accel", device=fstate.bpos.is_cuda):
-        counts = live_counts(fstate.bmass)
+        if counts is None:
+            counts = live_counts(fstate.bmass)
         with span("fast.pm"):
             acc_long, dropped = pm_accelerations_bucketed(
                 fstate.bpos, fstate.bmass, ncell=ncell, ng=ng,
@@ -187,7 +192,8 @@ def _accel(fstate: FastState, *, box_size, ng, ncell, capacity, margin,
                 fstate.bpos, fstate.bmass, counts, ncell=ncell,
                 capacity=capacity, box_size=float(box_size), rs=float(rs),
                 softening=float(softening), variant=variant)
-        return acc_long + g_const * acc_short, dropped
+        return kdk_kick(acc_long, acc_short, counts, s1=g_const,
+                        s2=1.0), dropped
 
 
 def _rebucket(fstate: FastState, *, box_size, ncell, capacity,
@@ -344,21 +350,23 @@ def _fast_segment(fstate: FastState, params: CosmologyParams, dt, *,
                   cosmological: bool = True, pm_only: bool = False,
                   variant: str = "vpu3", n_steps: int = 1) -> FastState:
     """Advance `n_steps` KDK steps with one force evaluation each (the
-    closing half-kick force of one step opens the next). Spans: each half
-    kick `fast.kick`, the drift with the scale factor's update
-    `fast.drift`, the force `fast.accel`."""
+    closing half-kick force of one step opens the next), updating live
+    slots only (ops/kdk_update.py). The live counts are taken once:
+    slots change liveness only at a rebucket. The first step writes new
+    buffers, so no tensor of `fstate` is written; later steps update the
+    segment's own positions and velocities in place. Spans: the opening
+    half kick and the drift, with the scale factor's update, `fast.drift`;
+    the force `fast.accel`; the closing half kick `fast.kick`."""
     kw = dict(box_size=box_size, ng=ng, ncell=ncell, capacity=capacity,
               margin=margin, rs=rs, softening=softening, g_const=g_const,
               gradient=gradient, pm_only=pm_only, variant=variant)
     dt = float(dt)
     fs = fstate
     on_card = fs.bpos.is_cuda
-    live = (fs.bmass > 0)[None]
-    for _ in range(n_steps):
+    counts = live_counts(fs.bmass)
+    for step in range(n_steps):
         set_step(fs.step)
         a0 = fs.scale_factor
-        with span("fast.kick", device=on_card):
-            vel = fs.bvel + fs.acc * (0.5 * dt) * kick_factor(a0, kick_mode)
         with span("fast.drift", device=on_card):
             if cosmological:
                 a_half = update_scale_factor(params, a0, 0.5 * dt,
@@ -370,13 +378,16 @@ def _fast_segment(fstate: FastState, params: CosmologyParams, dt, *,
             # no box wrap between rebuckets: the kernels take positions
             # slightly outside the box (cell-index shifts, wrapped mesh
             # indices); positions wrap at rebucket time and on export
-            pos = fs.bpos + vel * dt * drift_factor(a_half, kick_mode)
-            pos = torch.where(live, pos, 0.0)
+            pos, vel = kdk_open(
+                fs.bpos, fs.bvel, fs.acc, counts, half_dt=0.5 * dt,
+                kf=kick_factor(a0, kick_mode), dt=dt,
+                df=drift_factor(a_half, kick_mode), owned=step > 0)
         fs = fs.replace(bpos=pos, bvel=vel, scale_factor=a1,
                         time=fs.time + dt, step=fs.step + 1)
-        acc_new, dropped = _accel(fs, **kw)
+        acc_new, dropped = _accel(fs, counts=counts, **kw)
         with span("fast.kick", device=on_card):
-            vel = fs.bvel + acc_new * (0.5 * dt) * kick_factor(a1, kick_mode)
+            vel = kdk_kick(fs.bvel, acc_new, counts, s1=0.5 * dt,
+                           s2=kick_factor(a1, kick_mode))
         fs = fs.replace(bvel=vel, acc=acc_new,
                         dropped=fs.dropped + dropped)
     set_step(fs.step)

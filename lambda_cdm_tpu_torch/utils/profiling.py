@@ -30,9 +30,10 @@ The program's span names: `engine.chunk`, `engine.cadence`,
 `engine.grow` (core/engine.py); `fast.rebucket`, `fast.kick`,
 `fast.drift`, `fast.accel` (with `fast.pm` and `fast.short_range`)
 (ops/fast_treepm.py; the stateless solvers' force is `fast.accel` too).
-Counters: `rebuckets` (one a rebucket pass) and `readbacks` (one a point
+Counters: `rebuckets` (one a rebucket pass), `readbacks` (one a point
 where the host waits on the card: every `synchronize` here, and each
-read of a device value on the fast path).
+read of a device value on the fast path) and `fused_kdk` (one a launch
+of ops/kdk_update.py's kernels).
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@
 dead layout, K3 short-range pairs in each split form,
 K4/K4s direct sums and K4's cross form, K5 FoF hook, K6/K7 lens
 samplers, K8 rod-dense pairs, K9 pair potential and its cross form, K10
-alias probe), a 2-rank gloo ring and the lcdm round trip of a card
-state, and the treepm_fast stepper,
+alias probe, the fast stepper's KDK updates), a 2-rank gloo ring and
+the lcdm round trip of a card state, and the treepm_fast stepper,
 fof_labels, the `direct` solver and the lensing trace on the card against
 the same runs on the CPU. These need a CUDA
 card and nvcc; elsewhere they skip:
@@ -26,10 +26,12 @@ from _torch_parity import K8_STAGE_TILES, clustered_particles, \
 
 from lambda_cdm_tpu_torch.analysis import halo_finder
 from lambda_cdm_tpu_torch.forces.direct import potential_energy
-from lambda_cdm_tpu_torch.ops import alias_probe, direct, fast_treepm, \
-    fof_hook, lens_sample, pm_rods, short_range, short_range_rd
+from lambda_cdm_tpu_torch.ops import alias_probe, bucketed_pm, direct, \
+    fast_treepm, fof_hook, kdk_update, lens_sample, pm_rods, short_range, \
+    short_range_rd
 from lambda_cdm_tpu_torch.ops.bucketed_pm import live_counts
 from lambda_cdm_tpu_torch.physics.cosmology import CosmologyParams
+from lambda_cdm_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -1230,3 +1232,131 @@ def test_two_rank_gloo_ring_on_card(cuda_device, tmp_path):
         assert r["direct_cross"] == 2 and r["pair_potential_cross"] == 2
         assert abs(r["energy_potential"] - pe) <= 1e-6 * abs(pe)
         assert abs(r["energy_kinetic"] - ke) <= 1e-6 * abs(ke)
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("cap", [128, 384, 2304, 4096])
+def test_kdk_kernels_match_plain(cuda_device, cap):
+    """The open and kick kernels (the kick also as the force's combine,
+    against acc_long + g acc_short) against their plain versions on the
+    card, on buckets with dead slots and one cell at capacity (blocks
+    of one batch of 2,048 slots spanning 16 cells or straddling cells;
+    blocks of one cell, walked in a batch and a part, or in two
+    batches): bit for bit on every slot, dead slots 0 (the open's new
+    buffers taken from memory filled with NaN), the open's inputs
+    unchanged, its in-place form writing the given buffers."""
+    box, ncell = 40.0, 4
+    pos, m = clustered_particles(3000 + cap + 100, box, 12, cap + 100,
+                                 0.3, (5.0, 5.0, 5.0))
+    plan = {"ncell": ncell, "capacity": cap, "margin": 1, "rs": 1.0}
+    dev = cuda_device
+    fs = fast_treepm.build_fast_state(
+        tt(pos).to(dev), torch.zeros(pos.shape, device=dev), tt(m).to(dev),
+        0.5, box_size=box, plan=plan)
+    counts = live_counts(fs.bmass)
+    assert int(counts.max()) == cap and int(fs.overflow) > 0
+    live = (fs.bmass > 0)[None]
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def field():
+        return torch.where(live, torch.randn(fs.bpos.shape, generator=gen,
+                                             device=dev), 0.0)
+
+    bvel, acc, acc_short = field(), field(), field()
+    sc = dict(half_dt=2.5e-3, kf=torch.tensor(1.7), dt=5e-3,
+              df=torch.tensor(0.6))
+    plain_sc = [float(v) for v in sc.values()]
+    kept = [t.clone() for t in (fs.bpos, bvel, acc)]
+    before = dict(kdk_update.launches)
+    junk = [torch.full_like(fs.bpos, float("nan")) for _ in range(2)]
+    del junk                            # NaN where the new buffers land
+    pos_k, vel_k = kdk_update.kdk_open(fs.bpos, bvel, acc, counts, **sc)
+    pos_p, vel_p = kdk_update.kdk_open_plain(fs.bpos, bvel, acc, counts,
+                                             *plain_sc)
+    assert torch.equal(_bits(pos_k), _bits(pos_p))
+    assert torch.equal(_bits(vel_k), _bits(vel_p))
+    for t, t0 in zip((fs.bpos, bvel, acc), kept):
+        assert torch.equal(_bits(t), _bits(t0))
+    p2, v2 = fs.bpos.clone(), bvel.clone()
+    got = kdk_update.kdk_open(p2, v2, acc, counts, owned=True, **sc)
+    assert got[0] is p2 and got[1] is v2
+    assert torch.equal(_bits(p2), _bits(pos_p))
+    assert torch.equal(_bits(v2), _bits(vel_p))
+    kick = kdk_update.kdk_kick(vel_p.clone(), acc, counts, s1=2.5e-3,
+                               s2=0.9)
+    assert torch.equal(_bits(kick), _bits(kdk_update.kdk_kick_plain(
+        vel_p, acc, 2.5e-3, 0.9)))
+    g = 43.0071057317063
+    comb = kdk_update.kdk_kick(acc.clone(), acc_short, counts, s1=g, s2=1.0)
+    assert torch.equal(_bits(comb), _bits(acc + g * acc_short))
+    for x in (pos_k, vel_k, kick, comb):
+        assert not x.masked_select(~live).any()
+    assert kdk_update.launches["kdk_open"] == before["kdk_open"] + 2
+    assert kdk_update.launches["kdk_kick"] == before["kdk_kick"] + 2
+
+
+@pytest.mark.parametrize("kick_mode", ["reference", "comoving",
+                                       "newtonian"])
+@pytest.mark.parametrize("cosmological", [True, False])
+@pytest.mark.parametrize("pm_only", [False, True])
+def test_fast_segment_kernels_match_plain(cuda_device, kick_mode,
+                                          cosmological, pm_only,
+                                          monkeypatch):
+    """Three steps of _fast_segment on the card through the KDK kernels
+    and through the plain updates (the chain the stepper ran before
+    them), with K1 replaced by its plain version on the host on both
+    sides (K1's grid is not bit-reproducible): bpos, bvel and acc equal
+    bit for bit, dead slots 0, the input state's tensors unchanged, and
+    `fused_kdk` counting the open, the combine (with the short range) and
+    the closing kick each step."""
+    dev = cuda_device
+    pos, m = clustered_particles(3000, 40.0, 7, 300, 0.4, (5.0, 5.0, 5.0))
+    vel = np.random.default_rng(8).normal(0.0, 20.0, pos.shape)
+    deposit = pm_rods.cic_deposit_plain
+
+    def host_deposit(bpos, bmass, counts, **geo):
+        grid, dropped = deposit(bpos.cpu(), bmass.cpu(), counts.cpu(),
+                                **geo)
+        return grid.to(bpos.device), dropped.to(bpos.device)
+
+    monkeypatch.setattr(bucketed_pm, "cic_deposit", host_deposit)
+    fs, kw = fast_treepm.initialize_fast(
+        tt(pos).to(dev), tt(vel.astype(np.float32)).to(dev), tt(m).to(dev),
+        0.2, box_size=40.0, pm_grid=24, softening=0.05, capacity=128,
+        kick_mode=kick_mode, cosmological=cosmological, pm_only=pm_only)
+    kw = dict(kw)
+    kw.pop("n_rows")
+    assert int(live_counts(fs.bmass).max()) == 128
+    kept = {f: getattr(fs, f).clone() for f in ("bpos", "bvel", "acc",
+                                                "bmass", "ids")}
+    params, steps = CosmologyParams(), 3
+    profiling.reset_trace()
+    try:
+        with profiling.tracing():
+            got = fast_treepm._fast_segment(fs, params, 3e-4,
+                                            n_steps=steps, **kw)
+            fused = profiling.trace_totals()["counters"].get("fused_kdk")
+    finally:
+        profiling.reset_trace()
+    monkeypatch.setattr(
+        fast_treepm, "kdk_open",
+        lambda bpos, bvel, acc, counts, *, half_dt, kf, dt, df, owned:
+        kdk_update.kdk_open_plain(bpos, bvel, acc, counts, half_dt,
+                                  float(kf), dt, float(df)))
+    monkeypatch.setattr(
+        fast_treepm, "kdk_kick", lambda x, y, counts, *, s1, s2:
+        kdk_update.kdk_kick_plain(x, y, float(s1), float(s2)))
+    want = fast_treepm._fast_segment(fs, params, 3e-4, n_steps=steps,
+                                     **kw)
+    dead = fs.bmass == 0
+    for name in ("bpos", "bvel", "acc"):
+        assert torch.equal(_bits(getattr(got, name)),
+                           _bits(getattr(want, name))), name
+        assert not getattr(got, name)[:, dead].any(), name
+    assert int(got.dropped) == int(want.dropped)
+    for name, t in kept.items():
+        assert torch.equal(getattr(fs, name), t), name
+    assert fused == steps * (2 if pm_only else 3)

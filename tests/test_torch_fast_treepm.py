@@ -1,7 +1,9 @@
 """The treepm_fast slice at stepper level: JAX 2LPT initial conditions run
 through the JAX package's initialize_fast + fast_run and through the
 port's, with re-bucketing inside the run, compared particle by particle
-(sorted by persistent id)."""
+(sorted by persistent id); and the port's KDK updates over live slots
+(ops/kdk_update.py): their plain versions against the stepper's former
+expressions, one live count a segment, the wrappers' checks."""
 
 import numpy as np
 import pytest
@@ -132,3 +134,173 @@ def test_overflow_raises_with_intact_state():
     assert texc.steps_done == jexc.steps_done > 0
     assert int(texc.fstate.step) == int(jexc.fstate.step)
     assert int(texc.fstate.overflow) == int(jexc.fstate.overflow) == 0
+
+
+# ---- the KDK updates over live slots (ops/kdk_update.py) ----
+
+from lambda_cdm_tpu_torch.ops import kdk_update  # noqa: E402
+from lambda_cdm_tpu_torch.ops.bucketed_pm import (  # noqa: E402
+    live_counts, pm_accelerations_bucketed)
+from lambda_cdm_tpu_torch.ops.short_range import short_range  # noqa: E402
+from lambda_cdm_tpu_torch.physics.integrators import (  # noqa: E402
+    drift_factor, kick_factor, update_scale_factor)
+
+
+def _clumped_state(pm_only=False, kick_mode="comoving"):
+    """A CPU stepper state with dead slots (a 4^3 plan of capacity 128
+    for 3,000 particles) and one clump that fills its cell to capacity,
+    with seeded velocities; its initialize_fast dict without n_rows."""
+    rng = np.random.default_rng(5)
+    n = 3000
+    pos = rng.uniform(0.0, BOX, (n, 3))
+    pos[:300] = 3.0 + rng.uniform(0.0, 2.0, (300, 3))
+    vel = rng.normal(0.0, 20.0, (n, 3))
+    fs, kw = tft.initialize_fast(tt(pos.astype(np.float32)),
+                                 tt(vel.astype(np.float32)),
+                                 torch.ones(n), 0.2, box_size=BOX,
+                                 pm_grid=NG, softening=0.05, capacity=128,
+                                 kick_mode=kick_mode, pm_only=pm_only)
+    kw = dict(kw)
+    kw.pop("n_rows")
+    counts = live_counts(fs.bmass)
+    assert int(counts.max()) == fs.bmass.shape[1]          # a full cell
+    assert int(counts.sum()) < fs.bmass.numel()            # dead slots
+    return fs, kw
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("kick_mode", ["reference", "comoving",
+                                       "newtonian"])
+@pytest.mark.parametrize("pm_only", [False, True])
+def test_plain_updates_equal_the_old_expressions(kick_mode, pm_only):
+    """The open and the kick, as closing half kick and as the force's
+    combine (wrappers and plain versions, on the CPU), give the bits of
+    the inline expressions the stepper used before them, dead slots 0."""
+    fs, kw = _clumped_state(pm_only, kick_mode)
+    counts = live_counts(fs.bmass)
+    dt, a0 = 3e-4, fs.scale_factor
+    params = TParams()
+    a_half = update_scale_factor(params, a0, 0.5 * dt, 100.0, "rk4")
+    a1 = update_scale_factor(params, a_half, 0.5 * dt, 100.0, "rk4")
+    live = (fs.bmass > 0)[None]
+    vel = fs.bvel + fs.acc * (0.5 * dt) * kick_factor(a0, kick_mode)
+    pos = torch.where(live, fs.bpos + vel * dt * drift_factor(
+        a_half, kick_mode), 0.0)
+    sc = dict(half_dt=0.5 * dt, kf=kick_factor(a0, kick_mode), dt=dt,
+              df=drift_factor(a_half, kick_mode))
+    for got in (kdk_update.kdk_open(fs.bpos, fs.bvel, fs.acc, counts, **sc),
+                kdk_update.kdk_open_plain(fs.bpos, fs.bvel, fs.acc, counts,
+                                          *map(float, sc.values()))):
+        assert torch.equal(_bits(got[0]), _bits(pos))
+        assert torch.equal(_bits(got[1]), _bits(vel))
+    acc_long, _ = pm_accelerations_bucketed(
+        pos, fs.bmass, ncell=kw["ncell"], ng=NG, box_size=BOX,
+        g_const=kw["g_const"], split_scale=0.0 if pm_only else kw["rs"],
+        margin=kw["margin"], counts=counts)
+    if pm_only:
+        acc = acc_long
+    else:
+        acc_short = short_range(pos, fs.bmass, counts, ncell=kw["ncell"],
+                                capacity=kw["capacity"], box_size=BOX,
+                                rs=kw["rs"], softening=kw["softening"],
+                                variant=kw["variant"])
+        acc = acc_long + kw["g_const"] * acc_short
+        for got in (kdk_update.kdk_kick(acc_long, acc_short, counts,
+                                        s1=kw["g_const"], s2=1.0),
+                    kdk_update.kdk_kick_plain(acc_long, acc_short,
+                                              kw["g_const"], 1.0)):
+            assert torch.equal(_bits(got), _bits(acc))
+    closed = vel + acc * (0.5 * dt) * kick_factor(a1, kick_mode)
+    for got in (kdk_update.kdk_kick(vel, acc, counts, s1=0.5 * dt,
+                                    s2=kick_factor(a1, kick_mode)),
+                kdk_update.kdk_kick_plain(vel, acc, 0.5 * dt,
+                                          float(kick_factor(a1, kick_mode)))):
+        assert torch.equal(_bits(got), _bits(closed))
+    dead = ~live
+    for x in (pos, closed, acc):
+        assert not x.masked_select(dead).any()
+
+
+@pytest.mark.parametrize("pm_only", [False, True])
+def test_one_live_count_a_segment(pm_only, monkeypatch):
+    """A segment takes the live counts once and hands them to every
+    force: the state equals a segment whose forces each recount them, and
+    live_counts runs once a segment."""
+    fs, kw = _clumped_state(pm_only)
+    params = TParams()
+    calls = []
+    recount = tft.live_counts
+
+    def counting(bmass):
+        calls.append(1)
+        return recount(bmass)
+
+    monkeypatch.setattr(tft, "live_counts", counting)
+    once = tft._fast_segment(fs, params, 3e-4, n_steps=3, **kw)
+    assert len(calls) == 1
+    accel = tft._accel
+    monkeypatch.setattr(tft, "_accel", lambda f, counts=None, **k:
+                        accel(f, **k))
+    calls.clear()
+    each = tft._fast_segment(fs, params, 3e-4, n_steps=3, **kw)
+    assert len(calls) == 1 + 3
+    for name in ("bpos", "bvel", "acc", "dropped"):
+        assert torch.equal(getattr(once, name), getattr(each, name)), name
+
+
+def _faulty(fault):
+    """Arguments of kdk_open (three vectors) and kdk_kick (the first two)
+    with one fault."""
+    c, k = 8, 16
+    vec = [torch.zeros(3, c, k) for _ in range(3)]
+    counts = torch.full((c,), 4, dtype=torch.int32)
+    if fault == "float64 vector":
+        vec[1] = vec[1].double()
+    elif fault == "int64 counts":
+        counts = counts.long()
+    elif fault == "counts of another C":
+        counts = counts[:-1]
+    elif fault == "vectors of two shapes":
+        vec[1] = torch.zeros(3, c, k + 1)
+    elif fault == "AoS vectors":
+        vec = [v.reshape(c, k, 3) for v in vec]
+    elif fault == "non-contiguous vector":
+        vec[1] = torch.zeros(3, k, c).transpose(1, 2)
+    elif fault == "another device":
+        vec[1] = vec[1].to("meta")
+    elif fault == "int32 vector":
+        vec[1] = vec[1].int()
+    elif fault == "2-D counts":
+        counts = counts[:, None]
+    elif fault == "non-contiguous counts":
+        counts = torch.full((2 * c,), 4, dtype=torch.int32)[::2]
+    elif fault == "counts on another device":
+        counts = counts.to("meta")
+    elif fault == "meta tensors":
+        vec = [v.to("meta") for v in vec]
+        counts = counts.to("meta")
+    return vec, counts
+
+
+@pytest.mark.parametrize("fault", [
+    "float64 vector", "int64 counts", "counts of another C",
+    "vectors of two shapes", "AoS vectors", "non-contiguous vector",
+    "another device", "meta tensors", "int32 vector", "2-D counts",
+    "non-contiguous counts", "counts on another device"])
+@pytest.mark.parametrize("update", ["open", "kick"])
+def test_update_wrappers_raise_on_what_they_do_not_take(update, fault):
+    """Each wrapper raises on a wrongly typed, mis-shaped, non-contiguous
+    or misplaced input rather than running either version."""
+    vec, counts = _faulty(fault)
+    calls = {
+        "open": lambda: kdk_update.kdk_open(
+            *vec, counts, half_dt=0.5, kf=1.0, dt=1.0, df=1.0),
+        "kick": lambda: kdk_update.kdk_kick(vec[0], vec[1], counts,
+                                            s1=0.5, s2=1.0)}
+    before = dict(kdk_update.launches)
+    with pytest.raises(ValueError):
+        calls[update]()
+    assert kdk_update.launches == before

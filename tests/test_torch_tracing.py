@@ -115,7 +115,7 @@ def test_counters_and_spans_under_the_profiler(tmp_path):
     chunks = steps // CHUNK
     want = {"engine.chunk": chunks, "engine.cadence": chunks,
             "engine.sync_state": chunks, "fast.rebucket": rebuckets,
-            "fast.kick": 2 * steps, "fast.drift": steps,
+            "fast.kick": steps, "fast.drift": steps,
             "fast.accel": steps + 1, "fast.pm": steps + 1,
             "fast.short_range": steps + 1, "engine.init_fast": 1,
             "fast.build": 1}
