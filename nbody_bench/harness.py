@@ -11,13 +11,15 @@ A run: set-up (the start state from the traffic and --seed, with the
 time step the configuration's rule takes on it, held fixed; the port's
 SimulationEngine on it; one warm-up segment), then the window: segments
 of S steps, each `engine.state = start` (a reset through the public
-setter, which buckets the state and evaluates its forces) and
+setter: the fast stepper buckets the state and evaluates its forces, a
+stateless solver evaluates them at the segment's first step) and
 `engine.run(num_steps=S)`, until --seconds have passed. Every segment is
 the same work. After the window, through the same engine: one more step
-from the last segment's output on the buckets the segments left (its
-kick and its drift), and one step from that output at rest after a reset
-(its velocities are the two force evaluations alone). The plain
-reference (reference.py) recomputes all three for a sample of
+from the last segment's output (on the fast path, on the buckets the
+segments left: its kick and its drift), and one step from that output
+at rest after a reset (its velocities are the two force evaluations
+alone). The plain reference (reference.py), in the law of the
+configuration's forces.type, recomputes all three for a sample of
 particles.
 """
 
@@ -74,16 +76,9 @@ class Cell:
                                              name + ".json"))
         self.chips = int(self.entry.get("chips", 1))
         cfg = self.config
-        box = float(cfg["particles"]["box_size"])
-        ng = int(cfg["forces"]["pm_grid_size"])
-        rs = float(cfg["forces"]["split_factor"]) * box / ng
-        self.geometry = {
-            "box": box, "ng": ng, "rs": rs,
-            "r_cut": float(cfg["forces"]["cut_factor"]) * rs,
-            "softening": float(cfg["forces"]["softening_length"]),
-            "g_const": float(cfg["units"]["G"]),
-            "omega_m": float(cfg["cosmology"]["omega_m"]),
-            "omega_lambda": float(cfg["cosmology"]["omega_lambda"])}
+        # the law of its forces.type (ValueError where the reference has
+        # none), with the sizes it reads
+        self.geometry = reference.geometry(cfg)
         self.steps = int(cfg["bench"]["segment_steps"])
         chunk = int(cfg["simulation"]["output_frequency"])
         if self.steps <= 0 or self.steps % chunk:
@@ -287,7 +282,9 @@ class Run:
     def targets(self, pos):
         """The check's sample: random particles drawn from the seed and
         up to `dense_targets` of the fullest cell of the reference's
-        search grid."""
+        search grid at the configuration's split_factor. Where the law
+        has no short range (pm, pm_fast), rs and r_cut take no part in
+        the force: the grid only finds the fullest cell."""
         t = self.cell.traffic
         g = self.cell.geometry
         n = pos.shape[0]
@@ -322,8 +319,9 @@ def reference_step(cell: Cell, steps: dict, targets, dt: float,
                    precision="float64", fault=None) -> dict:
     """The same quantities by the reference: its forces at the program's
     positions, moved by its KDK step. precision="tf32" is the control;
-    `fault` plants one in the reference: "half" and ("drop_cell", id) as
-    in reference.forces, "drift" the drift 1% long."""
+    `fault` plants one in the reference: "half", "window_once" and
+    ("drop_cell", id) as in reference.forces, "drift" the drift 1% long.
+    The law is the configuration's (`cell.geometry["law"]`)."""
     g = cell.geometry
     xs = steps["xs"]
     force_fault = None if fault == "drift" else fault
@@ -381,6 +379,7 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, *,
                               + list(run.setup_phases.items())),
           file=sys.stderr)
     ctx = {"n": cell.n, "geometry": cell.geometry,
+           "segment_steps": cell.steps,
            "rng": np.random.default_rng([int(seed) % 2 ** 64, 1])}
     if traced:
         tr = run.traced_window()

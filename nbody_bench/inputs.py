@@ -186,19 +186,14 @@ def rule_dt(cfg: dict, pos, mass, a: float) -> float:
     clamped to [min_timestep, max_timestep], where the engine applies it
     (integration.adaptive_timestep or max_dloga > 0); otherwise the
     fixed time.initial_timestep. |a|max is the largest float64
-    reference acceleration over every particle."""
+    reference acceleration, in the law of the configuration's
+    forces.type, over every particle."""
     integ, t = cfg["integration"], cfg["time"]
     dt = float(t["initial_timestep"])
     max_dloga = float(integ.get("max_dloga", 0.0))
     if not integ.get("adaptive_timestep") and max_dloga <= 0:
         return dt
-    f = cfg["forces"]
-    box = float(cfg["particles"]["box_size"])
-    ng = int(f["pm_grid_size"])
-    rs = float(f["split_factor"]) * box / ng
-    geometry = {"box": box, "ng": ng, "rs": rs,
-                "softening": float(f["softening_length"]),
-                "g_const": float(cfg["units"]["G"])}
+    geometry = reference.geometry(cfg)
     n = pos.shape[0]
     masses = torch.full((n,), mass, dtype=torch.float32, device=pos.device)
     amax = 0.0

@@ -1,28 +1,36 @@
-"""Plain reference of the port's TreePM force and comoving kick, and the
+"""Plain reference of the port's force laws and comoving kick, and the
 lower-precision control, for the benchmark's correctness check.
 
-The force law is the one lambda_cdm_tpu_torch's treepm_fast stepper
-states (ops/fast_treepm._accel at commit 9aff8f2), written out again
-here without the program:
+A configuration's `forces.type` chooses the law (`LAWS`, `law_of`); a
+type with none is refused, so no configuration is checked against a law
+it does not run. Each law is written out again here without the
+program:
 
-* long range: CIC deposit (cell-centred) of the mass density on the
-  ng^3 mesh, phi_k = -4 pi rho_k exp(-k^2 rs^2) / (k^2 W_cic(k)^2), the
+* treepm_fast (ops/fast_treepm._accel at commit 9aff8f2), long range:
+  CIC deposit (cell-centred) of the mass density on the ng^3 mesh,
+  phi_k = -4 pi rho_k exp(-k^2 rs^2) / (k^2 W_cic(k)^2), the
   fourth-order finite difference -(8 (phi[i+1] - phi[i-1]) - (phi[i+2] -
-  phi[i-2])) / (12 h) on each axis, CIC-interpolated, times G;
-* short range: every pair within the split's support (6 rs), m_j w(r)
-  dx with r^2 = |dx|^2 + eps^2 and the even-polynomial split w = c1
-  max(r^-3 + Q(min(r^2 v - 1, 1)), 0) fitted to S(x) - S(3), S(x) =
-  erfc(x) + 2x/sqrt(pi) exp(-x^2), x = r / (2 rs) (`even_split`: the
-  port's fit, redone); times G. The pairs are found on a search grid of
-  the reference's own (`search_grid`: cells no narrower than the
-  support), so the force law does not follow the program's cell plan.
+  phi[i-2])) / (12 h) on each axis, CIC-interpolated, times G; short
+  range: every pair within the split's support (6 rs), m_j w(r) dx with
+  r^2 = |dx|^2 + eps^2 and the even-polynomial split w = c1 max(r^-3 +
+  Q(min(r^2 v - 1, 1)), 0) fitted to S(x) - S(3), S(x) = erfc(x) + 2x /
+  sqrt(pi) exp(-x^2), x = r / (2 rs) (`even_split`: the port's fit,
+  redone); times G. The pairs are found on a search grid of the
+  reference's own (`search_grid`: cells no narrower than the support),
+  so the force law does not follow the program's cell plan.
+* pm_fast (the same stepper with pm_only): that long range unsplit
+  (rs = 0), with no short range.
+* pm (forces/pm.pm_accelerations): the unsplit PM with the spectral
+  gradient: -i k phi_k, phi_k = -4 pi rho_k / (k^2 W_cic(k)^2), three
+  inverse real FFTs, CIC-interpolated, times G.
 
-`forces` evaluates it in float64 for sampled targets against every
-particle; `kdk` is the comoving kick-drift-kick step that moves them. precision="tf32" is the control: the same sums with every
-pair displacement, every pair weight and the mesh's density and
-potential rounded to TF32's 10-bit mantissa and the rest in float32,
-the arithmetic a tensor-core formulation of the pair sum or the mesh
-would do. It imports nothing of the program.
+`forces` evaluates a law in float64 for sampled targets against every
+particle; `kdk` is the comoving kick-drift-kick step that moves them.
+precision="tf32" is the control: the same sums with every pair
+displacement, every pair weight and the mesh's density, potential and
+(spectral) gradient fields rounded to TF32's 10-bit mantissa and the
+rest in float32, the arithmetic a tensor-core formulation of the pair
+sum or the mesh would do. It imports nothing of the program.
 """
 
 from __future__ import annotations
@@ -36,6 +44,49 @@ import torch
 
 X_MAX = 3.0              # the split's support, in units of 2 rs
 PAIR_CHUNK = 1 << 24     # pairs evaluated at once
+
+# forces.type -> its law: whether the PM carries the TreePM split, the
+# PM's gradient, and whether the short-range pair sum is added
+LAWS = {
+    "treepm_fast": {"split": True, "gradient": "fd4", "short": True},
+    "pm_fast": {"split": False, "gradient": "fd4", "short": False},
+    "pm": {"split": False, "gradient": "spectral", "short": False},
+}
+
+
+def law_of(forces: dict) -> str:
+    """The name of the law a configuration's `forces` block runs;
+    ValueError where the reference states none for it (another type, a
+    fast stepper's gradient other than fd4, modified gravity)."""
+    kind = forces["type"]
+    if kind not in LAWS:
+        raise ValueError(f"forces.type {kind!r} has no law in the "
+                         f"benchmark's reference (it has {sorted(LAWS)})")
+    if kind.endswith("_fast") and forces.get("gradient", "fd4") != "fd4":
+        raise ValueError(f"forces.type {kind!r} with gradient "
+                         f"{forces['gradient']!r} has no law in the "
+                         f"benchmark's reference (fd4 only)")
+    if float(forces.get("modified_gravity_strength", 0.0)):
+        raise ValueError("modified gravity has no law in the benchmark's "
+                         "reference")
+    return kind
+
+
+def geometry(cfg: dict) -> dict:
+    """What the law of a configuration (the port's SimulationConfig as a
+    dict) reads: law, box, ng, rs and r_cut (from split_factor and
+    cut_factor, also where the law has no split), softening, g_const,
+    omega_m, omega_lambda."""
+    f = cfg["forces"]
+    box = float(cfg["particles"]["box_size"])
+    ng = int(f["pm_grid_size"])
+    rs = float(f["split_factor"]) * box / ng
+    return {"law": law_of(f), "box": box, "ng": ng, "rs": rs,
+            "r_cut": float(f["cut_factor"]) * rs,
+            "softening": float(f["softening_length"]),
+            "g_const": float(cfg["units"]["G"]),
+            "omega_m": float(cfg["cosmology"]["omega_m"]),
+            "omega_lambda": float(cfg["cosmology"]["omega_lambda"])}
 
 
 @functools.lru_cache(maxsize=None)
@@ -182,9 +233,17 @@ def flat_index(i0, off, ng: int):
     return (i[:, 0] * ng + i[:, 1]) * ng + i[:, 2]
 
 
+def tf32_complex(z: torch.Tensor) -> torch.Tensor:
+    """TF32 rounding of a complex tensor's real and imaginary parts."""
+    return torch.complex(tf32(z.real), tf32(z.imag))
+
+
 def pm_long_range(pos, mass, targets, *, box: float, ng: int, rs: float,
-                  precision="float64"):
-    """Long-range accelerations (unit G) at pos[targets] -> [T, 3]."""
+                  precision="float64", gradient="fd4", fault=None):
+    """Long-range accelerations (unit G) at pos[targets] -> [T, 3]:
+    the split exp(-k^2 rs^2) where rs > 0, the CIC window divided out
+    twice (once where `fault` is "window_once", a planted fault), and
+    the fd4 or the spectral gradient."""
     dev = pos.device
     low = precision == "tf32"
     dt = torch.float32 if low else torch.float64
@@ -211,14 +270,28 @@ def pm_long_range(pos, mass, targets, *, box: float, ng: int, rs: float,
     win = (sinc(kx) * sinc(ky) * sinc(kz)) ** 2
     green = torch.where(k2 > 0, -4.0 * math.pi
                         / torch.where(k2 > 0, k2, 1.0), 0.0)
-    green = green * torch.exp(-k2 * rs * rs) / (win * win)
-    phi = torch.fft.irfftn(torch.fft.rfftn(grid) * green,
-                           s=(ng, ng, ng)).reshape(-1)
+    green = green * torch.exp(-k2 * rs * rs) / (
+        win if fault == "window_once" else win * win)
+    ti0 = i0[targets]
+    out = torch.zeros((targets.numel(), 3), dtype=dt, device=dev)
+    s = (ng, ng, ng)
+    if gradient == "spectral":
+        phi_k = torch.fft.rfftn(grid) * green
+        if low:
+            phi_k = tf32_complex(phi_k)
+        weights = [(flat_index(ti0, off, ng), w)
+                   for off, w in corners(frac[targets])]
+        for ax, kv in enumerate((kx, ky, kz)):
+            field = torch.fft.irfftn(-1j * kv * phi_k, s=s).reshape(-1)
+            if low:
+                field = tf32(field)
+            for flat, w in weights:
+                out[:, ax] += w * field[flat]
+        return out
+    phi = torch.fft.irfftn(torch.fft.rfftn(grid) * green, s=s).reshape(-1)
     if low:
         phi = tf32(phi)
     inv_12h = ng / (12.0 * box)
-    ti0 = i0[targets]
-    out = torch.zeros((targets.numel(), 3), dtype=dt, device=dev)
     for off, w in corners(frac[targets]):
         for ax in range(3):
             def at(step):
@@ -232,20 +305,29 @@ def pm_long_range(pos, mass, targets, *, box: float, ng: int, rs: float,
 
 def forces(pos, mass, targets, *, geometry: dict, precision="float64",
            fault=None, ncell=None):
-    """G (long + short range) at pos[targets] -> [T, 3] (float64, or
-    float32 for the control). `geometry`: box, ng, rs, softening,
-    g_const. Positions are wrapped into the box first. `fault`: None,
-    "half" (every other particle left out, the rest at twice the mass)
-    or ("drop_cell", a cell id of the search grid). `ncell`: as in
-    short_range."""
+    """G (long + short range, as the law `geometry["law"]` has them) at
+    pos[targets] -> [T, 3] (float64, or float32 for the control).
+    `geometry`: law, box, ng, rs, softening, g_const (`geometry()`).
+    Positions are wrapped into the box first. `fault`: None, "half"
+    (every other particle left out, the rest at twice the mass),
+    "window_once" (the CIC window divided out once, not twice) or
+    ("drop_cell", a cell id of the search grid; a law with a short range
+    only). `ncell`: as in short_range."""
+    law = LAWS[geometry["law"]]
     pos = torch.remainder(pos.to(torch.float64), geometry["box"])
     if fault == "half":
         keep = (torch.arange(mass.numel(), device=mass.device) % 2) == 0
         mass = torch.where(keep, 2.0 * mass, 0.0)
     drop = fault[1] if isinstance(fault, tuple) else None
+    if drop is not None and not law["short"]:
+        raise ValueError(f"{geometry['law']} has no short range to drop")
     g = geometry
     long = pm_long_range(pos, mass, targets, box=g["box"], ng=g["ng"],
-                         rs=g["rs"], precision=precision)
+                         rs=g["rs"] if law["split"] else 0.0,
+                         precision=precision, gradient=law["gradient"],
+                         fault=fault)
+    if not law["short"]:
+        return g["g_const"] * long
     short = short_range(pos, mass, targets, box=g["box"], rs=g["rs"],
                         softening=g["softening"], precision=precision,
                         drop_cell=drop, ncell=ncell)

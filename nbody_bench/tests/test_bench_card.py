@@ -1,5 +1,6 @@
-"""On the card: the tiny cell's run through K1, K2 and K3 is correct and
-the TF32 control is not (skips without a card)."""
+"""On the card: the tiny cells' runs (through K1, K2 and K3, and through
+the stateless PM) are correct and the TF32 control is not (skips
+without a card)."""
 
 import pytest
 import torch
@@ -8,7 +9,8 @@ from nbody_bench import harness
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["tiny.early", "tiny.late"])
+@pytest.mark.parametrize("name", ["tiny.early", "tiny.late",
+                                  "tiny_pm.late"])
 def test_tiny_cell_on_the_card(tiny_dir, name):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")

@@ -2,6 +2,7 @@
 (the keys, names, units, bounds and time budget) and loaded as the
 harness loads them."""
 
+import glob
 import json
 import os
 import re
@@ -15,6 +16,8 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 BENCH = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
 CELLS = [w["name"] for w in BENCH["workloads"]]
+CONFIG_FILES = sorted(glob.glob(os.path.join(ROOT, "nbody_bench", "configs",
+                                             "*.json")))
 
 
 def _line(s):
@@ -105,6 +108,22 @@ def test_metrics():
     for name in e2e | {m["name"] for m in BENCH["per_layer"]}:
         assert os.path.exists(os.path.join(ROOT, "nbody_bench", "metrics",
                                            name + ".py"))
+
+
+@pytest.mark.parametrize("path", CONFIG_FILES, ids=os.path.basename)
+def test_every_configuration_file_has_a_law_and_validates(path):
+    """Every configuration file, also one whose cell BENCHMARK.json does
+    not list yet, is the port's SimulationConfig with a law in the
+    reference and segments of whole output chunks."""
+    from lambda_cdm_tpu_torch.core.config import SimulationConfig
+    from nbody_bench import reference
+    data = json.load(open(path))
+    assert reference.geometry(data)["law"] == data["forces"]["type"]
+    SimulationConfig.from_dict(data).validate()
+    steps = int(data["bench"]["segment_steps"])
+    assert steps > 0
+    assert steps % int(data["simulation"]["output_frequency"]) == 0
+    assert _line(data["source"]) and len(data["reduced"]) <= 16
 
 
 @pytest.mark.parametrize("name", CELLS)

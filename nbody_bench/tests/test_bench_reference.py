@@ -2,7 +2,9 @@
 control's separation, and the inputs (deterministic, and the same work
 for every seed)."""
 
+import json
 import math
+import shutil
 
 import numpy as np
 import pytest
@@ -11,17 +13,18 @@ import torch
 from nbody_bench import harness, inputs, reference
 
 
-def _tiny_state(tiny_dir, traffic, seed=3):
-    cell = harness.Cell(f"tiny.{traffic}", root=tiny_dir, bench_dir=tiny_dir)
+def _tiny_state(tiny_dir, traffic, seed=3, config="tiny"):
+    cell = harness.Cell(f"{config}.{traffic}", root=tiny_dir,
+                        bench_dir=tiny_dir)
     st = inputs.start_state(cell.config, cell.traffic, seed, "cpu",
                             cache="")
     mass = torch.full((cell.n,), st["mass"])
     return cell, st, mass
 
 
-def _port_forces(cell, st, mass):
-    """The port's treepm_fast forces (its CPU plain path) on the state,
-    in particle order."""
+def _port_forces(cell, st, mass, pm_only=False):
+    """The port's treepm_fast (pm_fast with `pm_only`) forces (its CPU
+    plain path) on the state, in particle order."""
     from lambda_cdm_tpu_torch.ops.fast_treepm import initialize_fast
     g = cell.geometry
     f = cell.config["forces"]
@@ -29,7 +32,8 @@ def _port_forces(cell, st, mass):
         st["pos"], st["vel"], mass, st["a"], box_size=g["box"],
         pm_grid=g["ng"], softening=g["softening"], g_const=g["g_const"],
         split_factor=f["split_factor"], cut_factor=f["cut_factor"],
-        capacity=f["bucket_capacity"], kick_mode="comoving")
+        capacity=f["bucket_capacity"], kick_mode="comoving",
+        pm_only=pm_only)
     ids = fs.ids.reshape(-1)
     acc = fs.acc.reshape(3, -1).T
     out = torch.zeros((cell.n, 3))
@@ -37,20 +41,58 @@ def _port_forces(cell, st, mass):
     return out, fs, kw
 
 
-@pytest.mark.parametrize("traffic", ["early", "late"])
-def test_reference_matches_the_ports_cpu_path(tiny_dir, traffic):
-    cell, st, mass = _tiny_state(tiny_dir, traffic)
-    port, _, _ = _port_forces(cell, st, mass)
+def _stateless_pm_forces(cell, st, mass):
+    """The port's stateless PM (forces.type pm, its CPU path)."""
+    from lambda_cdm_tpu_torch.forces.pm import pm_accelerations
+    g = cell.geometry
+    return pm_accelerations(st["pos"], mass, g["ng"], g["box"],
+                            g["g_const"])
+
+
+@pytest.mark.parametrize("config, traffic, law", [
+    pytest.param("tiny", "early", "treepm_fast", id="early"),
+    pytest.param("tiny", "late", "treepm_fast", id="late"),
+    pytest.param("tiny_pm", "late", "pm", id="pm.late"),
+    pytest.param("tiny", "late", "pm_fast", id="pm_fast.late")])
+def test_reference_matches_the_ports_cpu_path(tiny_dir, config, traffic,
+                                              law):
+    """Each law against the port's path that runs it: treepm_fast and
+    pm_fast (ops/fast_treepm, pm_only) on the tiny cut, pm
+    (forces/pm.pm_accelerations) on its forces.type pm twin."""
+    cell, st, mass = _tiny_state(tiny_dir, traffic, config=config)
+    if law == "pm":
+        port = _stateless_pm_forces(cell, st, mass)
+    else:
+        port, _, _ = _port_forces(cell, st, mass, pm_only=law == "pm_fast")
+    geometry = dict(cell.geometry, law=law)
     targets = torch.arange(cell.n)
-    ref = reference.forces(st["pos"], mass, targets, geometry=cell.geometry)
+    ref = reference.forces(st["pos"], mass, targets, geometry=geometry)
     scale = torch.sqrt(torch.mean(torch.sum(ref * ref, dim=1)))
     gap = torch.max(torch.linalg.norm(port.double() - ref, dim=1)) / scale
     assert float(gap) < 2e-5
     # the TF32 control reads two orders of magnitude further off
-    low = reference.forces(st["pos"], mass, targets,
-                           geometry=cell.geometry, precision="tf32")
+    low = reference.forces(st["pos"], mass, targets, geometry=geometry,
+                           precision="tf32")
     gap_low = torch.max(torch.linalg.norm(low.double() - ref, dim=1)) / scale
     assert float(gap_low) > 100 * float(gap)
+
+
+@pytest.mark.parametrize("forces", [
+    {"type": "direct"}, {"type": "treepm"}, {"type": "pm_fast",
+                                             "gradient": "spectral"},
+    {"type": "pm", "modified_gravity_strength": 0.1}])
+def test_a_configuration_without_a_law_is_refused(tiny_dir, tmp_path,
+                                                   forces):
+    """Cell refuses, when it loads, a configuration whose forces.type the
+    reference states no law for: it is never checked against another's."""
+    bench = tmp_path / "bench"
+    shutil.copytree(tiny_dir, bench)
+    path = bench / "configs" / "tiny_pm.json"
+    cfg = json.loads(path.read_text())
+    cfg["forces"].update(forces)
+    path.write_text(json.dumps(cfg))
+    with pytest.raises(ValueError, match="no law"):
+        harness.Cell("tiny_pm.late", root=str(bench), bench_dir=str(bench))
 
 
 def test_split_fit_and_cells_are_the_ports(tiny_dir):

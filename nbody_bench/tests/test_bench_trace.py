@@ -9,7 +9,8 @@ import pytest
 import torch
 
 from nbody_bench import harness, peaks, reference, trace
-from nbody_bench.metrics import k3_roofline, pm_kernels_roofline
+from nbody_bench.metrics import (k3_roofline, pm_kernels_roofline,
+                                 pm_step_roofline)
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "trace_small.json")
@@ -50,9 +51,9 @@ def test_readers_stay_silent_without_their_kernels(small):
     empty = trace.Trace(window_s=1.0, busy_s=0.0)
     names = ["launches_per_step", "pm_ms_per_step", "k3_ms_per_step",
              "glue_ms_per_step", "device_idle_share", "k3_roofline",
-             "pm_kernels_roofline"]
+             "pm_kernels_roofline", "pm_step_roofline"]
     assert harness.read_metrics([{"name": n, "unit": "u"} for n in names],
-                                _ctx(empty)) == {}
+                                _ctx(empty, segment_steps=2)) == {}
 
 
 def test_pm_kernels_roofline(small):
@@ -60,6 +61,24 @@ def test_pm_kernels_roofline(small):
     bound = (16 * 1000 + 4 * 16 ** 3 + 4 * 16 ** 3 + 24 * 1000) \
         / peaks.HBM_BYTES_PER_S
     assert got == pytest.approx(100 * bound / 20e-6)
+
+
+def test_pm_step_bytes_by_hand():
+    # ng 4: a real grid 64 float32 (256 B), a half spectrum 4 x 4 x 3
+    # complex64 (384 B); a force writes the density (256), reads and
+    # writes the r2c (256 + 384), three c2r (3 x (384 + 256)), and the
+    # gather reads three fields (3 x 256); a step moves 48 B a particle
+    force, step = pm_step_roofline.bytes_needed(10, 4)
+    assert force == 256 + (256 + 384) + 3 * (384 + 256) + 3 * 256 == 3584
+    assert step == 480
+
+
+def test_pm_step_roofline(small):
+    # 2 steps in one segment of 2: 3 force evaluations
+    got = pm_step_roofline.read(_ctx(small, segment_steps=2))
+    force, step = pm_step_roofline.bytes_needed(1000, 16)
+    want = 100 * (3 * force + 2 * step) / peaks.HBM_BYTES_PER_S / 86e-6
+    assert got == pytest.approx(want)
 
 
 def test_needed_pairs_is_the_plain_count():

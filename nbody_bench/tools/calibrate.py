@@ -3,12 +3,13 @@ process, each judged as a run judges it (harness.judge, the cell's
 limits): for each seed the program after one segment; on the first
 `--control` seeds the control (the reference in TF32, put in the
 program's place) and three faults planted in the reference put in its
-place (every other particle left out with the rest at twice the mass;
-the short range of the fullest search cell left out; the drift 1% long),
-and the gap by which the port's cell plan truncates the force law (the
-reference summed over the plan's 27 neighbour cells). `--program-fault
-skip_rebucket` runs every seed with the program's in-run rebucket left
-out.
+place: every other particle left out with the rest at twice the mass;
+the drift 1% long; and, where the configuration's law has a short range,
+the short range of the fullest search cell left out and the gap by which
+the port's cell plan truncates the law (the reference summed over the
+plan's 27 neighbour cells), else the CIC window divided out once instead
+of twice. `--program-fault skip_rebucket` runs every seed of a fast
+stepper's cell with the program's in-run rebucket left out.
 
     python3 nbody_bench/tools/calibrate.py <cell> --seeds 1 2 ... \
         [--control 3] [--program-fault skip_rebucket]
@@ -49,11 +50,13 @@ def main():
         fast_treepm._rebucket = lambda fstate, **kw: fstate
     cell = harness.Cell(args.cell)
     g = cell.geometry
+    short = reference.LAWS[g["law"]]["short"]
     f = cell.config["forces"]
-    plan = fast_treepm.fast_plan(cell.n, g["box"], g["ng"],
-                                 split_factor=f["split_factor"],
-                                 cut_factor=f["cut_factor"],
-                                 capacity=f["bucket_capacity"])
+    plan = (fast_treepm.fast_plan(cell.n, g["box"], g["ng"],
+                                  split_factor=f["split_factor"],
+                                  cut_factor=f["cut_factor"],
+                                  capacity=f["bucket_capacity"])
+            if short else None)
     for i, seed in enumerate(args.seeds):
         t0 = time.perf_counter()
         run = harness.Run(cell, seed, args.device)
@@ -78,25 +81,31 @@ def main():
                "program_fault": args.program_fault}
         if i < args.control and not args.program_fault:
             xs = steps["xs"]
-            cid = reference.cell_ids(xs.positions, g["box"],
-                                     reference.search_grid(g["box"],
-                                                           g["rs"]))
-            fullest = int(torch.argmax(torch.bincount(cid)))
-            for name, kw in (("control_tf32", {"precision": "tf32"}),
-                             ("fault_half", {"fault": "half"}),
-                             ("fault_cell",
-                              {"fault": ("drop_cell", fullest)}),
-                             ("fault_drift", {"fault": "drift"})):
+            planted = [("control_tf32", {"precision": "tf32"}),
+                       ("fault_half", {"fault": "half"}),
+                       ("fault_drift", {"fault": "drift"})]
+            if short:
+                cid = reference.cell_ids(xs.positions, g["box"],
+                                         reference.search_grid(g["box"],
+                                                               g["rs"]))
+                fullest = int(torch.argmax(torch.bincount(cid)))
+                planted.append(("fault_cell",
+                                {"fault": ("drop_cell", fullest)}))
+            else:
+                planted.append(("fault_window_once",
+                                {"fault": "window_once"}))
+            for name, kw in planted:
                 got = harness.reference_step(cell, steps, targets, run.dt,
                                              **kw)
                 c, ok = harness.judge(got, want, run, cell.limits)
                 row[name] = dict(_values(c), correct=ok)
-            trunc = reference.forces(xs.positions, xs.masses, targets,
-                                     geometry=g, ncell=plan["ncell"])
-            full = reference.forces(xs.positions, xs.masses, targets,
-                                    geometry=g)
-            row["plan_ncell"] = plan["ncell"]
-            row["plan_truncation_gap"] = harness.gap(trunc, full)
+            if short:
+                trunc = reference.forces(xs.positions, xs.masses, targets,
+                                         geometry=g, ncell=plan["ncell"])
+                full = reference.forces(xs.positions, xs.masses, targets,
+                                        geometry=g)
+                row["plan_ncell"] = plan["ncell"]
+                row["plan_truncation_gap"] = harness.gap(trunc, full)
         print(json.dumps(row), flush=True)
         del run, steps, want
         gc.collect()
