@@ -95,10 +95,16 @@ fatal on failure and each printing its seconds:
      validate_force_accuracy on the final
      state, and K4 against its plain version there (the kernels line's
      K4 numbers), two calls equal;
- 11. stateless pm/treepm phase (plain PyTorch, no TPU kernel on their
-     path): pm_128_256.json (2,097,152 particles, 256^3) and
-     basic_lambda_cdm.json (262,144 particles, treepm on 128^3) at full
-     size for 10 steps each, with validate_force_accuracy;
+ 11. stateless pm/treepm phase: pm_128_256.json (2,097,152 particles,
+     256^3) and basic_lambda_cdm.json (262,144 particles, treepm on
+     128^3) at full size for 10 steps each, with validate_force_accuracy,
+     the launch counts reset just before each run: the stateless PM's
+     scatter, gradient and three-field gather kernels (ops/pm_cic.py)
+     once a force (three gradients), 11 forces, and the flat KDK kernels
+     once a step; then, on the pm run's final state, each of those five
+     kernels against its plain version on the same card tensors (the
+     scatter within 1e-5, the others bit for bit) and timed beside it
+     (the kernels line's records and launches);
  12. stateless reference check: a 4096-particle direct run of 8 steps on
      the card (K4) against the CPU (the solver's row-blocked sum) from
      three seeds' 2LPT states in chunks of one step (the rows of a pair
@@ -107,7 +113,9 @@ fatal on failure and each printing its seconds:
      that K4's plain arithmetic on the CPU flips as well), the card's
      chunks of 4 fused steps bit for bit its chunks of one, the same card
      run with two planted K4 faults (which the check must see, under the
-     same cap), and pm and treepm accelerations of one state on both.
+     same cap), and pm and treepm accelerations of one state on both
+     (the card's through the stateless PM's kernels, the CPU's the plain
+     chain).
 
 Then the fast stepper's other options:
 
@@ -285,6 +293,22 @@ KDK_SCALARS = {"half_dt": 2.5e-3, "kf": 1.7, "dt": 5e-3, "df": 0.6,
                "g": 43.0071057317063}
 KDK_ROW_BYTES = {"kdk_open": 60, "kdk_kick": 36}
 
+# the stateless PM's kernels (ops/pm_cic.py) against their plain versions
+# (chip_smoke.pm_cic_check): the scatter within 1e-5 of the plain grid's
+# largest value (float atomics add a grid point's terms in another order:
+# a few ulps of its sum; TF32 or bf16 inputs would read ~1e-3), the
+# gradient and the three-field gather bit for bit (each value rounds as
+# the plain chain's), as are the flat KDK kernels (kdk_update.py). Float
+# operations counted from csrc/pm_cic.cu and kdk_update.cu: per particle
+# for the scatter (the stencil's 18, the 14 weight products, 8 adds) and
+# the gather (the stencil's 18, 16 for the weights, 48 for the sums, 3
+# scales), per complex value for the gradient, per [N, 3] row for the
+# flat KDK kernels
+PM_CIC_TOL = 1e-5
+PM_CIC_FLOPS = {"pm_cic_scatter": 40, "pm_cic_gather3": 85,
+                "pm_green_gradient": 4, "kdk_open_flat": 18,
+                "kdk_kick_flat": 9}
+
 # K4/K4s against their plain versions (relative to the plain result's
 # largest |a|): every variant holds the JAX package's bar for its kernel
 DIRECT_TOL = {"v1": 1e-5, "sym": 1e-5, "v2": 1e-5, "sym2": 1e-5}
@@ -364,9 +388,10 @@ def stencil_pairs(counts, ncell: int) -> float:
 
 def _counted():
     from lambda_cdm_tpu_torch.ops import alias_probe, direct, fof_hook, \
-        kdk_update, lens_sample, pm_rods, short_range, short_range_rd
+        kdk_update, lens_sample, pm_cic, pm_rods, short_range, \
+        short_range_rd
     return (pm_rods, short_range, fof_hook, direct, lens_sample,
-            short_range_rd, alias_probe, kdk_update)
+            short_range_rd, alias_probe, kdk_update, pm_cic)
 
 
 def reset_counts() -> None:
@@ -1927,15 +1952,18 @@ def direct_phase(device, card):
 
 def stateless_phase(device, card):
     """pm_128_256.json and basic_lambda_cdm.json at full size, 10 steps
-    each, through SimulationBuilder; plain PyTorch (no TPU kernel on
-    these paths), with validate_force_accuracy and peak memory. Returns
-    (ms/step, the validation's result) by config path."""
+    each, through SimulationBuilder, the launch counts reset just before
+    each run: the stateless PM's kernels (ops/pm_cic.py; the treepm's
+    long range) a force and the flat KDK kernels a step, with
+    validate_force_accuracy and peak memory; then pm_cic_check on the pm
+    run's final state. Returns ((ms/step, the validation's result) by
+    config path, the pm run's launches, the kernels line's records)."""
     import torch
     from lambda_cdm_tpu_torch import SimulationBuilder
     from lambda_cdm_tpu_torch.core.config import SimulationConfig
     from lambda_cdm_tpu_torch.forces import auto_pm_grid
     from lambda_cdm_tpu_torch.forces.treepm import treepm_plan
-    out = {}
+    out, launches = {}, {}
     for path in (PM_CONFIG, TREEPM_CONFIG):
         cfg = SimulationConfig.from_file(path)
         cfg.profiling.output_file = ""
@@ -1947,8 +1975,10 @@ def stateless_phase(device, card):
         torch.cuda.synchronize()
         t_init = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
+        reset_counts()
         eng.run(num_steps=10)
         torch.cuda.synchronize()
+        launches[path] = read_counts()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         stats = eng.statistics
         ms_step = 1e3 * stats.compute_time_s / max(stats.total_steps, 1)
@@ -1962,20 +1992,129 @@ def stateless_phase(device, card):
                      f"{plan['capacity']}")
         res = eng.validate_force_accuracy(n_sample=1024)
         rate = n * stats.total_steps / max(stats.compute_time_s, 1e-9)
-        print(f"{os.path.basename(path)} ({cfg.forces.type}, plain PyTorch: "
-              f"no TPU kernel on this path): N={n} ng={ng}{extra}; init "
+        run = {k: launches[path][k] for k in PM_CIC_FLOPS}
+        print(f"{os.path.basename(path)} ({cfg.forces.type}, the stateless "
+              f"PM's kernels): N={n} ng={ng}{extra}; launches "
+              f"{json.dumps(run)}; init "
               f"{t_init:.2f} s; {stats.total_steps} steps {ms_step:.3f} "
               f"ms/step, {rate:.4e} particle-updates/s, peak memory {peak:.2f} GiB on {card}; "
               f"force validation (1024 targets, min-image oracle): avg "
               f"{res['avg_err']:.4e} max {res['max_err']:.4e}")
         check(path, stats.total_steps == 10, "steps not taken")
+        # a force a step and the run's first; an open and a kick a step
+        check(path, run["pm_cic_scatter"] == run["pm_cic_gather3"] == 11
+              and run["pm_green_gradient"] == 33
+              and run["kdk_open_flat"] == run["kdk_kick_flat"] == 10,
+              f"kernel launches {run}")
         check(path, bool(torch.all(torch.isfinite(eng.state.positions))),
               "non-finite positions")
         check(path, res["n_sample"] == 1024 and math.isfinite(
             res["max_err"]), "force validation failed")
         out[path] = (ms_step, res)
+        if path == PM_CONFIG:
+            rec = pm_cic_check(eng.state, ng, float(cfg.particles.box_size),
+                               device, card, os.path.basename(path))
         del eng
-    return out
+    return out, launches[PM_CONFIG], rec
+
+
+def pm_cic_check(st, ng: int, box: float, device, card, label):
+    """The stateless PM's kernels (ops/pm_cic.py) and the flat KDK
+    kernels (ops/kdk_update.py) against their plain versions run on the
+    same card tensors, at state `st`'s particles (the main path's
+    shapes): the scatter within PM_CIC_TOL, the gradient (each axis, on
+    the plain grid's spectrum), the three-field gather (on the plain
+    chain's fields) and the flat open and kick (the state's positions
+    and velocities, the gathered force) bit for bit; each timed with
+    CUDA events beside its plain version, against its least bytes.
+    Returns the kernels line's records: (max_abs_err, 0, ms, plain_ms,
+    bound_ms, bound_by)."""
+    import torch
+    from lambda_cdm_tpu_torch.forces import pm
+    from lambda_cdm_tpu_torch.ops import kdk_update as ku
+    from lambda_cdm_tpu_torch.ops import pm_cic
+    pos, vel = st.positions.contiguous(), st.velocities.contiguous()
+    mass = st.masses.contiguous()
+    n, half = pos.shape[0], ng * ng * (ng // 2 + 1)
+    grid_k = pm_cic.cic_scatter(pos, mass, ng, box)
+    grid_p = pm_cic.cic_scatter_plain(pos, mass, ng, box)
+    err = {"pm_cic_scatter": rel_err(grid_k, grid_p)}
+    del grid_k
+    green, *kvecs = pm._spectral(ng, box, 0.0, True, str(device))
+    rho_k = torch.fft.rfftn(grid_p)
+    del grid_p
+    same, fields, g_err = {}, [], 0.0
+    for axis, k in enumerate(kvecs):
+        a = pm_cic.green_gradient(rho_k, green, k, axis)
+        b = pm_cic.green_gradient_plain(rho_k, green, k, axis)
+        same[f"pm_green_gradient {axis}"] = torch.equal(a, b)
+        g_err = max(g_err, float((a - b).abs().max()))
+        fields.append(torch.fft.irfftn(b, s=(ng,) * 3))
+        del a, b
+    err["pm_green_gradient"] = (g_err, 0.0)
+    acc = pm_cic.cic_gather3(fields, pos, ng, box, 1.0)
+    acc_p = pm_cic.cic_gather3_plain(fields, pos, ng, box, 1.0)
+    same["pm_cic_gather3"] = torch.equal(acc, acc_p)
+    err["pm_cic_gather3"] = (float((acc - acc_p).abs().max()), 0.0)
+    sc = KDK_SCALARS
+    h, kf, dt, df = (sc[k] for k in ("half_dt", "kf", "dt", "df"))
+    scal = dict(half_dt=h, kf=kf, dt=dt, df=df, box=box)
+    got = ku.kdk_open_flat(pos, vel, acc_p, **scal)
+    want = ku.kdk_open_flat_plain(pos, vel, acc_p, h, kf, dt, df, box)
+    got += (ku.kdk_kick_flat(got[1], acc_p, s1=h, s2=kf),)
+    want += (ku.kdk_kick_plain(want[1], acc_p, h, kf),)
+    bits = [torch.equal(a.view(torch.int32), b.view(torch.int32))
+            for a, b in zip(got, want)]
+    same["kdk_open_flat"], same["kdk_kick_flat"] = all(bits[:2]), bits[2]
+    diff = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    err["kdk_open_flat"] = (max(diff[:2]), 0.0)
+    err["kdk_kick_flat"] = (diff[2], 0.0)
+    del got, want, acc
+    calls = {
+        "pm_cic_scatter": (
+            lambda: pm_cic.cic_scatter(pos, mass, ng, box),
+            lambda: pm_cic.cic_scatter_plain(pos, mass, ng, box)),
+        "pm_green_gradient": (
+            lambda: pm_cic.green_gradient(rho_k, green, kvecs[0], 0),
+            lambda: pm_cic.green_gradient_plain(rho_k, green, kvecs[0], 0)),
+        "pm_cic_gather3": (
+            lambda: pm_cic.cic_gather3(fields, pos, ng, box, 1.0),
+            lambda: pm_cic.cic_gather3_plain(fields, pos, ng, box, 1.0)),
+        "kdk_open_flat": (
+            lambda: ku.kdk_open_flat(pos, vel, acc_p, **scal),
+            lambda: ku.kdk_open_flat_plain(pos, vel, acc_p, h, kf, dt, df,
+                                           box)),
+        "kdk_kick_flat": (
+            lambda: ku.kdk_kick_flat(vel, acc_p, s1=h, s2=kf),
+            lambda: ku.kdk_kick_plain(vel, acc_p, h, kf))}
+    # least bytes: the scatter reads positions and masses and writes the
+    # grid once; a gradient reads rho_k (8 B) and G (4 B) and writes 8 B
+    # a value; the gather reads three fields and the positions and writes
+    # the force; the flat open and kick as KDK_ROW_BYTES
+    n_bytes = {"pm_cic_scatter": 16 * n + 4 * ng ** 3,
+               "pm_green_gradient": 20 * half,
+               "pm_cic_gather3": 12 * ng ** 3 + 24 * n,
+               "kdk_open_flat": KDK_ROW_BYTES["kdk_open"] * n,
+               "kdk_kick_flat": KDK_ROW_BYTES["kdk_kick"] * n}
+    units = {"pm_cic_scatter": n, "pm_green_gradient": half,
+             "pm_cic_gather3": n, "kdk_open_flat": n, "kdk_kick_flat": n}
+    rec = {}
+    for name, (kernel, plain) in calls.items():
+        b_ms, b_by = bound(n_bytes[name], PM_CIC_FLOPS[name] * units[name])
+        rec[name] = (err[name][0], 0.0, cuda_ms(kernel, 10),
+                     cuda_ms(plain, 10), b_ms, b_by)
+    print(f"stateless PM and flat KDK kernels ({label}'s final state: "
+          f"{n} particles, {ng}^3): scatter max_abs_err "
+          f"{err['pm_cic_scatter'][0]:.3e} (rel "
+          f"{err['pm_cic_scatter'][1]:.3e}, tol {PM_CIC_TOL:g}); bit for "
+          f"bit: {json.dumps(same)}; " + "; ".join(
+              f"{k} {r[2]:.4f} ms (plain {r[3]:.4f}, bound {r[4]:.4f} by "
+              f"{r[5]})" for k, r in rec.items()) + f" on {card}")
+    check("pm_cic scatter", err["pm_cic_scatter"][1] <= PM_CIC_TOL,
+          f"rel err {err['pm_cic_scatter'][1]}")
+    check("pm_cic", all(same.values()),
+          f"not bit for bit their plain versions: {same}")
+    return rec
 
 
 # the stateless reference check: the card's 8-step direct run against the
@@ -2040,7 +2179,8 @@ def stateless_reference_check(device):
     image flips) and, bit for bit the same on the card, in chunks of 4
     fused steps; where pairs flip, K4's plain arithmetic on the CPU as the
     witness; two planted K4 faults that the check must see; then pm and
-    treepm accelerations of one state on both."""
+    treepm accelerations of one state on both (the card's through the
+    stateless PM's kernels)."""
     import torch
     from lambda_cdm_tpu_torch import Observer, SimulationBuilder, forces
     from lambda_cdm_tpu_torch.core.config import SimulationConfig
@@ -3206,9 +3346,9 @@ PM_FAST_CLUMP = (1000, 3.0)
 
 def pm_fast_clustered(box: float, ng: int, n: int, device):
     """pm_fast's force (initialize_fast(pm_only=True)) on a clustered box
-    against the stateless pm force on the same particles, and the same for
-    the planted fault -> (mean |a - a_pm| / rms |a_pm| of each, ncell,
-    capacity)."""
+    against the stateless pm force (its plain chain, not the kernels) on
+    the same particles, and the same for the planted fault -> (mean
+    |a - a_pm| / rms |a_pm| of each, ncell, capacity)."""
     import torch
     from lambda_cdm_tpu_torch.forces.pm import pm_accelerations
     from lambda_cdm_tpu_torch.ops.bucketed_pm import \
@@ -3233,7 +3373,7 @@ def pm_fast_clustered(box: float, ng: int, n: int, device):
                              box_size=box, pm_grid=ng, softening=0.01,
                              g_const=1.0, capacity=cap, pm_only=True)
     check("pm_fast clustered", int(fs.overflow) == 0, "overflow")
-    a_pm = pm_accelerations(pos, mass, ng, box).double()
+    a_pm = pm_accelerations(pos, mass, ng, box, plain=True).double()
     fault, _ = pm_accelerations_bucketed(
         fs.bpos, fs.bmass, ncell=kw["ncell"], ng=ng, box_size=box,
         g_const=1.0, split_scale=kw["rs"], margin=kw["margin"],
@@ -4203,9 +4343,9 @@ def mesh_rank(rank: int, n_ranks: int, root: str, runs, device: str
 
 def _single_forces(cfg, pos, mass, device, plan=None):
     """The single-device forces of cfg on (pos, mass): K4 for direct, the
-    plain PM for pm; for treepm the PM split at plan's rs plus G times
-    short_range_bucketed on bucket_particles at plan's nc and capacity
-    (the halo pass's pair set), over the occupied slot depth (the
+    PM's plain chain for pm (not the kernels); for treepm that PM split
+    at plan's rs plus G times short_range_bucketed on bucket_particles
+    at plan's nc and capacity (the halo pass's pair set), over the occupied slot depth (the
     fullest cell's count: the slots past it are empty in every cell).
     Returns (acc, the short range's {"overflow", "depth", "ms"} or
     None)."""
@@ -4215,7 +4355,8 @@ def _single_forces(cfg, pos, mass, device, plan=None):
     from lambda_cdm_tpu_torch.ops import direct
     box, g = cfg.particles.box_size, cfg.units.G
     if cfg.forces.type == "pm":
-        return pm_accelerations(pos, mass, auto_pm_grid(cfg), box, g), None
+        return pm_accelerations(pos, mass, auto_pm_grid(cfg), box, g,
+                                plain=True), None
     if cfg.forces.type != "treepm":
         return direct.pairwise_accelerations(
             pos, mass, box, cfg.forces.softening_length, g), None
@@ -4223,7 +4364,7 @@ def _single_forces(cfg, pos, mass, device, plan=None):
                                                     short_range_bucketed)
     nc, cap, rs = plan["nc"], plan["capacity"], plan["rs"]
     acc_long = pm_accelerations(pos, mass, auto_pm_grid(cfg), box, g,
-                                split_scale=rs)
+                                split_scale=rs, plain=True)
     bpos, bmass, pslot, ovf = bucket_particles(pos, mass, box, ncell=nc,
                                                capacity=cap)
     k = max(1, int(torch.sum(bmass > 0, dim=1).max()))
@@ -4739,8 +4880,9 @@ def main() -> int:
     k4, k4s_launches = timed("K4 phase", k4_phase, device, card)
     k4_launches, k4_10k = timed("direct_10k phase", direct_phase, device,
                                 card)
-    stateless_ms = timed("stateless pm/treepm phase", stateless_phase, device,
-                         card)
+    stateless_ms, pm_launches, pm_rec = timed(
+        "stateless pm/treepm phase", stateless_phase, device, card)
+    rec.update(pm_rec)
     timed("stateless reference check", stateless_reference_check, device)
     rec["short_range_rd"], rd_launches = timed("row-13 phase", rd_phase,
                                                device, card)
@@ -4825,7 +4967,25 @@ def main() -> int:
                             "_fast_segment"),
                "kdk_kick": ("csrc/kdk_update.cu", "none: XLA fused "
                             "lambda_cdm_tpu/ops/fast_treepm.py "
-                            "_fast_segment")}
+                            "_fast_segment"),
+               # the stateless PM force: XLA fuses the JAX package's
+               # scatter-add, spectral gradient and three gathers
+               "pm_cic_scatter": ("csrc/pm_cic.cu", "none: XLA fused "
+                                  "lambda_cdm_tpu/forces/pm.py "
+                                  "pm_accelerations"),
+               "pm_green_gradient": ("csrc/pm_cic.cu", "none: XLA fused "
+                                     "lambda_cdm_tpu/forces/pm.py "
+                                     "pm_accelerations"),
+               "pm_cic_gather3": ("csrc/pm_cic.cu", "none: XLA fused "
+                                  "lambda_cdm_tpu/forces/pm.py "
+                                  "pm_accelerations"),
+               # the stateless solvers' step over [N, 3] rows
+               "kdk_open_flat": ("csrc/kdk_update.cu", "none: XLA fused "
+                                 "lambda_cdm_tpu/physics/integrators.py "
+                                 "kdk_step_fused"),
+               "kdk_kick_flat": ("csrc/kdk_update.cu", "none: XLA fused "
+                                 "lambda_cdm_tpu/physics/integrators.py "
+                                 "kdk_step_fused")}
     # launches: K1-K3, K5 and the KDK kernels on the CLI run of
     # treepm_1m (the counts reset just before it), K4 on the
     # direct_10k run, K4s on its own path (sym and sym2 at 100k in the K4
@@ -4835,13 +4995,15 @@ def main() -> int:
     # takes the trace kernel, so no path calls the public entries);
     # K3's row-7 split forms on the row-7 path (phase 14), K8 on the
     # row-13 path (phase 15), K9 on the science run (its ledger samples),
-    # K10 on its own entry point (phase 19). No single PyTorch call
-    # computes K1-K5's, K8-K10's or the trace's functions (library_ms
+    # K10 on its own entry point (phase 19), the stateless PM's and the
+    # flat KDK kernels on the pm_128_256 run (phase 11). No single
+    # PyTorch call computes K1-K5's, K8-K10's or the trace's functions (library_ms
     # null); K6/K7's yardstick is grid_sample on the wrapped, padded
     # stack
     launches = dict(launches, direct=k4_launches["direct"],
                     direct_sym=k4s_launches["direct_sym"], **lens_launches,
                     **row7_launches, **rd_launches, **alias_launches,
+                    **{k: pm_launches[k] for k in PM_CIC_FLOPS},
                     pair_potential=science_launches["pair_potential"],
                     **cross_launches)
     kernels = [{"name": name, "route": "cuda",

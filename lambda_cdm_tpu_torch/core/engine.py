@@ -165,6 +165,8 @@ class SimulationEngine:
         self._fast_rebuild = None
         self._state_sharded = False       # _state holds this rank's rows
         self._acc = None                  # accelerations at state.positions
+        # (key, kdk_factors of the steps) computed ahead by the last chunk
+        self._ahead = None
         self._accel_fn = None
         self._dt = None
         self._mesh = None                 # parallel.mesh.Mesh (compute.mesh)
@@ -813,36 +815,70 @@ class SimulationEngine:
         with span("fast.accel", device=st.positions.is_cuda):
             return self._accel_fn(st)
 
+    def _factor_kw(self) -> dict:
+        """kdk_factors' keywords from the configuration."""
+        cfg = self.config
+        cosmological = cfg.cosmology.model != "Newtonian"
+        return dict(h0_internal=cfg.units.H0_internal,
+                    kick_mode=(cfg.integration.kick_mode if cosmological
+                               else "newtonian"),
+                    sf_method=cfg.integration.scale_factor_update,
+                    cosmological=cosmological)
+
+    def _step_factors(self, a0, n: int):
+        """Yield the kdk_factors of `n` steps of the current dt from
+        scale factor a0: the ones the last chunk computed ahead where
+        they start at a0 with this dt, else each as its step comes (so
+        that the first step's kernels need not wait for the last step's
+        factors)."""
+        from ..physics.integrators import kdk_factors
+        params, kw = self.config.cosmology_params(), self._factor_kw()
+        key = (float(a0), float(self._dt), params, tuple(kw.items()))
+        if self._ahead is not None and self._ahead[0] == key \
+                and len(self._ahead[1]) >= n:
+            yield from self._ahead[1][:n]
+            return
+        out = []
+        for _ in range(n):
+            out.append(kdk_factors(params, a0, self._dt, **kw))
+            a0 = out[-1].a1
+            yield out[-1]
+        self._ahead = (key, out)
+
     def _kdk_steps(self, st: SimState, acc, n: int):
         """`n` fused KDK steps from (st, acc), one force evaluation each
         (the JAX engine's jit(scan) chunk as a Python loop); returns the
         new (state, acc)."""
         from ..physics.integrators import kdk_step_fused
         cfg = self.config
-        cosmological = cfg.cosmology.model != "Newtonian"
         params = cfg.cosmology_params()
-        step_kw = dict(
-            h0_internal=cfg.units.H0_internal,
-            kick_mode=(cfg.integration.kick_mode if cosmological
-                       else "newtonian"),
-            sf_method=cfg.integration.scale_factor_update,
-            periodic=cfg.particles.periodic_boundaries,
-            cosmological=cosmological)
-        for _ in range(n):
+        step_kw = dict(self._factor_kw(),
+                       periodic=cfg.particles.periodic_boundaries)
+        for f in self._step_factors(st.scale_factor, n):
             st, acc = kdk_step_fused(st, acc, self._force, params,
                                      self._dt, cfg.particles.box_size,
-                                     **step_kw)
+                                     factors=f, **step_kw)
         return st, acc
 
-    def _stateless_chunk(self, n: int) -> None:
+    def _stateless_chunk(self, n: int, ahead: int = 0) -> None:
         self._ensure_acc()
         self._state, self._acc = self._kdk_steps(self._state, self._acc, n)
+        # the next chunk's `ahead` steps' scale factors (the rk4 on 0-d
+        # host tensors, ~0.9 ms a step on a server CPU) while the card
+        # works through this one, so that the next chunk's launches start
+        # at once after its synchronize
+        if ahead:
+            for _ in self._step_factors(self._state.scale_factor, ahead):
+                pass
 
-    def _chunk(self, n: int) -> None:
+    def _chunk(self, n: int, ahead: int = 0) -> None:
+        """`n` steps; `ahead`: the steps of a next chunk of the same dt,
+        whose scale factors a stateless chunk computes while the card
+        works (0: none follows, or dt changes between chunks)."""
         if self._fstate is not None:
             self._fast_chunk(n)
         else:
-            self._stateless_chunk(n)
+            self._stateless_chunk(n, ahead)
 
     def warmup(self, chunk_len: int | None = None) -> dict:
         """Build and run, once, the programs run() will request before its
@@ -935,8 +971,9 @@ class SimulationEngine:
         try:
             self._ensure_acc()
             profiling.flush()            # a chunk's force time is its own
-            if cfg.integration.adaptive_timestep \
-                    or cfg.integration.max_dloga > 0:
+            fixed_dt = not (cfg.integration.adaptive_timestep
+                            or cfg.integration.max_dloga > 0)
+            if not fixed_dt:
                 self._update_dt()
             while steps_done < max_steps:
                 if self.lifecycle != LifecycleState.RUNNING:
@@ -962,7 +999,8 @@ class SimulationEngine:
                 t_chunk0 = time.perf_counter()
                 with self.profiler.timer("run.chunk",
                                          span_name="engine.chunk"):
-                    self._chunk(n)
+                    self._chunk(n, min(cadence, max_steps - steps_done - n)
+                                if fixed_dt else 0)
                     synchronize(self._state.positions)
                 check_range()
                 dt_chunk = time.perf_counter() - t_chunk0
@@ -994,8 +1032,7 @@ class SimulationEngine:
                             f"non-finite positions after step "
                             f"{self.statistics.total_steps + n} "
                             f"(validation.check_finite)")
-                if cfg.integration.adaptive_timestep \
-                        or cfg.integration.max_dloga > 0:
+                if not fixed_dt:
                     self._update_dt()
                 # the sharded fast stepper migrates inside its rebucket
                 if self._mesh is not None and self._fstate is None:

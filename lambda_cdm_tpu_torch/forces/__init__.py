@@ -165,8 +165,8 @@ def _build_pm(config):
 
     def accel_fn(state):
         from .pm import pm_accelerations
-        return (1.0 + mg) * pm_accelerations(
-            state.positions, state.masses, ng, box, g)
+        return pm_accelerations(state.positions, state.masses, ng, box, g,
+                                factor=1.0 + mg)
     return accel_fn
 
 

@@ -13,7 +13,10 @@ import math
 
 import torch
 
+from ..ops import pm_cic
+from ..ops.pm_cic import cic_gather
 from ..physics.initial_conditions import fourier_grid
+from ..utils.profiling import count
 
 _WINDOW_POWER = {"ngp": 1, "cic": 2, "tsc": 3}
 
@@ -50,41 +53,18 @@ def poisson_greens_function(ng: int, box_size: float, *, split_scale=0.0,
     return green.to(torch.float32)
 
 
-def cic_gather(field, positions, ng: int, box_size):
-    """Trilinear interpolation of a grid field at particle positions: the
-    adjoint of cic_deposit (same cell-centred convention), so the PM force
-    has no self-force."""
-    from ..analysis.power_spectrum import _mesh_coords
-    u = _mesh_coords(positions, ng, box_size)
-    i0 = torch.floor(u - 0.5)
-    frac = (u - 0.5) - i0
-    i0 = i0.long()
-    out = torch.zeros(positions.shape[:1], dtype=field.dtype,
-                      device=field.device)
-    flat = field.reshape(-1)
-    for dx in (0, 1):
-        wx = 1.0 - frac[:, 0] if dx == 0 else frac[:, 0]
-        ix = torch.remainder(i0[:, 0] + dx, ng)
-        for dy in (0, 1):
-            wy = 1.0 - frac[:, 1] if dy == 0 else frac[:, 1]
-            iy = torch.remainder(i0[:, 1] + dy, ng)
-            for dz in (0, 1):
-                wz = 1.0 - frac[:, 2] if dz == 0 else frac[:, 2]
-                iz = torch.remainder(i0[:, 2] + dz, ng)
-                idx = (ix * ng + iy) * ng + iz
-                out = out + flat[idx] * (wx * wy * wz)
-    return out
-
-
 @functools.lru_cache(maxsize=8)
 def _spectral(ng: int, box_size: float, split_scale: float,
               deconvolve_cic: bool, device: str):
-    """(Green's function, kx, ky, kz) of one mesh, kept between calls."""
+    """(Green's function, kx, ky, kz) of one mesh, kept between calls;
+    the Green's function in the memory layout torch.fft.rfftn gives a
+    half spectrum on `device` (ops/pm_cic.green_gradient walks both in
+    one order)."""
     kx, ky, kz, _ = fourier_grid(ng, box_size, device=device)
     green = poisson_greens_function(ng, box_size, split_scale=split_scale,
                                     deconvolve_cic=deconvolve_cic,
                                     device=device)
-    return green, kx, ky, kz
+    return pm_cic.like_rfftn(green), kx, ky, kz
 
 
 def _density_k(positions, masses, ng: int, box_size):
@@ -97,19 +77,21 @@ def _density_k(positions, masses, ng: int, box_size):
 
 
 def pm_accelerations(positions, masses, ng: int, box_size, g_const=1.0, *,
-                     split_scale=0.0, deconvolve_cic: bool = True):
+                     split_scale=0.0, deconvolve_cic: bool = True,
+                     factor: float = 1.0, plain: bool = False):
     """PM accelerations [N, 3] for positions in [0, box): CIC deposit,
-    FFT Poisson solve, spectral gradient, CIC gather. `split_scale` > 0
-    keeps only the long-range (Gaussian-filtered) force, for TreePM."""
-    rho_k = _density_k(positions, masses, ng, box_size)
+    FFT Poisson solve, spectral gradient, CIC gather, times g_const and
+    then `factor` (modified gravity's 1 + mg). `split_scale` > 0 keeps
+    only the long-range (Gaussian-filtered) force, for TreePM.
+    ops/pm_cic.pm_forces computes it: on CUDA tensors through the
+    kernels of csrc/pm_cic.cu unless `plain`, else in plain PyTorch.
+    Counts `pm_forces` (utils/profiling), one an evaluation."""
+    count("pm_forces")
     green, kx, ky, kz = _spectral(ng, float(box_size), float(split_scale),
-                                  bool(deconvolve_cic), str(rho_k.device))
-    phi_k = green * rho_k
-    acc = []
-    for kvec in (kx, ky, kz):
-        acc_grid = torch.fft.irfftn(-1j * kvec * phi_k, s=(ng, ng, ng))
-        acc.append(cic_gather(acc_grid, positions, ng, box_size))
-    return g_const * torch.stack(acc, dim=-1)
+                                  bool(deconvolve_cic),
+                                  str(positions.device))
+    return pm_cic.pm_forces(positions, masses, ng, float(box_size), g_const,
+                            green, (kx, ky, kz), factor, plain=plain)
 
 
 def potential_grid(positions, masses, ng: int, box_size, g_const=1.0, *,

@@ -37,6 +37,7 @@ build_log = ""          # nvcc/ptxas output of the build this process made
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # C signatures: (name, argtypes); every entry returns an int error code
 _SIGNATURES = {
@@ -63,6 +64,13 @@ _SIGNATURES = {
     "lcdm_launch_floor": [_P, _I, _I, _P],
     "lcdm_kdk_open": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P],
     "lcdm_kdk_kick": [_P, _P, _P, _I, _I, _F, _F, _P],
+    "lcdm_kdk_open_flat": [_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _I,
+                           _P],
+    "lcdm_kdk_kick_flat": [_P, _P, _P, _L, _F, _F, _P],
+    "lcdm_pm_cic_scatter": [_P, _P, _P, _L, _I, _F, _P],
+    "lcdm_pm_green_gradient": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _P],
+    "lcdm_pm_cic_gather3": [_P, _P, _P, _P, _P, _L, _I, _F, _F, _P],
 }
 
 

@@ -1,5 +1,6 @@
-"""The fast stepper's KDK updates over live slots: CUDA kernels
-(csrc/kdk_update.cu) with their plain PyTorch versions.
+"""The KDK updates of the fast stepper over live slots and of the
+stateless solvers over [N, 3] rows: CUDA kernels (csrc/kdk_update.cu)
+with their plain PyTorch versions.
 
     open   vel = bvel + acc * half_dt * kf     the opening half kick
            pos = bpos + vel * dt * df          and the drift
@@ -17,8 +18,19 @@ the order written, so a kernel equals its plain version bit for bit on
 live slots (the combine's g * acc_short rounds as acc_short * g, and the
 product by 1 is exact). Dead slots hold 0 in every input and output.
 
+The stateless solvers' step (physics/integrators.kdk_step_fused) has
+flat forms over [N, 3] rows, where every value is live, both into new
+tensors and in the same rounding order (torch.remainder's wrap too):
+
+    open_flat   vel = v + acc * half_dt * kf,
+                pos = remainder(p + vel * dt * df, box)   (box None: no
+                                                           wrap)
+    kick_flat   out = x + y * s1 * s2
+
 Each wrapper checks its tensors (float32 vectors of one [3, C, K] shape,
-int32 counts [C], contiguous, on one device), runs the plain version for
+int32 counts [C], contiguous, on one device; the flat forms float32
+[N, 3] rows of any strides, made contiguous on the card), runs the plain
+version for
 CPU tensors, launches its kernel for CUDA tensors and raises on any other
 device. On the card the kernels touch live slots only: `kdk_open` writes
 zeroed new buffers, or with `owned` writes into bpos and bvel
@@ -36,7 +48,8 @@ from ..utils.profiling import count
 from . import cuda_build
 
 # launches of each kernel since the last reset
-launches = {"kdk_open": 0, "kdk_kick": 0}
+launches = {"kdk_open": 0, "kdk_kick": 0, "kdk_open_flat": 0,
+            "kdk_kick_flat": 0}
 
 
 def reset_launch_counts() -> None:
@@ -123,3 +136,64 @@ def kdk_kick(x, y, counts, *, s1: float, s2: float):
     _launch("kdk_kick", x.data_ptr(), y.data_ptr(), counts.data_ptr(),
             x.shape[1], x.shape[2], s1, s2)
     return x
+
+
+def _check_flat(name, vectors) -> tuple:
+    """Raise unless `vectors` are float32 tensors of one [N, 3] shape on
+    one CPU or CUDA device; returns them, contiguous on CUDA (a copy
+    where one is strided, as a state's initial rows may be)."""
+    shape = tuple(vectors[0].shape)
+    if len(shape) != 2 or shape[1] != 3:
+        raise ValueError(f"{name}: vectors must be [N, 3], got {shape}")
+    dev = vectors[0].device
+    for i, t in enumerate(vectors):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: argument {i} must be float32 "
+                             f"{list(shape)}, got {t.dtype} "
+                             f"{list(t.shape)}")
+        if t.device != dev:
+            raise ValueError(f"{name}: argument {i} must be on {dev}, got "
+                             f"{t.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: tensors on {dev}: the plain version "
+                         "takes CPU tensors, the kernel CUDA tensors")
+    return vectors if dev.type == "cpu" else tuple(t.contiguous()
+                                                   for t in vectors)
+
+
+def kdk_open_flat_plain(p, v, acc, half_dt: float, kf: float, dt: float,
+                        df: float, box):
+    vel = v + acc * half_dt * kf
+    pos = p + vel * dt * df
+    if box is not None:
+        pos = torch.remainder(pos, box)
+    return pos, vel
+
+
+def kdk_open_flat(p, v, acc, *, half_dt: float, kf: float, dt: float,
+                  df: float, box=None):
+    """The stateless step's opening half kick and drift, wrapped into
+    [0, box) unless box is None -> new (pos, vel): one launch on CUDA
+    tensors, kdk_open_flat_plain on CPU tensors."""
+    p, v, acc = _check_flat("kdk_open_flat", (p, v, acc))
+    half_dt, kf, dt, df = float(half_dt), float(kf), float(dt), float(df)
+    if p.device.type == "cpu":
+        return kdk_open_flat_plain(p, v, acc, half_dt, kf, dt, df, box)
+    pos, vel = torch.empty_like(p), torch.empty_like(v)
+    _launch("kdk_open_flat", p.data_ptr(), v.data_ptr(), acc.data_ptr(),
+            pos.data_ptr(), vel.data_ptr(), p.numel(), half_dt, kf, dt, df,
+            float(box or 0.0), box is not None)
+    return pos, vel
+
+
+def kdk_kick_flat(x, y, *, s1: float, s2: float):
+    """x + y * s1 * s2 -> a new tensor (the stateless step's closing half
+    kick): one launch on CUDA tensors, kdk_kick_plain on CPU tensors."""
+    x, y = _check_flat("kdk_kick_flat", (x, y))
+    s1, s2 = float(s1), float(s2)
+    if x.device.type == "cpu":
+        return kdk_kick_plain(x, y, s1, s2)
+    out = torch.empty_like(x)
+    _launch("kdk_kick_flat", x.data_ptr(), y.data_ptr(), out.data_ptr(),
+            x.numel(), s1, s2)
+    return out

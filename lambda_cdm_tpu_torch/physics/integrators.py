@@ -9,6 +9,8 @@ the arithmetic runs in float32 in the same order as the JAX reference.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from .cosmology import CosmologyParams, as_f32, e_function
@@ -111,16 +113,25 @@ def kdk_step(state, accel_fn, params: CosmologyParams, dt, box_size: float,
                          time=state.time + dt, step=state.step + 1)
 
 
-def kdk_step_fused(state, acc, accel_fn, params: CosmologyParams, dt,
-                   box_size: float, *, h0_internal: float = 100.0,
-                   kick_mode: str = "reference", sf_method: str = "rk4",
-                   periodic: bool = True, cosmological: bool = True):
-    """KDK step with one force evaluation: `acc` is the acceleration at
-    the current positions (the previous step's closing half-kick force).
-    Returns (new state, acceleration at the new positions)."""
-    a0 = state.scale_factor
+class StepFactors(NamedTuple):
+    """The host scalars of one fused KDK step (0-d float32 tensors): the
+    half step, the kick factor at a0, the drift factor at a_half, a1 and
+    the kick factor at a1."""
+    half_dt: torch.Tensor
+    kf0: torch.Tensor
+    df: torch.Tensor
+    a1: torch.Tensor
+    kf1: torch.Tensor
+
+
+def kdk_factors(params: CosmologyParams, a0, dt, *,
+                h0_internal: float = 100.0, kick_mode: str = "reference",
+                sf_method: str = "rk4",
+                cosmological: bool = True) -> StepFactors:
+    """kdk_step_fused's scalars of one step of `dt` from scale factor
+    `a0`: they depend on a0 and dt alone, so a run of fixed dt can
+    compute a chunk's ahead of its steps."""
     dt = as_f32(dt)
-    vel = state.velocities + acc * (0.5 * dt) * kick_factor(a0, kick_mode)
     if cosmological:
         a_half = update_scale_factor(params, a0, 0.5 * dt, h0_internal,
                                      sf_method)
@@ -128,11 +139,32 @@ def kdk_step_fused(state, acc, accel_fn, params: CosmologyParams, dt,
                                  sf_method)
     else:
         a_half, a1 = a0, a0
-    pos = state.positions + vel * dt * drift_factor(a_half, kick_mode)
-    if periodic:
-        pos = wrap_positions(pos, box_size)
-    mid = state.replace(positions=pos, velocities=vel, scale_factor=a1)
+    return StepFactors(0.5 * dt, kick_factor(a0, kick_mode),
+                       drift_factor(a_half, kick_mode), a1,
+                       kick_factor(a1, kick_mode))
+
+
+def kdk_step_fused(state, acc, accel_fn, params: CosmologyParams, dt,
+                   box_size: float, *, h0_internal: float = 100.0,
+                   kick_mode: str = "reference", sf_method: str = "rk4",
+                   periodic: bool = True, cosmological: bool = True,
+                   factors: StepFactors | None = None):
+    """KDK step with one force evaluation: `acc` is the acceleration at
+    the current positions (the previous step's closing half-kick force).
+    `factors`: kdk_factors of this step, computed ahead (else here).
+    The kicks and the drift are ops/kdk_update's flat forms: two kernels
+    on the card, their plain chain of operations on the CPU. Returns (new
+    state, acceleration at the new positions)."""
+    from ..ops.kdk_update import kdk_kick_flat, kdk_open_flat
+    dt = as_f32(dt)
+    f = factors if factors is not None else kdk_factors(
+        params, state.scale_factor, dt, h0_internal=h0_internal,
+        kick_mode=kick_mode, sf_method=sf_method, cosmological=cosmological)
+    pos, vel = kdk_open_flat(state.positions, state.velocities, acc,
+                             half_dt=f.half_dt, kf=f.kf0, dt=dt, df=f.df,
+                             box=box_size if periodic else None)
+    mid = state.replace(positions=pos, velocities=vel, scale_factor=f.a1)
     acc_new = accel_fn(mid)
-    vel = vel + acc_new * (0.5 * dt) * kick_factor(a1, kick_mode)
-    return state.replace(positions=pos, velocities=vel, scale_factor=a1,
+    vel = kdk_kick_flat(vel, acc_new, s1=f.half_dt, s2=f.kf1)
+    return state.replace(positions=pos, velocities=vel, scale_factor=f.a1,
                          time=state.time + dt, step=state.step + 1), acc_new

@@ -29,11 +29,14 @@ The program's span names: `engine.chunk`, `engine.cadence`,
 `engine.sync_state`, `engine.init_fast` (with `fast.build`),
 `engine.grow` (core/engine.py); `fast.rebucket`, `fast.kick`,
 `fast.drift`, `fast.accel` (with `fast.pm` and `fast.short_range`)
-(ops/fast_treepm.py; the stateless solvers' force is `fast.accel` too).
+(ops/fast_treepm.py; the stateless solvers' force is `fast.accel` too,
+and the stateless PM's phases inside it `pm.deposit`, `pm.solve` and
+`pm.gather`, ops/pm_cic.py).
 Counters: `rebuckets` (one a rebucket pass), `readbacks` (one a point
 where the host waits on the card: every `synchronize` here, and each
-read of a device value on the fast path) and `fused_kdk` (one a launch
-of ops/kdk_update.py's kernels).
+read of a device value on the fast path), `fused_kdk` (one a launch
+of ops/kdk_update.py's kernels) and `pm_forces` (one a stateless PM
+force evaluation, forces/pm.pm_accelerations).
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@
 dead layout, K3 short-range pairs in each split form,
 K4/K4s direct sums and K4's cross form, K5 FoF hook, K6/K7 lens
 samplers, K8 rod-dense pairs, K9 pair potential and its cross form, K10
-alias probe, the fast stepper's KDK updates), a 2-rank gloo ring and
+alias probe, the fast stepper's KDK updates, the stateless PM's scatter,
+gradient and three-field gather), a 2-rank gloo ring and
 the lcdm round trip of a card state, and the treepm_fast stepper,
 fof_labels, the `direct` solver and the lensing trace on the card against
 the same runs on the CPU. These need a CUDA
@@ -26,9 +27,10 @@ from _torch_parity import K8_STAGE_TILES, clustered_particles, \
 
 from lambda_cdm_tpu_torch.analysis import halo_finder
 from lambda_cdm_tpu_torch.forces.direct import potential_energy
+from lambda_cdm_tpu_torch.forces import pm
 from lambda_cdm_tpu_torch.ops import alias_probe, bucketed_pm, direct, \
-    fast_treepm, fof_hook, kdk_update, lens_sample, pm_rods, short_range, \
-    short_range_rd
+    fast_treepm, fof_hook, kdk_update, lens_sample, pm_cic, pm_rods, \
+    short_range, short_range_rd
 from lambda_cdm_tpu_torch.ops.bucketed_pm import live_counts
 from lambda_cdm_tpu_torch.physics.cosmology import CosmologyParams
 from lambda_cdm_tpu_torch.utils import profiling
@@ -1360,3 +1362,90 @@ def test_fast_segment_kernels_match_plain(cuda_device, kick_mode,
     for name, t in kept.items():
         assert torch.equal(getattr(fs, name), t), name
     assert fused == steps * (2 if pm_only else 3)
+
+
+def _pm_particles(dev, n, box, seed):
+    gen = torch.Generator().manual_seed(seed)
+    pos = (torch.rand((n, 3), generator=gen, dtype=torch.float64) * box)
+    pos = torch.remainder(pos.to(torch.float32), box)
+    mass = torch.rand(n, generator=gen) + 0.5
+    return pos.to(dev), mass.to(dev)
+
+
+@pytest.mark.parametrize("n, ng", [(200_000, 64), (2_097_152, 256)])
+def test_pm_cic_kernels_match_plain(cuda_device, n, ng):
+    """The scatter, the gradient and the three-field gather against their
+    plain versions run on the same card tensors, one launch each."""
+    box = 250.0
+    pos, mass = _pm_particles(cuda_device, n, box, 31)
+    before = dict(pm_cic.launches)
+    grid = pm_cic.cic_scatter(pos, mass, ng, box)
+    ref = pm_cic.cic_scatter_plain(pos, mass, ng, box)
+    # each term is the plain version's; float atomics add a point's terms
+    # in another order: a few ulps of the point's sum
+    assert _rel(grid, ref) < 1e-5
+    green, kx, ky, kz = pm._spectral(ng, box, 0.0, True, str(pos.device))
+    rho_k = torch.fft.rfftn(ref)
+    fields = []
+    for axis, k in enumerate((kx, ky, kz)):
+        spec = pm_cic.green_gradient(rho_k, green, k, axis)
+        # every value rounds as the plain chain's (zero signs aside)
+        assert torch.equal(spec, pm_cic.green_gradient_plain(rho_k, green,
+                                                             k, axis))
+        fields.append(torch.fft.irfftn(spec, s=(ng,) * 3))
+    acc = pm_cic.cic_gather3(fields, pos, ng, box, 43.0)
+    want = pm_cic.cic_gather3_plain(fields, pos, ng, box, 43.0)
+    assert _rel(acc, want) < 1e-5
+    assert {k: pm_cic.launches[k] - before[k] for k in before} == {
+        "pm_cic_scatter": 1, "pm_green_gradient": 3, "pm_cic_gather3": 1}
+
+
+@pytest.mark.parametrize("split_scale", [0.0, 2.5])
+def test_pm_accelerations_kernel_route_matches_plain(cuda_device,
+                                                     split_scale):
+    """pm_accelerations on 2,097,152 card particles at 256^3 (the
+    kernels, the scales and modified gravity's factor folded into the
+    gather) against the plain chain on the same tensors."""
+    box, ng, g = 250.0, 256, 43.0071057317063
+    pos, mass = _pm_particles(cuda_device, 2_097_152, box, 32)
+    kw = dict(split_scale=split_scale, factor=1.25)
+    got = pm.pm_accelerations(pos, mass, ng, box, g, **kw)
+    green, kx, ky, kz = pm._spectral(ng, box, split_scale, True,
+                                     str(pos.device))
+    rho_k = torch.fft.rfftn(pm_cic.cic_scatter_plain(pos, mass, ng, box)
+                            / pm_cic.cell_volume(ng, box))
+    fields = [torch.fft.irfftn(pm_cic.green_gradient_plain(rho_k, green, k,
+                                                           axis),
+                               s=(ng,) * 3)
+              for axis, k in enumerate((kx, ky, kz))]
+    want = 1.25 * pm_cic.cic_gather3_plain(fields, pos, ng, box, g)
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+def test_flat_kdk_kernels_match_plain(cuda_device, periodic):
+    """The stateless step's open (kick, drift, wrap) and closing kick on
+    the card against their plain chain on the same tensors, bit for bit,
+    with values on and past the box's edges and strided velocities."""
+    gen = torch.Generator().manual_seed(33)
+    box = 250.0
+    p = (torch.rand((2_097_152, 3), generator=gen) * box).to(cuda_device)
+    p[:4] = torch.tensor([0.0, box, -1e-6, box - 1e-5]).reshape(4, 1)
+    v = torch.randn((6, 2_097_152), generator=gen).t()[:, :3] * 300.0
+    v = v.to(cuda_device)
+    acc, acc1 = (torch.randn((2, 2_097_152, 3), generator=gen) * 5e3) \
+        .to(cuda_device)
+    sc = dict(half_dt=2.5e-6, kf=51.3, dt=5e-6, df=2601.7)
+    box_arg = box if periodic else None
+    before = dict(kdk_update.launches)
+    pos, vel = kdk_update.kdk_open_flat(p, v, acc, box=box_arg, **sc)
+    want = kdk_update.kdk_open_flat_plain(p, v, acc, box=box_arg, **sc)
+    assert torch.equal(_bits(pos), _bits(want[0]))
+    assert torch.equal(_bits(vel), _bits(want[1]))
+    kick = kdk_update.kdk_kick_flat(vel, acc1, s1=2.5e-6, s2=49.9)
+    assert torch.equal(_bits(kick), _bits(kdk_update.kdk_kick_plain(
+        vel, acc1, 2.5e-6, 49.9)))
+    assert kdk_update.launches["kdk_open_flat"] == \
+        before["kdk_open_flat"] + 1
+    assert kdk_update.launches["kdk_kick_flat"] == \
+        before["kdk_kick_flat"] + 1

@@ -164,7 +164,8 @@ def test_kernel_build_needs_the_cuda_toolkit(monkeypatch):
     srcs = [os.path.basename(s) for s in cuda_build._sources()]
     assert srcs == ["alias_probe.cu", "cic_deposit.cu", "direct.cu",
                     "fd4_gather.cu", "fof_hook.cu", "kdk_update.cu",
-                    "lens_sample.cu", "short_range.cu", "short_range_rd.cu"]
+                    "lens_sample.cu", "pm_cic.cu", "short_range.cu",
+                    "short_range_rd.cu"]
     monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(cuda_build, "NVCC_DEFAULT",
                         os.path.join(ROOT, "no-such-dir", "nvcc"))
