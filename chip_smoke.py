@@ -128,10 +128,12 @@ Then the fast stepper's other options:
  14. row-7 path: fast_run from that state for 16 steps (a rebucket after
      8) in each of vpu3, vpu, vpu2 and mxu: launches, finite positions,
      conserved mass, no overflow or drops, positions against vpu3's;
- 18. rebucket forms (run after phase 14, on its state): the treepm_1m
+ 18. rebucket pass (run after phase 14, on its state): the treepm_1m
      particles moved 0.2 cell rms, bucketed at capacity 64, 128, 256 and
-     512 (the capacities grow-and-retry gives), the gather and compact
-     forms of the rebucket timed on each layout, their states equal;
+     512 (the capacities grow-and-retry gives) and on the science plan's
+     16^3 cells of 8,192 slots; the card's pass over live rows
+     (ops/rebucket.py) and the plain gather and compact forms timed on
+     each layout, their states equal bit for bit, one card launch a pass;
  15. row-13 phase: benchmarks/bench_short_range_rd.py's geometry (1M
      particles uniform in 100 Mpc/h from numpy, ncell 24, rs 1.25 x
      100/192, window 4.5 rs, softening 0.01, k_rod 3072): rd_pack and
@@ -388,10 +390,10 @@ def stencil_pairs(counts, ncell: int) -> float:
 
 def _counted():
     from lambda_cdm_tpu_torch.ops import alias_probe, direct, fof_hook, \
-        kdk_update, lens_sample, pm_cic, pm_rods, short_range, \
+        kdk_update, lens_sample, pm_cic, pm_rods, rebucket, short_range, \
         short_range_rd
     return (pm_rods, short_range, fof_hook, direct, lens_sample,
-            short_range_rd, alias_probe, kdk_update, pm_cic)
+            short_range_rd, alias_probe, kdk_update, pm_cic, rebucket)
 
 
 def reset_counts() -> None:
@@ -3076,12 +3078,15 @@ def row7_path_phase(fs0, kw, params, dt, device, card):
         print(f"row-7 path {v}: {ROW7_STEPS} steps in {t:.3f} s "
               f"({1e3 * t / ROW7_STEPS:.3f} ms/step with one rebucket) on "
               f"{card}; K3 {key} launches {counts[key]}, K1 "
-              f"{counts['cic_deposit']}, K2 {counts['fd4_gather']}; overflow "
+              f"{counts['cic_deposit']}, K2 {counts['fd4_gather']}, "
+              f"rebucket {counts['rebucket']}; overflow "
               f"{int(fs.overflow)} dropped {int(fs.dropped)}; live mass "
               f"{mass:.6e} (start {m_total:.6e}){msg}")
         check(f"row-7 path {v}", counts[key] == ROW7_STEPS
               and counts["cic_deposit"] == ROW7_STEPS,
               "the variant's kernel was not launched once a step")
+        check(f"row-7 path {v}", counts["rebucket"] == 1,
+              f"{counts['rebucket']} card rebucket passes, not 1")
         check(f"row-7 path {v}", finite and int(fs.overflow) == 0
               and int(fs.dropped) == 0, "non-finite, overflow or drops")
         check(f"row-7 path {v}", abs(mass - m_total) <= 1e-9 * m_total,
@@ -3089,62 +3094,88 @@ def row7_path_phase(fs0, kw, params, dt, device, card):
     return launches
 
 
-# phase 18: fast_treepm._rebucket's two forms on the treepm_1m particles,
-# bucketed at the capacities grow-and-retry gives (doubling from the
-# plan's) and moved by 0.2 of a cell (rms): the gather form sorts and
-# gathers all C*K slots, the compact form (chosen where C*K > 4 n_rows)
-# compacts the live slots to n_rows first. Both are timed on each layout
-# and must give the same state.
-REBUCKET_CAPS = (64, 128, 256, 512)
+# phase 18: the rebucket pass on the treepm_1m particles, bucketed at the
+# capacities grow-and-retry gives (doubling from the plan's) and on the
+# science plan's layout (16^3 cells of 8,192 slots), and moved by 0.2 of a
+# cell (rms): the card's pass over live rows (ops/rebucket.py, what
+# fast_treepm._rebucket runs on CUDA tensors) beside the two plain forms on
+# the same card, the gather form (a sort and gathers of all C*K slots) and
+# the compact form (the live slots compacted to n_rows first). All three are
+# timed on each layout and must give the same state, bit for bit.
+REBUCKET_LAYOUTS = ((None, 64), (None, 128), (None, 256), (None, 512),
+                    (16, 8192))
 
 
 def rebucket_phase(fs, kw, device, card):
-    """Phase 18: the gather and compact rebucket forms timed on the same
-    layouts, and the states they give compared field by field."""
+    """Phase 18: the card's rebucket pass and both plain forms timed on
+    the same layouts, and the states they give compared field by field
+    (the floats' bits); returns the kernels line's record of the pass on
+    treepm_1m's own layout (the first): (0, 0, ms, the gather form's ms,
+    bound ms, what bounds it), the bound 88 B a live row and 44 B a dead
+    slot."""
     import torch
+    from lambda_cdm_tpu_torch.ops import rebucket as rb_card
     from lambda_cdm_tpu_torch.ops.fast_treepm import (
-        _rebucket, _rebucket_compact, build_fast_state)
+        _rebucket, _rebucket_compact, _rebucket_gather, build_fast_state)
     ids = fs.ids.reshape(-1)
     live = ids >= 0
     n = int(live.sum())
-    ncell, box = kw["ncell"], kw["box_size"]
+    box = kw["box_size"]
     gen = torch.Generator(device=device).manual_seed(12)
-    pos = fs.bpos.reshape(3, -1).T[live]
-    pos = pos + (0.2 * box / ncell) * torch.randn(
-        pos.shape, generator=gen, device=device)
     vel = fs.bvel.reshape(3, -1).T[live].contiguous()
     mass = fs.bmass.reshape(-1)[live].contiguous()
     acc = fs.acc.reshape(3, -1)[:, live]
+    start = fs.bpos.reshape(3, -1).T[live].contiguous()
+    noise = torch.randn(start.shape, generator=gen, device=device)
     fields = ("bpos", "bvel", "acc", "bmass", "ids", "overflow")
-    for cap in REBUCKET_CAPS:
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    rec = {}
+    for ncell, cap in REBUCKET_LAYOUTS:
+        ncell = ncell or kw["ncell"]
         # bucketed where the particles were, then moved: a rebucket's input
-        g = build_fast_state(fs.bpos.reshape(3, -1).T[live].contiguous(),
-                             vel, mass, fs.scale_factor, box_size=box,
+        g = build_fast_state(start, vel, mass, fs.scale_factor, box_size=box,
                              plan={"ncell": ncell, "capacity": cap},
                              ids=ids[live])
         slot_live = g.ids.reshape(-1) >= 0
         order = g.ids.reshape(-1)[slot_live].long()
+        moved = start + (0.2 * box / ncell) * noise
         bpos = g.bpos.reshape(3, -1).clone()
-        bpos[:, slot_live] = pos[order].T
+        bpos[:, slot_live] = moved[order].T
         bacc = g.acc.reshape(3, -1).clone()
         bacc[:, slot_live] = acc[:, order]
         g = g.replace(bpos=bpos.reshape(g.bpos.shape),
                       acc=bacc.reshape(g.acc.shape))
         rb = dict(box_size=box, ncell=ncell, capacity=cap)
-        gather_ms = cuda_ms(lambda: _rebucket(g, **rb), 5)
+        before = rb_card.launches["rebucket"]
+        card_ms = cuda_ms(lambda: _rebucket(g, n_rows=n, **rb), 5)
+        gather_ms = cuda_ms(lambda: _rebucket_gather(g, **rb), 5)
         compact_ms = cuda_ms(lambda: _rebucket_compact(g, n_rows=n, **rb), 5)
-        a = _rebucket(g, **rb)
+        c = _rebucket(g, n_rows=n, **rb)
+        launched = rb_card.launches["rebucket"] - before
+        a = _rebucket_gather(g, **rb)
         b = _rebucket_compact(g, n_rows=n, **rb)
-        same = all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
+        same = all(torch.equal(bits(getattr(x, f)), bits(getattr(a, f)))
+                   for x in (b, c) for f in fields)
         s = ncell ** 3 * cap
-        print(f"rebucket at capacity {cap} ({s} slots, n_rows {n}, chosen "
-              f"form {'compact' if s > 4 * n else 'gather'}): gather "
-              f"{gather_ms:.4f} ms, compact {compact_ms:.4f} ms; overflow "
-              f"{int(a.overflow)}; states {'equal' if same else 'DIFFER'} "
-              f"on {card}")
-        check(f"rebucket at capacity {cap}", same,
-              "the compact form's state differs from the gather form's")
-        del g, a, b
+        print(f"rebucket on {ncell}^3 cells of {cap} slots ({s} slots, "
+              f"n_rows {n}; the plain form _rebucket would choose: "
+              f"{'compact' if s > 4 * n else 'gather'}): card "
+              f"{card_ms:.4f} ms, gather {gather_ms:.4f} ms, "
+              f"compact {compact_ms:.4f} ms; overflow {int(a.overflow)}; "
+              f"states {'equal' if same else 'DIFFER'} on {card}")
+        check(f"rebucket on {ncell}^3 x {cap}", same,
+              "the card's pass or the compact form differs from the gather "
+              "form")
+        check(f"rebucket on {ncell}^3 x {cap}", launched == 7,
+              f"{launched} card passes, not 7 (5 timed, 1 warm-up, 1 kept)")
+        if not rec:
+            rec["rebucket"] = (0.0, 0.0, card_ms, gather_ms,
+                               *bound(88.0 * n + 44.0 * (s - n), 0.0))
+        del g, a, b, c
+    return rec
 
 
 def rd_oracle(pos, mass, targets, box, rs, soft):
@@ -4866,7 +4897,8 @@ def main() -> int:
     row7_launches = timed("row-7 path", row7_path_phase, fs, kw,
                           cfg.cosmology_params(),
                           float(cfg.time.initial_timestep), device, card)
-    timed("rebucket phase", rebucket_phase, fs, kw, device, card)
+    rec.update(timed("rebucket phase", rebucket_phase, fs, kw, device,
+                     card))
     del fs
     _, eng = timed("stepper path", main_path, cfg, device, card)
     lens, lens_launches = timed("lensing phase", lensing_phase, eng, device,
@@ -4985,9 +5017,14 @@ def main() -> int:
                                  "kdk_step_fused"),
                "kdk_kick_flat": ("csrc/kdk_update.cu", "none: XLA fused "
                                  "lambda_cdm_tpu/physics/integrators.py "
-                                 "kdk_step_fused")}
-    # launches: K1-K3, K5 and the KDK kernels on the CLI run of
-    # treepm_1m (the counts reset just before it), K4 on the
+                                 "kdk_step_fused"),
+               # the fast stepper's rebucket pass (its three kernels
+               # together; the launches are passes)
+               "rebucket": ("csrc/rebucket.cu", "none: XLA's argsort and "
+                            "gathers in lambda_cdm_tpu/ops/fast_treepm.py "
+                            "_rebucket")}
+    # launches: K1-K3, K5, the KDK kernels and the rebucket passes on the
+    # CLI run of treepm_1m (the counts reset just before it), K4 on the
     # direct_10k run, K4s on its own path (sym and sym2 at 100k in the K4
     # phase; no engine path runs it, the JAX package drives its kernel only
     # from bench.py); K4 and K4s report their v1 and sym variants; K6/K7's public entries and the trace

@@ -73,7 +73,13 @@ the fast stepper's KDK updates (ops/kdk_update.py: the open into new
 and its own buffers, the kick as closing half kick and as the force's
 combine) eagerly and as a CUDA
 graph, each held bit for bit to its plain version, with the bytes of
-the live rows as their bound, beside the plain versions' eager times.
+the live rows as their bound, beside the plain versions' eager times;
+and on each bucket state, its rows moved, the rebucket pass
+(fast_treepm._rebucket: in a root with ops/rebucket.py the card's pass
+over live rows, with its kernels' device time by name; else the plain
+form it chooses) beside the plain gather and compact forms, each held
+bit for bit to the gather form's state, with 88 B a live row and 44 B a
+dead slot as its bound.
 It prints one JSON line with each result's
 SHA-256 (K2 and K3: the raw bytes of the
 [3, C, K] output; K9: U as a float64; K1: its grid where two calls give
@@ -643,6 +649,66 @@ def kdk_calls(res, name, bpos, bmass, counts, device) -> None:
             "ms": cuda_build.cuda_ms(fn, PM_REPS), "sha256": None}
 
 
+def rebucket_calls(res, name, bpos, bmass, counts, box, device) -> None:
+    """Time the rebucket pass on one bucket state, its live rows moved by
+    0.2 of a cell (rms), into res: fast_treepm._rebucket with n_rows the
+    live count (in a root with ops/rebucket.py the card's pass; in one
+    without, the plain form it chooses), its kernels' device time by
+    name, and in a root with the pass the plain chains it replaces (the
+    gather and compact forms), each state held bit for bit to the plain
+    gather form's."""
+    import torch
+    from lambda_cdm_tpu_torch.ops import cuda_build
+    from lambda_cdm_tpu_torch.ops import fast_treepm as ft
+    try:
+        from lambda_cdm_tpu_torch.ops import rebucket as rb
+    except ImportError:
+        rb = None
+    smoke = _chip_smoke()
+    ncell, cap = round(bmass.shape[0] ** (1 / 3)), bmass.shape[1]
+    live = bmass > 0
+    gen = torch.Generator(device=device).manual_seed(7)
+    rows = int(counts.sum())
+    moved = bpos + torch.randn(bpos.shape, generator=gen, device=device) * (
+        0.2 * box / ncell)
+    ids = torch.full(bmass.shape, -1, dtype=torch.int32, device=device)
+    ids[live] = torch.arange(rows, dtype=torch.int32, device=device)
+    fs = ft.FastState(
+        bpos=torch.where(live[None], moved, 0.0),
+        bvel=torch.where(live[None], torch.randn(
+            bpos.shape, generator=gen, device=device), 0.0),
+        bmass=bmass, ids=ids,
+        acc=torch.where(live[None], torch.randn(
+            bpos.shape, generator=gen, device=device), 0.0),
+        scale_factor=torch.tensor(0.5), time=torch.tensor(0.0),
+        step=torch.tensor(0, dtype=torch.int32),
+        overflow=torch.zeros((), dtype=torch.int32, device=device),
+        dropped=torch.zeros((), dtype=torch.int32, device=device))
+    kw = dict(box_size=box, ncell=ncell, capacity=cap)
+
+    def bits(st):
+        return [getattr(st, f).view(torch.int32)
+                if getattr(st, f).dtype == torch.float32
+                else getattr(st, f) for f in ("bpos", "bvel", "acc", "bmass",
+                                              "ids", "overflow")]
+
+    gather = getattr(ft, "_rebucket_gather", None) or (
+        lambda st, **k: ft._rebucket(st, **k))
+    want = bits(gather(fs, **kw))
+    bound = smoke.bound(88.0 * rows + 44.0 * (bmass.numel() - rows), 0.0)
+    calls = {"rebucket_pass": lambda: ft._rebucket(fs, n_rows=rows, **kw)}
+    if rb is not None:
+        calls["rebucket_gather_plain"] = lambda: gather(fs, **kw)
+        calls["rebucket_compact_plain"] = lambda: ft._rebucket_compact(
+            fs, n_rows=rows, **kw)
+    for key, fn in calls.items():
+        same = all(torch.equal(x, y) for x, y in zip(bits(fn()), want))
+        res[f"{name}/{key}"] = {
+            "ms": cuda_build.cuda_ms(fn, PM_REPS), "sha256": None,
+            "plain": same, "bound": bound,
+            "kernels_us": _kernel_split(fn)}
+
+
 def k4_kernels(res, name, z, geo, device) -> None:
     """Time K4 (v1, v2) and K4s (sym, sym2) on one direct-sum input into
     res and hash it."""
@@ -803,6 +869,8 @@ def worker(root: str, out: str, names: list, sass_out=None) -> dict:
         del acc
         pm_kernels(res, name, z, bpos, bmass, counts, device)
         kdk_calls(res, name, bpos, bmass, counts, device)
+        rebucket_calls(res, name, bpos, bmass, counts, geo["box_size"],
+                       device)
     return res
 
 

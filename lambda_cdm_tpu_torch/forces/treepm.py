@@ -63,11 +63,13 @@ def bucket_src_map(positions, masses, box_size, *, ncell: int,
     cid_s = cid[order]
     live_s = live[order]
 
+    # a row's rank in its cell from the cell's start in sorted order (the
+    # exclusive cumsum of the cells' counts, found by a search of the
+    # sorted ids: no serial scan over the rows and no host sync)
     idx = torch.arange(n, device=cid.device)
-    is_start = torch.ones(n, dtype=torch.bool, device=cid.device)
-    is_start[1:] = cid_s[1:] != cid_s[:-1]
-    run_start = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
-    rank = idx - run_start
+    start = torch.searchsorted(
+        cid_s, torch.arange(ncells + 1, device=cid.device))
+    rank = idx - start[cid_s]
     ok = (rank < capacity) & live_s
     nslots = ncells * capacity
     slot = torch.where(ok, cid_s * capacity + rank, nslots)

@@ -71,6 +71,10 @@ _SIGNATURES = {
     "lcdm_pm_green_gradient": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _P],
     "lcdm_pm_cic_gather3": [_P, _P, _P, _P, _P, _L, _I, _F, _F, _P],
+    "lcdm_rebucket_counts": [_P, _I, _I, _P, _P, _P, _P],
+    "lcdm_rebucket_keys": [_P, _P, _I, _I, _L, _F, _P, _P, _P, _P],
+    "lcdm_rebucket_move": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _I, _I, _L, _F, _P, _P],
 }
 
 

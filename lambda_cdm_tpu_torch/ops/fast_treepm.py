@@ -32,6 +32,7 @@ from ..physics.integrators import (drift_factor, kick_factor,
 from ..utils.profiling import count, set_step, span
 from .bucketed_pm import live_counts, pm_accelerations_bucketed
 from .kdk_update import kdk_kick, kdk_open
+from .rebucket import rebucket
 from .short_range import short_range
 
 
@@ -198,19 +199,39 @@ def _accel(fstate: FastState, *, box_size, ng, ncell, capacity, margin,
 
 def _rebucket(fstate: FastState, *, box_size, ncell, capacity,
               n_rows: int = 0) -> FastState:
-    """Re-bucketing by one stable sort and row gathers (the gather form of
-    the JAX _rebucket). Positions wrap here, where cells are re-derived.
-
-    With `n_rows` (the particle count) and a sparse layout (C*K > 4
-    n_rows, as grow-and-retry leaves it) the compact form runs instead:
-    the live slots are compacted to n_rows rows first, so the sort and
-    the gathers cost O(n_rows), not O(C*K). Both forms order each cell's
-    particles by their old slot, so they give identical states."""
+    """Re-bucketing, with positions wrapped here, where cells are
+    re-derived. On the card (CUDA tensors) one pass over live rows only
+    (ops/rebucket.py) for either layout; elsewhere the plain forms: the
+    gather form (the JAX _rebucket's), or with `n_rows` (the particle
+    count) and a sparse layout (C*K > 4 n_rows, as grow-and-retry and
+    the science plan leave it) the compact form, which compacts the live
+    slots to n_rows rows first, so its sort and gathers cost O(n_rows),
+    not O(C*K). All three order each cell's particles by their old slot,
+    so with n_rows at least the live rows (or 0) they give identical
+    states, bit for bit."""
     bshape = fstate.bmass.shape
-    s = bshape[0] * bshape[1]
-    if n_rows and s > 4 * n_rows:
+    if fstate.bpos.is_cuda:
+        if capacity != bshape[1]:
+            raise ValueError(f"_rebucket: capacity {capacity} is not the "
+                             f"layout's {bshape[1]}")
+        pos, vel, acc, mass, ids, grew = rebucket(
+            fstate.bpos, fstate.bvel, fstate.acc, fstate.bmass, fstate.ids,
+            box_size=box_size, ncell=ncell, n_rows=n_rows)
+        return fstate.replace(bpos=pos, bvel=vel, acc=acc, bmass=mass,
+                              ids=ids, overflow=fstate.overflow + grew)
+    if n_rows and bshape[0] * bshape[1] > 4 * n_rows:
         return _rebucket_compact(fstate, box_size=box_size, ncell=ncell,
                                  capacity=capacity, n_rows=n_rows)
+    return _rebucket_gather(fstate, box_size=box_size, ncell=ncell,
+                            capacity=capacity)
+
+
+def _rebucket_gather(fstate: FastState, *, box_size, ncell,
+                     capacity) -> FastState:
+    """The gather rebucket (the JAX _rebucket's dense form): one stable
+    sort of every slot's cell and row gathers."""
+    bshape = fstate.bmass.shape
+    s = bshape[0] * bshape[1]
     pos3, mass = _wrapped_rows(fstate, box_size)
     shape = fstate.bpos.shape
     src, _, _, _, overflow = bucket_src_map(
@@ -315,8 +336,9 @@ def fast_run(fstate: FastState, params: CosmologyParams, dt, *,
     particles that did not fit. `kw` is initialize_fast's dict (either
     package's): the geometry, the integration knobs, `variant`, `pm_only`
     and `n_rows` (rows of the compact rebucket, 0 for the gather form).
-    A rebucket pass, with its overflow check, is the span
-    `fast.rebucket` and counts in `rebuckets`."""
+    A rebucket pass, with its overflow check (on the card one readback
+    of the pass's overflow; the plain forms read both totals), is the
+    span `fast.rebucket` and counts in `rebuckets`."""
     remaining = n_steps
     since = max(0, int(steps_since_rebucket))
     kw = dict(kw)                    # callers reuse their kw dict
@@ -329,8 +351,13 @@ def fast_run(fstate: FastState, params: CosmologyParams, dt, *,
                                ncell=kw["ncell"], capacity=kw["capacity"],
                                n_rows=n_rows)
                 if on_overflow == "raise":
-                    count("readbacks", 2)
-                    if int(rb.overflow) > int(fstate.overflow):
+                    if rb.bpos.is_cuda:     # the card's pass: one wait
+                        count("readbacks")
+                        lossy = int(rb.overflow - fstate.overflow) > 0
+                    else:
+                        count("readbacks", 2)
+                        lossy = int(rb.overflow) > int(fstate.overflow)
+                    if lossy:
                         raise BucketOverflowError(fstate,
                                                   n_steps - remaining)
             fstate = rb

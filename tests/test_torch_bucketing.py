@@ -185,3 +185,80 @@ def test_rebucket_compact_form_exact(ncell, cap, extra):
     for k, v in interop.fast_state_to_arrays(compact).items():
         np.testing.assert_array_equal(v, gather[k], err_msg=k)
     assert (int(compact.overflow) > 0) == (cap == 12)
+
+
+def _src_map_cummax(positions, masses, box_size, *, ncell, capacity):
+    """bucket_src_map as the port first wrote it: each row's rank in its
+    cell from a serial cummax of the runs' starts over the sorted ids."""
+    import torch
+    soa = positions.ndim == 2 and positions.shape[0] == 3
+    n = positions.shape[1] if soa else positions.shape[0]
+    ncells = ncell ** 3
+    comps = ((positions[0], positions[1], positions[2]) if soa else
+             (positions[:, 0], positions[:, 1], positions[:, 2]))
+    box = torch.tensor(box_size, dtype=comps[0].dtype)
+    cx, cy, cz = (torch.clamp(torch.floor(c / box * ncell)
+                              .to(torch.int64), 0, ncell - 1)
+                  for c in comps)
+    live = masses > 0
+    cid = torch.where(live, (cx * ncell + cy) * ncell + cz, ncells)
+    order = torch.argsort(cid, stable=True)
+    cid_s, live_s = cid[order], live[order]
+    idx = torch.arange(n)
+    is_start = torch.ones(n, dtype=torch.bool)
+    is_start[1:] = cid_s[1:] != cid_s[:-1]
+    rank = idx - torch.cummax(torch.where(is_start, idx, 0), dim=0).values
+    ok = (rank < capacity) & live_s
+    slot = torch.where(ok, cid_s * capacity + rank, ncells * capacity)
+    src = torch.full((ncells * capacity + 1,), n, dtype=torch.int64)
+    src[slot] = order
+    return src[:-1], slot, order, ok, torch.sum(~ok & live_s)
+
+
+def _src_map_case(case, seed=4):
+    """(positions [N, 3], masses, box, ncell, capacity) of one case."""
+    rng = np.random.default_rng(seed)
+    box, ncell = 16.0, 4
+    if case == "ties":          # many rows on a few points, in two cells
+        pos = np.repeat(rng.uniform(0, 4, (5, 3)), 40, axis=0)
+        m = np.ones(len(pos))
+        return pos, m, box, ncell, 256
+    if case == "empty_cells":   # rows in one octant: most cells empty
+        pos = rng.uniform(0, 7.9, (300, 3))
+        m = rng.uniform(0.5, 1.0, 300)
+        m[::7] = 0.0
+        return pos, m, box, ncell, 64
+    if case == "overflow":      # a clump over its cell's capacity
+        pos = np.concatenate([rng.uniform(0, box, (400, 3)),
+                              rng.uniform(9, 11, (200, 3))])
+        return pos, np.ones(len(pos)), box, ncell, 24
+    if case == "all_dead":
+        pos = rng.uniform(0, box, (200, 3))
+        return pos, np.zeros(200), box, ncell, 8
+    if case == "edges":         # on and beside cell faces, and outside
+        pos, m = _boundary_particles(1200, box, ncell, seed)
+        pos[:50] += np.float32(box)
+        pos[50:100] -= np.float32(box)
+        return pos, m, box, ncell, 128
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("soa", [False, True])
+@pytest.mark.parametrize("case", ["ties", "empty_cells", "overflow",
+                                  "all_dead", "edges"])
+def test_bucket_src_map_ranks_from_cell_starts(case, soa):
+    """The ranks from the cells' starts give every output of the serial
+    cummax form, exactly, on ties, empty cells, overflow, an all-dead
+    input and rows on or outside the cells' faces, in both layouts."""
+    pos, m, box, ncell, cap = _src_map_case(case)
+    pos = pos.astype(np.float32)
+    p = tt(pos.T.copy() if soa else pos)
+    want = _src_map_cummax(p, tt(m.astype(np.float32)), box, ncell=ncell,
+                           capacity=cap)
+    got = ttp.bucket_src_map(p, tt(m.astype(np.float32)), box, ncell=ncell,
+                             capacity=cap)
+    for name, w, g in zip(("src", "slot", "order", "ok", "overflow"),
+                          want, got):
+        np.testing.assert_array_equal(nn(g), nn(w), err_msg=name)
+        assert g.dtype == w.dtype, name
+    assert (int(got[4]) > 0) == (case == "overflow")

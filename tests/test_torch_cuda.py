@@ -409,10 +409,10 @@ def test_stepper_on_card_matches_cpu(cuda_device):
 
 
 def test_compact_rebucket_on_card(cuda_device):
-    """The compact rebucket of a sparse layout (C*K > 4 n_rows, as
-    grow-and-retry leaves it) on the card: field by field equal to the
-    gather form on the card, and to the compact form on the CPU (ids and
-    masses exactly, positions to an ulp of the wrap)."""
+    """The rebucket of a sparse layout (C*K > 4 n_rows, as grow-and-retry
+    leaves it) on the card, through the card's pass: field by field equal
+    to the plain gather form on the card, and to the compact form on the
+    CPU (ids and masses exactly, positions to an ulp of the wrap)."""
     n, box, ncell, cap = 1200, 24.0, 8, 16
     pos, m = uniform_particles(n, box, 3)
     vel = np.random.default_rng(3).normal(size=(n, 3)).astype(np.float32)
@@ -432,7 +432,7 @@ def test_compact_rebucket_on_card(cuda_device):
                                          fs.bpos + tt(drift).to(dev), 0.0))
         out[dev.type] = fast_treepm._rebucket(fs, n_rows=n, **kw)
         if dev.type == "cuda":
-            gather = fast_treepm._rebucket(fs, **kw)
+            gather = fast_treepm._rebucket_gather(fs, **kw)
     g, c = out["cuda"], out["cpu"]
     for name in ("bpos", "bvel", "acc", "bmass", "ids", "overflow"):
         assert torch.equal(getattr(g, name), getattr(gather, name)), name
@@ -441,6 +441,111 @@ def test_compact_rebucket_on_card(cuda_device):
     assert torch.equal(g.bvel.cpu(), c.bvel)
     assert _rel(g.bpos.cpu(), c.bpos) < 1e-6
     assert int(g.overflow) == int(c.overflow) == 0
+
+
+REBUCKET_LAYOUTS = {"treepm_1m": (32, 64, 1_000_000),
+                    "science": (16, 8192, 300_000),
+                    "ncell24": (24, 128, 500_000)}
+
+
+def _rebucket_input(dev, layout, scenario):
+    """A drifted live-first state on the card and its geometry: the
+    treepm_1m layout (32^3 cells of 64 slots, 1M rows), a science-plan
+    layout (16^3 cells of 8,192 slots, 300k rows: the compact branch) or
+    a cell count that is no power of two (24^3 cells of 128 slots, 500k
+    rows), its rows moved by 0.4 of a cell (rms); `edges` moves the rows
+    of the box's outer cells by a cell outwards (up to a cell outside the
+    box) and a twentieth of the rows exactly onto cell faces (-cell, 0
+    and the box included); `overflow` piles rows over one cell's
+    capacity; `dead_cell` empties cell 5 at the input."""
+    ncell, cap, n = REBUCKET_LAYOUTS[layout]
+    box = 100.0
+    gen = torch.Generator(device=dev).manual_seed(17)
+    pos = torch.rand((n, 3), generator=gen, device=dev) * box
+    vel = torch.randn((n, 3), generator=gen, device=dev)
+    mass = torch.rand(n, generator=gen, device=dev) + 0.5
+    if scenario == "dead_cell":
+        cell = box / ncell
+        inside = ((pos // cell).long() == torch.tensor(
+            [0, 0, 5], device=dev)).all(1)
+        pos = pos[~inside]
+        vel, mass = vel[~inside], mass[~inside]
+        n = pos.shape[0]
+    plan = {"ncell": ncell, "capacity": cap}
+    fs = fast_treepm.build_fast_state(pos, vel, mass, 0.5, box_size=box,
+                                      plan=plan)
+    assert int(fs.overflow) == 0
+    live = fs.bmass > 0
+    shift = torch.randn(fs.bpos.shape, generator=gen, device=dev) * (
+        0.4 * box / ncell)
+    bpos = fs.bpos + shift
+    rows = torch.nonzero(live.reshape(-1))[:, 0]
+    flat = bpos.reshape(3, -1)
+    if scenario == "edges":
+        cell = box / ncell
+        flat -= torch.where(flat < cell, cell, 0.0)
+        flat += torch.where(flat >= box - cell, cell, 0.0)
+        k = rows.numel() // 20
+        on = rows[torch.randperm(rows.numel(), generator=gen,
+                                 device=dev)[:k]]
+        flat[:, on] = torch.randint(-1, ncell + 1, (3, k), generator=gen,
+                                    device=dev).float() * torch.tensor(
+            cell, device=dev)
+    if scenario == "overflow":
+        crowd = rows[:cap + cap // 2]
+        flat[:, crowd] = 50.0 + torch.rand(
+            (3, crowd.numel()), generator=gen, device=dev) * 1e-3
+    acc = torch.randn(fs.bpos.shape, generator=gen, device=dev)
+    fs = fs.replace(bpos=torch.where(live[None], bpos, 0.0),
+                    acc=torch.where(live[None], acc, 0.0))
+    return fs, dict(box_size=box, ncell=ncell, capacity=cap), n
+
+
+@pytest.mark.parametrize("scenario", ["drift", "edges", "overflow",
+                                      "dead_cell"])
+@pytest.mark.parametrize("layout", list(REBUCKET_LAYOUTS))
+def test_rebucket_card_route_matches_plain(cuda_device, layout, scenario):
+    """The card's rebucket pass (ops/rebucket.py) against both plain forms
+    on the same card state, bit for bit in every field and in the overflow
+    count, with n_rows the particle count and 0: dead slots 0 and ids -1;
+    rows over a cell's capacity left out alike ("drop"), and under
+    "raise" fast_run raises before accepting the pass, carrying the
+    input state; one launch a pass."""
+    from lambda_cdm_tpu_torch.ops import rebucket
+    fs, kw, n = _rebucket_input(cuda_device, layout, scenario)
+    kept = {f: getattr(fs, f).clone() for f in ("bpos", "bvel", "acc",
+                                                "bmass", "ids")}
+    before = rebucket.launches["rebucket"]
+    card = fast_treepm._rebucket(fs, n_rows=n, **kw)
+    card0 = fast_treepm._rebucket(fs, **kw)
+    assert rebucket.launches["rebucket"] == before + 2
+    plains = {"gather": fast_treepm._rebucket_gather(fs, **kw),
+              "compact": fast_treepm._rebucket_compact(fs, n_rows=n, **kw)}
+    for got in (card, card0):
+        for name, want in plains.items():
+            for f in ("bpos", "bvel", "acc", "bmass"):
+                assert torch.equal(_bits(getattr(got, f)),
+                                   _bits(getattr(want, f))), (name, f)
+            assert torch.equal(got.ids, want.ids), name
+            assert int(got.overflow) == int(want.overflow), name
+        dead = got.bmass == 0
+        assert not got.bpos[:, dead].any() and not got.bvel[:, dead].any()
+        assert not got.acc[:, dead].any()
+        assert bool((got.ids[dead] == -1).all())
+        assert bool((got.ids[~dead] >= 0).all())
+    for f, t in kept.items():
+        assert torch.equal(getattr(fs, f), t), f
+    lost = int(card.overflow)
+    assert (lost > 0) == (scenario == "overflow")
+    assert int((card.bmass > 0).sum()) == n - lost
+    if scenario == "dead_cell":
+        assert int((fs.bmass[5] > 0).sum()) == 0
+    if scenario == "overflow":
+        with pytest.raises(fast_treepm.BucketOverflowError) as exc:
+            fast_treepm.fast_run(fs, CosmologyParams(), 1e-3,
+                                 rebucket_every=1, steps_since_rebucket=1,
+                                 on_overflow="raise", n_rows=n, **kw)
+        assert exc.value.fstate is fs and exc.value.steps_done == 0
 
 
 # K4/K4s against their plain versions on the card: the same arithmetic,

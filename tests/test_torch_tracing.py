@@ -327,3 +327,41 @@ def test_readbacks_match_the_cards_sync_debug_mode():
     assert n["warned"] > 0
     assert tot["counters"]["readbacks"] == n["warned"] + n["synchronized"]
     assert tot["spans"]["fast.accel"]["device_s"] > 0.0
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_fused_rebucket_counts_the_card_route(device):
+    """`fused_rebucket` counts each rebucket pass that took the card's
+    route (ops/rebucket.py): all of them on the card, none on the CPU,
+    where the plain forms run. In fast_run a pass on the card makes one
+    readback (its overflow), the plain forms 3 (the box tensor's copy, the
+    overflow twice) and the compact form's nonzero."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (on the GPU host: python -m pytest "
+                    "tests/test_torch_tracing.py -m cuda --noconftest)")
+    from lambda_cdm_tpu_torch.physics.cosmology import CosmologyParams
+    rng = np.random.default_rng(23)
+    pos = torch.tensor(rng.uniform(0.0, BOX, (N, 3)), dtype=torch.float32,
+                       device=device)
+    vel = torch.tensor(rng.normal(0.0, 0.01, (N, 3)), dtype=torch.float32,
+                       device=device)
+    fs, kw = fast_treepm.initialize_fast(
+        pos, vel, torch.full((N,), 1e-3, device=device), 1.0, box_size=BOX,
+        pm_grid=24, softening=1.0, g_const=1e-8, kick_mode="newtonian",
+        cosmological=False)
+    compact = fs.bmass.numel() > 4 * N
+    run = dict(rebucket_every=2, n_steps=2 * CHUNK, on_overflow="raise",
+               **kw)
+    fast_treepm.fast_run(fs, CosmologyParams(), 1.0, **run)   # warms up
+    with profiling.tracing():
+        fast_treepm.fast_run(fs, CosmologyParams(), 1.0, **run)
+    counters = profiling.trace_totals()["counters"]
+    passes = CHUNK - 1
+    assert counters["rebuckets"] == passes
+    if device == "cpu":
+        assert "fused_rebucket" not in counters
+        assert counters["readbacks"] == passes * (3 + compact)
+    else:
+        assert counters["fused_rebucket"] == passes
+        assert counters["readbacks"] == passes
