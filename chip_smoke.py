@@ -4265,17 +4265,19 @@ def _fast_rank_run(label: str, path: str, steps: int, change: dict,
     synchronize(eng._fstate.acc)
     init_s = time.perf_counter() - t0
     mesh, fs = eng._mesh, eng._fstate
-    kw = dict(eng._fast_mesh_kw)
+    kw = dict(eng._fast_kw)
     g = fm.gather_fast_state(fs, mesh)
     out = {"kw": kw, "dims": mesh.dims, "transport": mesh.transport,
-           "stepper": (eng._fast_mesh_2d, eng._fast_mesh_3d),
+           "stepper": (eng._stepper.ndim == 2, eng._stepper.ndim == 3),
            "init_s": init_s, "start_overflow": int(fs.overflow),
            "start_dropped": int(fs.dropped),
            **{f"start_{k}": getattr(g, f).cpu().numpy() for k, f in
               (("bpos", "bpos"), ("bmass", "bmass"), ("ids", "ids"),
                ("acc", "acc"))}}
     del g
-    accel_fn = eng._mesh_fast.accel
+    from lambda_cdm_tpu_torch.parallel import fast_mesh2d, fast_mesh3d
+    accel_fn = {1: fm.mesh_fast_accel, 2: fast_mesh2d.mesh_fast_accel2d,
+                3: fast_mesh3d.mesh_fast_accel3d}[eng._stepper.ndim]
     accel = {k: kw[k] for k in fm.ACCEL_KEYS}
     mesh.barrier()
     t0 = time.perf_counter()
@@ -4303,7 +4305,6 @@ def _fast_rank_run(label: str, path: str, steps: int, change: dict,
             mig_capacity=nc * nc * cap)
         out["mig_moved"] = int(mig)
     else:
-        from lambda_cdm_tpu_torch.parallel import fast_mesh2d, fast_mesh3d
         # the block's cells along x, y, z (z whole on the pencils)
         nloc = [nc // d for d in mesh.dims] + [nc] * (3 - mesh.ndim)
         face = max(math.prod(nloc) // n for n in nloc)
@@ -4338,7 +4339,7 @@ def _fast_rank_run(label: str, path: str, steps: int, change: dict,
                end_a=float(st.scale_factor),
                overflow=int(eng._fstate.overflow),
                dropped=int(eng._fstate.dropped),
-               end_cap=eng._fast_mesh_kw["capacity"],
+               end_cap=eng._fast_kw["capacity"],
                steps=eng.statistics.total_steps,
                compute_s=eng.statistics.compute_time_s, wall_s=wall,
                launches=dict(zip(keys, summed.tolist())))

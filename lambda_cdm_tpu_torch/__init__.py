@@ -1,29 +1,22 @@
 """lambda_cdm_tpu_torch: the Lambda-CDM N-body framework of lambda_cdm_tpu
-ported to PyTorch, with hand-written CUDA kernels for an NVIDIA Hopper
-GPU (sm_90a).
+in PyTorch, with hand-written CUDA kernels for an NVIDIA Hopper GPU
+(sm_90a, csrc/).
 
-Ported so far: the single-device treepm_fast path -- config, 2LPT
-initial conditions, the cell-bucketed stepper with its three kernels
-(K1 CIC deposit, K2 fused CIC x fd4 gather, K3 short-range pairs), the
-engine/builder with its diagnostics, snapshots and checkpoints -- the
-CLI run with its analysis: P(k), the FoF + SO halo finder with its
-kernel (K5 FoF hook sweep) and the config-driven observers -- and the
-stateless solvers (direct with its kernels K4/K4s, pm, treepm) behind the
-force-computer registry, with the engine's fused KDK loop, the
-force-accuracy harness, EnergyMonitor and glass initial conditions --
-and the lensing raytracer: lens planes, Born maps, multi-plane ray tracing
-with Jacobians through its sampler kernel (K6/K7), the angular spectra
-and LensingObserver -- and the JAX package's random streams
-(utils/prng: jax.random's Threefry keys, uniforms and normals, so a
-config gives the JAX package's particles), the float64 Ewald oracle,
-merger trees, the torch.profiler trace, the engine's warmup and
-CompiledForceEngine -- and the hdf5 / .lcdm (native/, the JAX package's
-C++ runtime) / port-only "orbax" formats, the example scripts
-(examples/), and the 1D-slab multi-rank path on torch.distributed
-(parallel/: the ring direct sum through K4's and K9's cross forms, the
-sharded PM, migration, the slab FFT; compute.mesh in the engine). The
-kernels' plain PyTorch versions run for CPU tensors. This package never imports JAX; the tests hold it against
-lambda_cdm_tpu.
+Its main path is treepm_fast: a persistent cell-bucketed stepper whose
+force is a CIC deposit (K1), an FFT Poisson solve and an fd4 gather (K2)
+plus short-range pairs (K3), with the KDK updates and the rebucket pass
+on the card. Beside it: the config and the builder/engine with its
+diagnostics, snapshots and checkpoints (npz, hdf5, the native .lcdm
+codec); 2LPT and glass initial conditions drawn from the JAX package's
+random streams; the stateless solvers (direct through K4/K4s, pm on its
+own scatter and gather kernels, treepm) behind the force-computer
+registry; the analysis (P(k), FoF with K5 and SO halos, merger trees);
+the lensing raytracer with its sampler (K6/K7); the CLI, the science run
+and the examples; and the multi-rank path on torch.distributed (parallel/:
+the ring direct sum, the sharded PM and TreePM, migration, the slab and
+pencil FFTs, and the slab, pencil and block fast steppers). The kernels'
+plain PyTorch versions run for CPU tensors. This package never imports
+JAX; the tests hold it against lambda_cdm_tpu.
 """
 
 __version__ = "0.1.0"

@@ -15,7 +15,9 @@ in output-cadence chunks on one of two branches:
 carries the rebucket cadence across chunks, grows the bucket capacity
 and retries when a rebucket would overflow, halves the cadence when
 deposits were dropped, and syncs the public SimState (original particle
-order, positions wrapped into the box) for the observers.
+order, positions wrapped into the box) for the observers. One device and
+the ranks' sharded steppers share that set-up, chunk and grow-and-retry
+loop through one record, FastStepper, which holds where they differ.
 
 Diagnostics (energy, momentum, angular momentum), the force-accuracy
 harness (validate_force_accuracy against a direct-sum oracle), npz
@@ -63,6 +65,7 @@ from __future__ import annotations
 
 import contextlib
 import enum
+import functools
 import logging
 import math
 import time
@@ -87,19 +90,41 @@ def _force_seconds() -> tuple:
     return (tot.count, tot.device_s) if tot is not None else (0, 0.0)
 
 
-def _accel_kw(fast_kw: dict) -> dict:
-    """The keys of initialize_fast's dict that fast_treepm._accel takes."""
-    keys = ("box_size", "ng", "ncell", "capacity", "margin", "rs",
-            "softening", "g_const", "gradient", "pm_only", "variant")
-    return {k: fast_kw[k] for k in keys if k in fast_kw}
+def _live_rows(fstate):
+    """(positions, velocities, masses, ids) of the slots of fstate that
+    hold a particle (id >= 0), in slot order."""
+    from ..ops.fast_treepm import flatten_fast_state
+    pos, vel, mass, ids = flatten_fast_state(fstate, with_ids=True)
+    live = ids >= 0
+    count("readbacks", 4)            # each boolean mask waits
+    return pos[live], vel[live], mass[live], ids[live]
 
 
-class MeshStepper(NamedTuple):
-    """The sharded fast stepper the mesh axes chose: fast_mesh's,
-    fast_mesh2d's or fast_mesh3d's functions."""
+class FastStepper(NamedTuple):
+    """The fast stepper the engine drives, with the configuration's
+    keywords bound into `initialize` (and the mesh into both functions on
+    ranks): ops/fast_treepm's initialize_fast and fast_run on one device,
+    or a sharded stepper's (parallel/fast_mesh, fast_mesh2d,
+    fast_mesh3d). Where the two differ, the difference is here: `rows`
+    gives the live rows of every rank (a collective on ranks), `all_max`
+    the largest of a [1] tensor over the ranks; ranks grow and retry
+    `retries` times, then count the loss (strays farther than a neighbour
+    slab are not cured by capacity); `carry_drops`: a grown state's first
+    force adds its drops to the counter (the JAX engine's does on one
+    device, not on ranks)."""
     initialize: Callable
     run: Callable
-    accel: Callable
+    rows: Callable
+    all_max: Callable
+    retries: float
+    carry_drops: bool
+    mesh: object                     # parallel.mesh.Mesh, None on one device
+
+    @property
+    def ndim(self) -> int:
+        """The rank grid's dimensions: 0 on one device, 1 on the slabs, 2
+        on the pencils, 3 on the blocks."""
+        return 0 if self.mesh is None else self.mesh.ndim
 
 
 class LifecycleState(enum.Enum):
@@ -156,13 +181,9 @@ class SimulationEngine:
         self.last_energy_error: float | None = None
         self._state: SimState | None = None
         self._fstate = None
-        self._fast_kw: dict | None = None
-        self._fast_mesh_kw: dict | None = None   # parallel/fast_mesh's
-        # the sharded fast stepper on the pencil or the block grid
-        self._fast_mesh_2d = self._fast_mesh_3d = False
-        self._mesh_fast: MeshStepper | None = None   # the one they chose
-        # "single" or "mesh": re-bucket at the next run/step
-        self._fast_rebuild = None
+        self._fast_kw: dict | None = None     # the stepper's dict
+        # kept through release_force_state(): the next run/step re-buckets
+        self._stepper: FastStepper | None = None
         self._state_sharded = False       # _state holds this rank's rows
         self._acc = None                  # accelerations at state.positions
         # (key, kdk_factors of the steps) computed ahead by the last chunk
@@ -197,10 +218,8 @@ class SimulationEngine:
         else:
             self._state = self._on_device(new_state)
         self._acc = None
-        if self._fast_mesh_kw is not None:
-            self._init_mesh_fast_or_stateless(self._state)
-        elif self._fstate is not None:
-            self._init_fast_path()
+        if self._fstate is not None and not self._init_fast(self._state):
+            self._init_mesh_path(self._state)
 
     @property
     def accel_fn(self):
@@ -222,25 +241,22 @@ class SimulationEngine:
         try:
             cfg = self.config
             cfg.validate()
-            use_mesh = cfg.compute.mesh.enabled and self._check_mesh_config()
-            use_fast = (cfg.forces.type in ("treepm_fast", "pm_fast")
-                        and not use_mesh)
+            use_mesh = self._on_ranks()
+            # pm_fast on ranks is the sharded PM (the JAX engine's rule)
+            use_fast = cfg.forces.type == "treepm_fast" or (
+                cfg.forces.type == "pm_fast" and not use_mesh)
             if state is None:
                 from ..physics.initial_conditions import generate_state
                 state = generate_state(cfg, device=self.device)
-            if use_mesh and cfg.forces.type == "treepm_fast":
-                self._init_mesh_fast_or_stateless(state)
-            elif use_mesh:
-                self._init_mesh_path(state)
-            else:
-                if not use_fast:
+            if not (use_fast and self._init_fast(state)):
+                if use_mesh:
+                    self._init_mesh_path(state)
+                else:
                     from ..forces import create_force_computer
                     self._accel_fn = create_force_computer(cfg)
-                self._state = self._on_device(state)
+                    self._state = self._on_device(state)
             self._acc = None
             self._dt = host_scalar(cfg.time.initial_timestep)
-            if use_fast:
-                self._init_fast_path()
             if cfg.validation.check_initial_conditions:
                 self._validate_state()
             if cfg.validation.validate_forces:
@@ -269,87 +285,14 @@ class SimulationEngine:
             raise ValueError("zero-mass particles outside mesh-padding mode")
 
     # -- multi-rank path: the rank mesh on torch.distributed -----------------
-    def _check_mesh_config(self) -> bool:
-        """Whether compute.mesh runs on ranks: when the process group has
-        more than one (on one rank the JAX engine runs its single-device
-        path, and so does this one)."""
+    def _on_ranks(self) -> bool:
+        """Whether the run is sharded over ranks: compute.mesh and a
+        process group of more than one (on one rank the JAX engine runs
+        its single-device path, and so does this one)."""
+        if not self.config.compute.mesh.enabled:
+            return False
         from ..parallel.mesh import world_size
         return world_size() > 1
-
-    def _init_mesh_fast_or_stateless(self, state: SimState) -> None:
-        """treepm_fast on ranks: the sharded fast stepper where it applies
-        (_try_init_mesh_fast_path), else the stateless sharded TreePM."""
-        if not self._try_init_mesh_fast_path(state):
-            self._init_mesh_path(state)
-
-    def _try_init_mesh_fast_path(self, state: SimState) -> bool:
-        """A sharded fast stepper from the global state: the buckets stay
-        resident and sharded between steps. compute.mesh.axes with shx,
-        shy and shz takes the 3D block stepper (parallel/fast_mesh3d),
-        with shx and shy the 2D pencil one (fast_mesh2d), without shz the
-        1D slab one (fast_mesh). False where the JAX engine takes the
-        stateless sharded TreePM instead: shz without both shx and shy, or
-        a box whose plan is None (logged)."""
-        from ..forces import auto_pm_grid
-        from ..parallel.mesh import make_mesh, make_mesh2d, make_mesh3d
-        cfg = self.config
-        axes = dict(cfg.compute.mesh.axes or {})
-        self._fast_mesh_3d = all(a in axes for a in ("shx", "shy", "shz"))
-        self._fast_mesh_2d = (not self._fast_mesh_3d and "shx" in axes
-                              and "shy" in axes)
-        if self._fast_mesh_3d:
-            from ..parallel import fast_mesh3d as m
-            mesh = make_mesh3d((int(axes["shx"]), int(axes["shy"]),
-                                int(axes["shz"])), device=self.device)
-            stepper = (m.initialize_mesh_fast3d, m.mesh_fast_run3d,
-                       m.mesh_fast_accel3d)
-        elif "shz" in axes:
-            return False
-        elif self._fast_mesh_2d:
-            from ..parallel import fast_mesh2d as m
-            mesh = make_mesh2d((int(axes["shx"]), int(axes["shy"])),
-                               device=self.device)
-            stepper = (m.initialize_mesh_fast2d, m.mesh_fast_run2d,
-                       m.mesh_fast_accel2d)
-        else:
-            from ..parallel import fast_mesh as m
-            mesh = make_mesh(device=self.device)
-            stepper = (m.initialize_mesh_fast, m.mesh_fast_run,
-                       m.mesh_fast_accel)
-        self._mesh_fast = MeshStepper(*stepper)
-        initialize = self._mesh_fast.initialize
-        cosmological = cfg.cosmology.model != "Newtonian"
-        t0 = time.perf_counter()
-        try:
-            self._fstate, self._fast_mesh_kw = initialize(
-                state.positions, state.velocities, state.masses,
-                state.scale_factor, mesh=mesh,
-                box_size=cfg.particles.box_size, pm_grid=auto_pm_grid(cfg),
-                softening=cfg.forces.softening_length, g_const=cfg.units.G,
-                split_factor=cfg.forces.split_factor,
-                cut_factor=cfg.forces.cut_factor,
-                capacity=cfg.forces.bucket_capacity,
-                time=state.time, step=state.step,
-                h0_internal=cfg.units.H0_internal,
-                kick_mode=(cfg.integration.kick_mode if cosmological
-                           else "newtonian"),
-                sf_method=cfg.integration.scale_factor_update,
-                cosmological=cosmological)
-        except ValueError as exc:
-            _log.info("mesh treepm_fast unavailable (%s); falling back to "
-                      "the stateless sharded TreePM", exc)
-            self._fstate = self._fast_mesh_kw = self._mesh_fast = None
-            return False
-        synchronize(self._fstate.acc)
-        self.statistics.compile_time_s += time.perf_counter() - t0
-        self._mesh = mesh
-        self._mesh_bounds = None
-        self._state = self._on_device(state)
-        self._state_sharded = False
-        self._fast_n = state.positions.shape[0]
-        self._fast_since_rebucket = 0
-        self._accel_fn = None
-        return True
 
     def _init_mesh_path(self, state: SimState) -> None:
         """Shard the run over the rank mesh (the JAX engine's
@@ -526,36 +469,96 @@ class SimulationEngine:
         self._acc = None
 
     # -- treepm_fast path: persistent cell-list state ------------------------
-    def _init_fast_path(self) -> None:
-        """Bucket `state` into the fast stepper and evaluate its first
-        force (span `engine.init_fast`)."""
+    def _stepper_kw(self) -> dict:
+        """The fast steppers' keywords from the configuration (every
+        initializer takes them), kdk_factors' among them."""
         from ..forces import auto_pm_grid
-        from ..ops.fast_treepm import initialize_fast
         cfg = self.config
-        st = self._state
-        cosmological = cfg.cosmology.model != "Newtonian"
-        self._fast_n = st.positions.shape[0]
+        return dict(self._factor_kw(), box_size=cfg.particles.box_size,
+                    pm_grid=auto_pm_grid(cfg),
+                    softening=cfg.forces.softening_length,
+                    g_const=cfg.units.G, split_factor=cfg.forces.split_factor,
+                    cut_factor=cfg.forces.cut_factor,
+                    capacity=cfg.forces.bucket_capacity)
+
+    def _fast_stepper(self) -> FastStepper | None:
+        """The fast stepper the configuration chooses, its keywords bound:
+        ops/fast_treepm's on one device; on ranks (the JAX engine's
+        _try_init_mesh_fast_path) with compute.mesh.axes shx, shy and shz
+        the 3D block stepper (parallel/fast_mesh3d), with shx and shy the
+        2D pencil one (fast_mesh2d), without shz the 1D slab one
+        (fast_mesh), and None with shz alone, where the JAX engine takes
+        the stateless sharded TreePM."""
+        cfg = self.config
+        kw = self._stepper_kw()
+        if not self._on_ranks():
+            from ..ops import fast_treepm as ft
+            return FastStepper(
+                initialize=functools.partial(
+                    ft.initialize_fast, gradient=cfg.forces.gradient,
+                    pm_only=cfg.forces.type == "pm_fast", **kw),
+                run=ft.fast_run, rows=_live_rows, all_max=lambda t: t,
+                retries=math.inf, carry_drops=True, mesh=None)
+        from ..parallel import mesh as pmesh
+        from ..parallel.fast_mesh import gather_fast_state
+        axes = dict(cfg.compute.mesh.axes or {})
+        dims = tuple(int(axes[a]) for a in pmesh.AXES_3D if a in axes)
+        if len(dims) == 3:
+            from ..parallel import fast_mesh3d as m
+            mesh = pmesh.make_mesh3d(dims, device=self.device)
+            init, run = m.initialize_mesh_fast3d, m.mesh_fast_run3d
+        elif "shz" in axes:
+            return None
+        elif len(dims) == 2:
+            from ..parallel import fast_mesh2d as m
+            mesh = pmesh.make_mesh2d(dims, device=self.device)
+            init, run = m.initialize_mesh_fast2d, m.mesh_fast_run2d
+        else:
+            from ..parallel import fast_mesh as m
+            mesh = pmesh.make_mesh(device=self.device)
+            init, run = m.initialize_mesh_fast, m.mesh_fast_run
+        return FastStepper(
+            initialize=functools.partial(init, mesh=mesh, **kw),
+            run=functools.partial(run, mesh=mesh),
+            rows=lambda fs: _live_rows(gather_fast_state(fs, mesh)),
+            all_max=lambda t: mesh.all_reduce(t, "max"),
+            retries=6, carry_drops=False, mesh=mesh)
+
+    def _init_fast(self, state: SimState) -> bool:
+        """The fast stepper's set-up (span `engine.init_fast`): the stepper
+        `_fast_stepper` chooses buckets `state` once and evaluates its
+        first force, without grow-and-retry. On ranks every rank buckets
+        the same global state and keeps its cells, and `state` stays the
+        global state on every rank. False, where the JAX engine takes the
+        stateless sharded TreePM instead: shz alone, or a box whose
+        sharded plan is None (logged)."""
+        self._fstate = self._fast_kw = self._stepper = None
+        stepper = self._fast_stepper()
+        if stepper is None:
+            return False
+        state = self._on_device(state)
         t0 = time.perf_counter()
-        with span("engine.init_fast", device=st.positions.is_cuda):
-            profiling.set_step(st.step)
-            self._fstate, self._fast_kw = initialize_fast(
-                st.positions, st.velocities, st.masses, st.scale_factor,
-                box_size=cfg.particles.box_size, pm_grid=auto_pm_grid(cfg),
-                softening=cfg.forces.softening_length, g_const=cfg.units.G,
-                split_factor=cfg.forces.split_factor,
-                cut_factor=cfg.forces.cut_factor,
-                capacity=cfg.forces.bucket_capacity,
-                gradient=cfg.forces.gradient,
-                pm_only=(cfg.forces.type == "pm_fast"),
-                time=st.time, step=st.step,
-                h0_internal=cfg.units.H0_internal,
-                kick_mode=(cfg.integration.kick_mode if cosmological
-                           else "newtonian"),
-                sf_method=cfg.integration.scale_factor_update,
-                cosmological=cosmological)
-            self._fast_since_rebucket = 0
-            synchronize(self._fstate.acc)
+        with span("engine.init_fast", device=state.positions.is_cuda):
+            profiling.set_step(state.step)
+            try:
+                fstate, kw = stepper.initialize(
+                    state.positions, state.velocities, state.masses,
+                    state.scale_factor, time=state.time, step=state.step)
+            except ValueError as exc:
+                if stepper.mesh is None:
+                    raise
+                _log.info("mesh treepm_fast unavailable (%s); falling back "
+                          "to the stateless sharded TreePM", exc)
+                return False
+            synchronize(fstate.acc)
         self.statistics.compile_time_s += time.perf_counter() - t0
+        self._stepper, self._fstate, self._fast_kw = stepper, fstate, kw
+        self._state, self._state_sharded = state, False
+        self._mesh, self._mesh_bounds = stepper.mesh, None
+        self._accel_fn = None
+        self._fast_n = state.positions.shape[0]
+        self._fast_since_rebucket = 0
+        return True
 
     def _fast_cadence(self, n: int) -> int:
         """The rebucket cadence of a fast chunk of `n` steps: the
@@ -563,7 +566,7 @@ class SimulationEngine:
         snapped to a divisor of `n` (span `engine.cadence`)."""
         from ..physics.integrators import drift_factor
         with span("engine.cadence"):
-            kw = self._fast_mesh_kw or self._fast_kw
+            kw = self._fast_kw
             rebucket_every = getattr(self, "_fast_rebucket_every", None) \
                 or self.config.forces.rebucket_every
             # proactive drift guard: bound the steps between rebuckets by
@@ -571,15 +574,14 @@ class SimulationEngine:
             # margin (one vmax readback per chunk; on ranks the largest over
             # them, so every rank picks the same cadence)
             a0 = float(self._fstate.scale_factor)
-            df = float(drift_factor(a0, kw.get("kick_mode", "reference")))
-            vmax = torch.max(torch.abs(self._fstate.bvel)).reshape(1)
-            if self._fast_mesh_kw is not None:
-                vmax = self._mesh.all_reduce(vmax, "max")
+            df = float(drift_factor(a0, kw["kick_mode"]))
+            vmax = self._stepper.all_max(
+                torch.max(torch.abs(self._fstate.bvel)).reshape(1))
             count("readbacks")
             vmax = float(vmax[0])
             step_drift = vmax * float(self._dt) * df
-            margin_dist = (float(kw.get("margin", 1)) * kw["box_size"]
-                           / max(kw.get("ng", kw["ncell"]), kw["ncell"]))
+            margin_dist = (kw["margin"] * kw["box_size"]
+                           / max(kw["ng"], kw["ncell"]))
             if step_drift > 0:
                 safe = max(1, int(0.6 * margin_dist / step_drift))
                 if safe < rebucket_every:
@@ -592,10 +594,9 @@ class SimulationEngine:
             return d
 
     def _fast_chunk(self, n: int) -> None:
-        from ..ops.fast_treepm import (BucketOverflowError, fast_run,
-                                       next_rebucket_offset)
+        from ..ops.fast_treepm import BucketOverflowError, \
+            next_rebucket_offset
         params = self.config.cosmology_params()
-        on_mesh = self._fast_mesh_kw is not None
         # the counters are totals over the ranks on every rank, so every
         # rank takes the decisions below alike
         count("readbacks")
@@ -603,27 +604,18 @@ class SimulationEngine:
         rebucket_every = self._fast_cadence(n)
         since = getattr(self, "_fast_since_rebucket", 0)
         # grow-and-retry: re-plan with a doubled capacity from the intact
-        # pre-rebucket state instead of zero-massing the overflow; on ranks
-        # 6 attempts, then the loss is counted (strays farther than a
-        # neighbour slab are not cured by capacity)
+        # pre-rebucket state instead of zero-massing the overflow, until
+        # the stepper's retries are spent; then the loss is counted
         remaining = n
         grow_attempts = 0
         while remaining > 0:
             try:
-                if on_mesh:
-                    self._fstate = self._mesh_fast.run(
-                        self._fstate, params, float(self._dt),
-                        mesh=self._mesh, n_steps=remaining,
-                        rebucket_every=rebucket_every,
-                        steps_since_rebucket=since,
-                        on_overflow="raise" if grow_attempts < 6
-                        else "count", **self._fast_mesh_kw)
-                else:
-                    self._fstate = fast_run(
-                        self._fstate, params, float(self._dt),
-                        n_steps=remaining, on_overflow="raise",
-                        rebucket_every=rebucket_every,
-                        steps_since_rebucket=since, **self._fast_kw)
+                self._fstate = self._stepper.run(
+                    self._fstate, params, float(self._dt), n_steps=remaining,
+                    rebucket_every=rebucket_every, steps_since_rebucket=since,
+                    on_overflow="raise"
+                    if grow_attempts < self._stepper.retries else "count",
+                    **self._fast_kw)
                 since = next_rebucket_offset(since, remaining,
                                              rebucket_every)
                 remaining = 0
@@ -631,10 +623,7 @@ class SimulationEngine:
                 remaining -= exc.steps_done
                 since = 0
                 grow_attempts += 1
-                if on_mesh:
-                    self._grow_mesh_fast_capacity(exc.fstate)
-                else:
-                    self._grow_fast_capacity(exc.fstate)
+                self._grow_fast_capacity(exc.fstate)
         self._fast_since_rebucket = since
         count("readbacks")
         new_drops = int(self._fstate.dropped) - dropped_before
@@ -654,99 +643,38 @@ class SimulationEngine:
         self._sync_state_from_fast()
 
     def _grow_fast_capacity(self, fstate) -> None:
-        """Rebuild the fast state from an intact pre-rebucket state with
-        doubled bucket capacity until the rebuild itself is lossless
-        (span `engine.grow`)."""
-        from ..ops.fast_treepm import _accel, build_fast_state, \
-            flatten_fast_state
+        """Rebuild the stepper from an intact pre-rebucket state (the live
+        rows of every rank, wrapped) at a doubled bucket capacity until
+        the rebuild itself is lossless, keeping ncell, rs, margin and the
+        ids (the JAX engine's grow-and-retry, on one device and on
+        ranks; span `engine.grow`)."""
+        from ..ops.fast_treepm import grown_plan
         from ..physics.integrators import wrap_positions
+        stepper, kw = self._stepper, self._fast_kw
         with span("engine.grow"):
-            kw = self._fast_kw
-            old_cap = kw["capacity"]
-            pos, vel, mass, ids = flatten_fast_state(fstate, with_ids=True)
+            pos, vel, mass, ids = stepper.rows(fstate)
             pos = wrap_positions(pos, kw["box_size"])
-            n_live = pos.shape[0]
             t0 = time.perf_counter()
-            new_cap = old_cap
+            cap = kw["capacity"]
             while True:
-                new_cap *= 2
-                plan = {"ncell": kw["ncell"], "capacity": new_cap,
-                        "margin": kw["margin"], "rs": kw["rs"]}
-                with span("fast.build", device=pos.is_cuda):
-                    st = build_fast_state(
-                        pos, vel, mass, fstate.scale_factor,
-                        box_size=kw["box_size"], plan=plan,
-                        time=fstate.time, step=fstate.step, ids=ids)
+                cap *= 2
+                st, new_kw = stepper.initialize(
+                    pos, vel, mass, fstate.scale_factor, time=fstate.time,
+                    step=fstate.step, plan_override=grown_plan(kw, cap),
+                    ids=ids)
                 count("readbacks")
-                if int(st.overflow) == 0 or new_cap >= n_live:
+                if int(st.overflow) == 0 or cap >= pos.shape[0]:
                     break
             _log.warning(
                 "treepm_fast: bucket capacity %d exceeded by clustering; "
                 "re-planned with capacity %d (no particles lost)",
-                old_cap, new_cap)
-            st = st.replace(overflow=fstate.overflow, dropped=fstate.dropped)
-            kw["capacity"] = new_cap
-            # the JAX engine's variant switch (a grown capacity leaves the
-            # vpu4b pairing; above 128 it plans vpu5): one split function
-            # here
-            if new_cap > 128:
-                kw["variant"] = "vpu5"
-            elif kw.get("variant") == "vpu4b" and new_cap != 64:
-                kw["variant"] = "vpu3"
-            acc, dropped = _accel(st, **_accel_kw(kw))
-            self._fstate = st.replace(acc=acc, dropped=st.dropped + dropped)
+                kw["capacity"], cap)
+            self._fstate = st.replace(
+                overflow=fstate.overflow,
+                dropped=(fstate.dropped + st.dropped) if stepper.carry_drops
+                else fstate.dropped)
+            self._fast_kw = new_kw
             self.statistics.compile_time_s += time.perf_counter() - t0
-
-    def _grow_mesh_fast_capacity(self, fstate) -> None:
-        """_grow_fast_capacity on ranks: every rank's live rows and ids
-        (gathered, wrapped) rebuilt into the sharded stepper at a doubled
-        capacity until the rebuild is lossless or the capacity reaches the
-        row count, keeping ncell, rs, margin and the ids (the JAX
-        engine's _grow_mesh_fast_capacity; span `engine.grow`)."""
-        from ..physics.integrators import wrap_positions
-        with span("engine.grow"):
-            kw = self._fast_mesh_kw
-            old_cap = kw["capacity"]
-            pos, vel, mass, ids = self._fast_rows(fstate)
-            pos = wrap_positions(pos, kw["box_size"])
-            t0 = time.perf_counter()
-            new_cap = old_cap
-            while True:
-                new_cap *= 2
-                plan = {"ncell": kw["ncell"], "capacity": new_cap,
-                        "margin": kw["margin"], "rs": kw["rs"]}
-                st, kw2 = self._mesh_fast.initialize(
-                    pos, vel, mass, fstate.scale_factor, mesh=self._mesh,
-                    box_size=kw["box_size"], pm_grid=kw["ng"],
-                    softening=kw["softening"], g_const=kw["g_const"],
-                    time=fstate.time, step=fstate.step,
-                    h0_internal=kw["h0_internal"], kick_mode=kw["kick_mode"],
-                    sf_method=kw["sf_method"], cosmological=kw["cosmological"],
-                    plan_override=plan, ids=ids)
-                count("readbacks")
-                if int(st.overflow) == 0 or new_cap >= pos.shape[0]:
-                    break
-            _log.warning(
-                "mesh treepm_fast: bucket capacity %d exceeded by clustering; "
-                "re-planned with capacity %d (no particles lost)",
-                old_cap, new_cap)
-            self._fstate = st.replace(overflow=fstate.overflow,
-                                      dropped=fstate.dropped)
-            self._fast_mesh_kw = kw2
-            self.statistics.compile_time_s += time.perf_counter() - t0
-
-    def _fast_rows(self, fstate):
-        """(positions, velocities, masses, ids) of the slots of fstate
-        that hold a particle (id >= 0), every rank's in the global slot
-        order on the sharded stepper (a collective there)."""
-        from ..ops.fast_treepm import flatten_fast_state
-        if self._fast_mesh_kw is not None:
-            from ..parallel.fast_mesh import gather_fast_state
-            fstate = gather_fast_state(fstate, self._mesh)
-        pos, vel, mass, ids = flatten_fast_state(fstate, with_ids=True)
-        live = ids >= 0
-        count("readbacks", 4)            # each boolean mask waits
-        return pos[live], vel[live], mass[live], ids[live]
 
     def _sync_state_from_fast(self) -> None:
         """Restore the bucket layout into the public SimState in the
@@ -757,7 +685,7 @@ class SimulationEngine:
         `engine.sync_state`)."""
         from ..physics.integrators import wrap_positions
         with span("engine.sync_state", device=self._fstate.bpos.is_cuda):
-            fpos, fvel, fmass, ids = self._fast_rows(self._fstate)
+            fpos, fvel, fmass, ids = self._stepper.rows(self._fstate)
             fpos = wrap_positions(fpos, self.config.particles.box_size)
             ids = ids.to(torch.int64)
             n = self._fast_n
@@ -782,27 +710,17 @@ class SimulationEngine:
         counters before releasing."""
         if self._fstate is None:
             return
-        self._fast_rebuild = "single" if self._fast_mesh_kw is None \
-            else "mesh"
         self._fstate = None
-        self._fast_mesh_kw = None
         self._acc = None
         self._fast_since_rebucket = 0
 
     def _maybe_rebuild_fast(self) -> None:
-        """Re-bucket `state` after a release_force_state(), once (on ranks
-        into the sharded stepper, or the stateless sharded TreePM where
-        its plan is None, as initialize() does)."""
-        mode = self._fast_rebuild
-        if mode is None:
-            return
-        self._fast_rebuild = None
-        if self._fstate is not None:
-            return
-        if mode == "mesh":
-            self._init_mesh_fast_or_stateless(self._state)
-        else:
-            self._init_fast_path()
+        """Re-bucket `state` after a release_force_state() (on ranks into
+        the sharded stepper, or the stateless sharded TreePM where its
+        plan is None, as initialize() does)."""
+        if self._stepper is not None and self._fstate is None \
+                and not self._init_fast(self._state):
+            self._init_mesh_path(self._state)
 
     # -- stateless solvers: a loop of the fused KDK step ---------------------
     def _ensure_acc(self) -> None:
@@ -886,19 +804,20 @@ class SimulationEngine:
         card, the CUDA kernels build (ops/cuda_build; the git-ignored
         _build/ keeps the library, so a fresh process with unchanged
         sources builds nothing, as the JAX persistent cache compiles
-        nothing); then, on the fast path, one segment at the rebucket
-        cadence run() takes for a chunk (`_fast_cadence`: every segment of
-        a chunk has that length) and the rebucket pass, or the stateless
-        solver's chunk of fused KDK steps. They run on the current state
-        and their results are dropped: the engine's state, step count and
-        statistics are left as they were. `chunk_len` defaults to the run
-        loop's chunk (simulation.output_frequency). Returns
-        {"programs": n, "seconds": s}."""
+        nothing); then, on the fast path, one call of the stepper's run:
+        the rebucket pass, then one segment at the rebucket cadence run()
+        takes for a chunk (`_fast_cadence`: every segment of a chunk has
+        that length); or the stateless solver's chunk of fused KDK steps.
+        They run on the current state and their results are dropped: the
+        engine's state, step count and statistics are left as they were.
+        `chunk_len` defaults to the run loop's chunk
+        (simulation.output_frequency). Returns {"programs": n, "seconds":
+        s}."""
         if self._dt is None:
             raise RuntimeError("warmup() requires initialize() first")
         t0 = time.perf_counter()
-        if self._fast_mesh_kw is not None:
-            # the JAX engine's warmup covers no mesh path either
+        if self._fstate is not None and self._mesh is not None:
+            # the JAX engine's warmup covers no sharded stepper either
             return {"programs": 0, "seconds": time.perf_counter() - t0}
         if self.device.type == "cuda":
             from ..ops import cuda_build
@@ -906,17 +825,12 @@ class SimulationEngine:
         chunk = int(chunk_len or
                     max(1, self.config.simulation.output_frequency))
         if self._fstate is not None:
-            from ..ops.fast_treepm import _fast_segment, _rebucket
-            kw = self._fast_kw
-            seg_kw = {k: v for k, v in kw.items() if k != "n_rows"}
-            synchronize(_fast_segment(
+            n = self._fast_cadence(chunk)
+            synchronize(self._stepper.run(
                 self._fstate, self.config.cosmology_params(),
-                float(self._dt), n_steps=self._fast_cadence(chunk),
-                **seg_kw).bpos)
-            synchronize(_rebucket(self._fstate, box_size=kw["box_size"],
-                                  ncell=kw["ncell"],
-                                  capacity=kw["capacity"],
-                                  n_rows=kw.get("n_rows", 0)).bpos)
+                float(self._dt), n_steps=n, rebucket_every=n,
+                steps_since_rebucket=n, on_overflow="drop",
+                **self._fast_kw).bpos)
             n_prog = 2
         else:
             acc = self._acc if self._acc is not None \
@@ -1141,8 +1055,7 @@ class SimulationEngine:
         self.mesh_force_diagnostics = None
         self._fstate = None
         self._fast_kw = None
-        self._fast_mesh_kw = None
-        self._fast_rebuild = None
+        self._stepper = None
         self._acc = None
         self._accel_fn = None
         self.statistics = SimulationStatistics()

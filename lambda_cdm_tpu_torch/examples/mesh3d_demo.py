@@ -103,7 +103,9 @@ def run(mesh) -> dict:
     eng.run(num_steps=4)
     e = eng.compute_energy()
     st = eng.state
-    out.update(engine_step=int(st.step), engine_blocks=eng._fast_mesh_3d,
+    out.update(engine_step=int(st.step),
+               engine_blocks=eng._stepper is not None
+               and eng._stepper.ndim == 3,
                **{f"engine_{k}": float(v) for k, v in e.items()},
                engine_state=[x.cpu().tolist() for x in (
                    st.positions, st.velocities, st.masses)])

@@ -77,7 +77,8 @@ def run(mesh) -> dict:
     eng.run(num_steps=8)
     out.update(engine_steps=eng.statistics.total_steps,
                engine_a=float(eng.state.scale_factor),
-               engine_pencils=eng._fast_mesh_2d)
+               engine_pencils=eng._stepper is not None
+               and eng._stepper.ndim == 2)
     say(f"engine (2D mesh): {out['engine_steps']} steps, "
         f"a={out['engine_a']:.4f}")
     return out

@@ -125,6 +125,21 @@ def fast_plan(num_particles: int, box_size: float, pm_grid: int, *,
             "capacity": cap, "margin": margin, "variant": variant}
 
 
+def grown_plan(kw: dict, capacity: int) -> dict:
+    """The plan of a stepper dict `kw` (initialize_fast's, or a sharded
+    stepper's, which has no variant) rebuilt at a grown `capacity` by
+    grow-and-retry: ncell, margin and rs kept, and the JAX engine's
+    variant rule: above 128 slots vpu5, and a capacity other than 64
+    leaves the vpu4b pairing."""
+    variant = kw.get("variant", "vpu3")
+    if capacity > 128:
+        variant = "vpu5"
+    elif variant == "vpu4b" and capacity != 64:
+        variant = "vpu3"
+    return {"ncell": kw["ncell"], "capacity": capacity,
+            "margin": kw["margin"], "rs": kw["rs"], "variant": variant}
+
+
 def build_fast_state(positions, velocities, masses, scale_factor, *,
                      box_size, plan, time=0.0, step=0,
                      ids=None) -> FastState:
@@ -195,6 +210,13 @@ def _accel(fstate: FastState, *, box_size, ng, ncell, capacity, margin,
                 softening=float(softening), variant=variant)
         return kdk_kick(acc_long, acc_short, counts, s1=g_const,
                         s2=1.0), dropped
+
+
+def rebucket_pass(fstate: FastState, kw: dict) -> FastState:
+    """One rebucket pass (`_rebucket`) with the keys it takes from
+    initialize_fast's dict `kw` (n_rows 0 where the dict has none)."""
+    return _rebucket(fstate, box_size=kw["box_size"], ncell=kw["ncell"],
+                     capacity=kw["capacity"], n_rows=kw.get("n_rows", 0))
 
 
 def _rebucket(fstate: FastState, *, box_size, ncell, capacity,
@@ -335,21 +357,20 @@ def fast_run(fstate: FastState, params: CosmologyParams, dt, *,
     pre-rebucket state; "drop" counts the overflow and zero-masses the
     particles that did not fit. `kw` is initialize_fast's dict (either
     package's): the geometry, the integration knobs, `variant`, `pm_only`
-    and `n_rows` (rows of the compact rebucket, 0 for the gather form).
-    A rebucket pass, with its overflow check (on the card one readback
-    of the pass's overflow; the plain forms read both totals), is the
-    span `fast.rebucket` and counts in `rebuckets`."""
+    and `n_rows` (the rows bucketed, 0 for all: on the card it sizes the
+    rebucket pass's sort; on the CPU a sparse layout takes the compact
+    form with it, any other the gather form). A rebucket pass, with its
+    overflow check (on the card one readback of the pass's overflow; the
+    plain forms read both totals), is the span `fast.rebucket` and counts
+    in `rebuckets`."""
     remaining = n_steps
     since = max(0, int(steps_since_rebucket))
-    kw = dict(kw)                    # callers reuse their kw dict
-    n_rows = kw.pop("n_rows", 0)     # the rebucket's compact-form knob
+    seg_kw = {k: v for k, v in kw.items() if k != "n_rows"}
     while remaining > 0:
         if since >= rebucket_every:
             count("rebuckets")
             with span("fast.rebucket", device=fstate.bpos.is_cuda):
-                rb = _rebucket(fstate, box_size=kw["box_size"],
-                               ncell=kw["ncell"], capacity=kw["capacity"],
-                               n_rows=n_rows)
+                rb = rebucket_pass(fstate, kw)
                 if on_overflow == "raise":
                     if rb.bpos.is_cuda:     # the card's pass: one wait
                         count("readbacks")
@@ -363,7 +384,7 @@ def fast_run(fstate: FastState, params: CosmologyParams, dt, *,
             fstate = rb
             since = 0
         seg = min(rebucket_every - since, remaining)
-        fstate = _fast_segment(fstate, params, dt, n_steps=seg, **kw)
+        fstate = _fast_segment(fstate, params, dt, n_steps=seg, **seg_kw)
         remaining -= seg
         since += seg
     return fstate
@@ -426,21 +447,25 @@ def initialize_fast(positions, velocities, masses, scale_factor, *,
                     split_factor=1.25, cut_factor=4.5, margin=1,
                     capacity=0, gradient="fd4", time=0.0, step=0,
                     h0_internal=100.0, kick_mode="reference",
-                    sf_method="rk4", cosmological=True, pm_only=False):
+                    sf_method="rk4", cosmological=True, pm_only=False,
+                    plan_override=None, ids=None):
     """Plan + bucket + prime accelerations. Returns (fstate, kw) ready for
     `fast_run`; kw holds the JAX initialize_fast dict's keys: the plan's
     `variant`, `pm_only` (the unsplit PM alone, forces.type="pm_fast")
-    and `n_rows` (the particle count, for the compact rebucket)."""
-    plan = fast_plan(positions.shape[0], float(box_size), pm_grid,
-                     split_factor=split_factor, cut_factor=cut_factor,
-                     capacity=capacity, margin=margin)
+    and `n_rows` (the rows given, for the rebucket). `plan_override`
+    (`grown_plan`'s) and `ids` rebuild at a grown capacity with the
+    geometry and the particle identities kept (grow-and-retry)."""
+    plan = plan_override or fast_plan(
+        positions.shape[0], float(box_size), pm_grid,
+        split_factor=split_factor, cut_factor=cut_factor,
+        capacity=capacity, margin=margin)
     if plan["ncell"] < 3 and not pm_only:
         raise ValueError("treepm_fast needs a box of at least 3 r_cut "
                          "cells per axis")
     with span("fast.build", device=positions.is_cuda):
         fstate = build_fast_state(positions, velocities, masses,
                                   scale_factor, box_size=box_size,
-                                  plan=plan, time=time, step=step)
+                                  plan=plan, time=time, step=step, ids=ids)
     accel_kw = dict(box_size=float(box_size), ng=pm_grid,
                     ncell=plan["ncell"], capacity=plan["capacity"],
                     margin=plan["margin"], rs=float(plan["rs"]),

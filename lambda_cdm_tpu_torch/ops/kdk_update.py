@@ -36,15 +36,13 @@ device. On the card the kernels touch live slots only: `kdk_open` writes
 zeroed new buffers, or with `owned` writes into bpos and bvel
 themselves; `kdk_kick` writes into x, which its caller owns. The plain
 versions return new tensors. Callers use the returned tensors. Each
-launch counts in `launches` and in the program counter `fused_kdk`
-(utils/profiling.count), both in `_launch`.
+launch counts in `launches`, in `_launch`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..utils.profiling import count
 from . import cuda_build
 
 # launches of each kernel since the last reset
@@ -60,7 +58,6 @@ def reset_launch_counts() -> None:
 def _launch(kernel: str, *args) -> None:
     """Start `kernel` (the one place a launch is counted)."""
     launches[kernel] += 1
-    count("fused_kdk")
     cuda_build.launch(f"lcdm_{kernel}", *args)
 
 

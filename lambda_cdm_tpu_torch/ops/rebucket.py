@@ -20,15 +20,13 @@ The plain forms are the CPU path (fast_treepm._rebucket sends CUDA
 tensors here); this wrapper takes CUDA tensors only and raises on any
 other. It waits on nothing: the caller reads `pass_overflow` when it
 needs it. A pass launches each of the three kernels once and counts once
-in `launches["rebucket"]` and in the program counter `fused_rebucket`
-(utils/profiling.count), both in `_count`.
+in `launches["rebucket"]`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..utils.profiling import count
 from . import cuda_build
 
 # passes since the last reset (each launches the three kernels once)
@@ -38,12 +36,6 @@ launches = {"rebucket": 0}
 def reset_launch_counts() -> None:
     for k in launches:
         launches[k] = 0
-
-
-def _count() -> None:
-    """Count one pass (the one place it is counted)."""
-    launches["rebucket"] += 1
-    count("fused_rebucket")
 
 
 def _check(vectors, bmass, ids, ncell: int):
@@ -82,7 +74,7 @@ def rebucket(bpos, bvel, acc, bmass, ids, *, box_size: float, ncell: int,
     n = min(int(n_rows), slots) if n_rows > 0 else slots
     box = float(box_size)
     dev = bmass.device
-    _count()
+    launches["rebucket"] += 1
     counts, hist = torch.empty((2, cells + 1), dtype=torch.int32,
                                device=dev)
     grew = torch.empty((), dtype=torch.int32, device=dev)

@@ -52,8 +52,7 @@ import torch
 from ..ops.fast_treepm import BucketOverflowError, FastState, \
     build_fast_state
 from ..ops.pm_rods import _inv_12h, _mesh_scale
-from ..physics.integrators import (drift_factor, kick_factor,
-                                   update_scale_factor, wrap_positions)
+from ..physics.integrators import kdk_factors, wrap_positions
 from .exchange import _div
 from .fft import distributed_irfftn, distributed_rfftn, ky_slab
 from .mesh import SHARD_AXIS, Mesh
@@ -567,28 +566,24 @@ def _kdk_segment(fstate: FastState, params, dt, accel, *, box_size: float,
                  sf_method: str = "rk4", cosmological: bool = True,
                  n_steps: int = 1) -> FastState:
     """`n_steps` KDK steps on the rank's slots, one force evaluation
-    `accel(bpos, bmass) -> (acc, dropped)` each. Unlike the single-device
-    segment, positions wrap into the box at every step (the JAX package's
-    mesh steppers do)."""
+    `accel(bpos, bmass) -> (acc, dropped)` each, with the stateless
+    step's scalars (physics/integrators.kdk_factors). Unlike the
+    single-device segment, positions wrap into the box at every step (the
+    JAX package's mesh steppers do)."""
     dt = float(dt)
     fs = fstate
     live = (fs.bmass > 0)[None]
     for _ in range(n_steps):
-        a0 = fs.scale_factor
-        vel = fs.bvel + fs.acc * (0.5 * dt) * kick_factor(a0, kick_mode)
-        if cosmological:
-            a_half = update_scale_factor(params, a0, 0.5 * dt, h0_internal,
-                                         sf_method)
-            a1 = update_scale_factor(params, a_half, 0.5 * dt, h0_internal,
-                                     sf_method)
-        else:
-            a_half, a1 = a0, a0
-        pos = fs.bpos + vel * dt * drift_factor(a_half, kick_mode)
+        f = kdk_factors(params, fs.scale_factor, dt, h0_internal=h0_internal,
+                        kick_mode=kick_mode, sf_method=sf_method,
+                        cosmological=cosmological)
+        vel = fs.bvel + fs.acc * f.half_dt * f.kf0
+        pos = fs.bpos + vel * dt * f.df
         pos = torch.where(live, wrap_positions(pos, box_size), 0.0)
-        fs = fs.replace(bpos=pos, bvel=vel, scale_factor=a1,
+        fs = fs.replace(bpos=pos, bvel=vel, scale_factor=f.a1,
                         time=fs.time + dt, step=fs.step + 1)
         acc_new, dropped = accel(fs.bpos, fs.bmass)
-        vel = fs.bvel + acc_new * (0.5 * dt) * kick_factor(a1, kick_mode)
+        vel = fs.bvel + acc_new * f.half_dt * f.kf1
         fs = fs.replace(bvel=vel, acc=acc_new, dropped=fs.dropped + dropped)
     return fs
 

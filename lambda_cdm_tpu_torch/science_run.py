@@ -280,7 +280,6 @@ def short_range_timing(eng, reps: int = 3) -> dict:
     events, mean of `reps` calls), with the pair tests and the occupancy
     that set its work and its tail. Raises on a state that is not on a
     CUDA card."""
-    from .core.engine import _accel_kw
     from .ops.bucketed_pm import live_counts
     from .ops.cuda_build import cuda_ms
     from .ops.short_range import neighbour_load, short_range
@@ -290,12 +289,11 @@ def short_range_timing(eng, reps: int = 3) -> dict:
                            "engine's state is not on a CUDA device")
     counts = live_counts(fs.bmass)
     nc = kw["ncell"]
-    akw = _accel_kw(kw)
     return {
         "short_range_ms": round(cuda_ms(lambda: short_range(
             fs.bpos, fs.bmass, counts, ncell=nc, capacity=kw["capacity"],
-            box_size=akw["box_size"], rs=akw["rs"],
-            softening=akw["softening"], variant=akw["variant"]), reps), 3),
+            box_size=kw["box_size"], rs=kw["rs"], softening=kw["softening"],
+            variant=kw["variant"]), reps), 3),
         "short_range_pairs": float((counts.to(torch.float64)
                                     * neighbour_load(counts, nc)).sum()),
         "max_cell_count": int(counts.max()),
@@ -308,10 +306,9 @@ def step_breakdown(eng, reps: int = 3) -> dict:
     without a rebucket, one rebucket, K3 and the bucketed PM, each on
     copies (the engine's state is not advanced), with the occupancy that
     sets K3's tail. Raises on a state that is not on a CUDA card."""
-    from .core.engine import _accel_kw
     from .ops.bucketed_pm import live_counts, pm_accelerations_bucketed
     from .ops.cuda_build import cuda_ms
-    from .ops.fast_treepm import _rebucket, fast_run
+    from .ops.fast_treepm import fast_run, rebucket_pass
     fs, kw = eng._fstate, eng._fast_kw
     if not fs.bpos.is_cuda:
         raise RuntimeError("step_breakdown times the card: the engine's "
@@ -327,15 +324,14 @@ def step_breakdown(eng, reps: int = 3) -> dict:
                                        / st.total_steps, 3)
     out["chunk_ms_per_step"] = round(cuda_ms(lambda: fast_run(
         fs, params, dt, n_steps=4, rebucket_every=4, **kw), reps) / 4, 3)
-    out["rebucket_ms"] = round(cuda_ms(lambda: _rebucket(
-        fs, box_size=kw["box_size"], ncell=nc, capacity=cap,
-        n_rows=kw["n_rows"]), reps), 3)
+    out["rebucket_ms"] = round(cuda_ms(lambda: rebucket_pass(fs, kw),
+                                       reps), 3)
     out.update(short_range_timing(eng, reps))
     out["pm_ms"] = round(cuda_ms(lambda: pm_accelerations_bucketed(
         fs.bpos, fs.bmass, ncell=nc, ng=kw["ng"], box_size=kw["box_size"],
         g_const=kw["g_const"], split_scale=kw["rs"], margin=kw["margin"],
         gradient=kw["gradient"], counts=counts), reps), 3)
-    out["variant"] = _accel_kw(kw)["variant"]
+    out["variant"] = kw["variant"]
     out["ncell"] = nc
     out["capacity"] = cap
     return out

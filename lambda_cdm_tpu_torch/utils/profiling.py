@@ -34,9 +34,9 @@ and the stateless PM's phases inside it `pm.deposit`, `pm.solve` and
 `pm.gather`, ops/pm_cic.py).
 Counters: `rebuckets` (one a rebucket pass), `readbacks` (one a point
 where the host waits on the card: every `synchronize` here, and each
-read of a device value on the fast path), `fused_kdk` (one a launch
-of ops/kdk_update.py's kernels) and `pm_forces` (one a stateless PM
-force evaluation, forces/pm.pm_accelerations).
+read of a device value on the fast path) and `pm_forces` (one a
+stateless PM force evaluation, forces/pm.pm_accelerations). Kernel
+launches count in each ops module's `launches` dict, not here.
 """
 
 from __future__ import annotations

@@ -265,12 +265,13 @@ def _fast_engine(p, name, d):
         tlc.SimulationConfig.from_dict(d)).with_initial_state(make_state(
             *(_t(s[k]) for k in ("pos", "vel", "mass")),
             scale_factor=s["a"])).build()
-    fast = eng._fast_mesh_kw is not None
+    fast = eng._stepper is not None
     out = {f"{name}_fast_mesh": fast,
-           f"{name}_grid": (eng._fast_mesh_2d, eng._fast_mesh_3d),
+           f"{name}_grid": (fast and eng._stepper.ndim == 2,
+                            fast and eng._stepper.ndim == 3),
            f"{name}_stateless": eng._fstate is None
            and eng._accel_fn is not None and eng._mesh is not None,
-           f"{name}_cap0": eng._fast_mesh_kw["capacity"] if fast else None}
+           f"{name}_cap0": eng._fast_kw["capacity"] if fast else None}
     eng.run(num_steps=p["steps"][name])
     g = eng.state
     e = eng.compute_energy()
@@ -279,7 +280,7 @@ def _fast_engine(p, name, d):
                 f"{name}_ke": float(e["kinetic"]),
                 f"{name}_pe": float(e["potential"])})
     if fast:
-        out.update({f"{name}_cap": eng._fast_mesh_kw["capacity"],
+        out.update({f"{name}_cap": eng._fast_kw["capacity"],
                     f"{name}_overflow": int(eng._fstate.overflow),
                     f"{name}_dropped": int(eng._fstate.dropped)})
     return out

@@ -33,7 +33,6 @@ from lambda_cdm_tpu_torch.ops import alias_probe, bucketed_pm, direct, \
     short_range, short_range_rd
 from lambda_cdm_tpu_torch.ops.bucketed_pm import live_counts
 from lambda_cdm_tpu_torch.physics.cosmology import CosmologyParams
-from lambda_cdm_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -1417,8 +1416,8 @@ def test_fast_segment_kernels_match_plain(cuda_device, kick_mode,
     them), with K1 replaced by its plain version on the host on both
     sides (K1's grid is not bit-reproducible): bpos, bvel and acc equal
     bit for bit, dead slots 0, the input state's tensors unchanged, and
-    `fused_kdk` counting the open, the combine (with the short range) and
-    the closing kick each step."""
+    `kdk_update.launches` counting the open, the combine (with the short
+    range) and the closing kick each step."""
     dev = cuda_device
     pos, m = clustered_particles(3000, 40.0, 7, 300, 0.4, (5.0, 5.0, 5.0))
     vel = np.random.default_rng(8).normal(0.0, 20.0, pos.shape)
@@ -1440,14 +1439,9 @@ def test_fast_segment_kernels_match_plain(cuda_device, kick_mode,
     kept = {f: getattr(fs, f).clone() for f in ("bpos", "bvel", "acc",
                                                 "bmass", "ids")}
     params, steps = CosmologyParams(), 3
-    profiling.reset_trace()
-    try:
-        with profiling.tracing():
-            got = fast_treepm._fast_segment(fs, params, 3e-4,
-                                            n_steps=steps, **kw)
-            fused = profiling.trace_totals()["counters"].get("fused_kdk")
-    finally:
-        profiling.reset_trace()
+    before = sum(kdk_update.launches.values())
+    got = fast_treepm._fast_segment(fs, params, 3e-4, n_steps=steps, **kw)
+    fused = sum(kdk_update.launches.values()) - before
     monkeypatch.setattr(
         fast_treepm, "kdk_open",
         lambda bpos, bvel, acc, counts, *, half_dt, kf, dt, df, owned:

@@ -136,6 +136,49 @@ def test_overflow_raises_with_intact_state():
     assert int(texc.fstate.overflow) == int(jexc.fstate.overflow) == 0
 
 
+@pytest.mark.parametrize("capacity, grown, variant", [
+    (64, 128, "vpu3"), (64, 256, "vpu5"), (128, 256, "vpu5")])
+def test_regrown_state_equals_the_engines_rebuild(capacity, grown, variant):
+    """Grow-and-retry's rebuild, initialize_fast(plan_override=grown_plan(
+    kw, K), ids=...) on a state's live rows, equals build_fast_state plus
+    _accel at the grown capacity K (the engine's rebuild before), bit for
+    bit in every field, at the variant the JAX engine's rule picks (a
+    grown capacity leaves vpu4b's 64-slot pairing, above 128 vpu5); the
+    dict is the old one at K and that variant."""
+    rng = np.random.default_rng(6)
+    n = 2000
+    fs, kw = tft.initialize_fast(
+        tt(rng.uniform(0.0, BOX, (n, 3)).astype(np.float32)),
+        tt(rng.normal(0.0, 20.0, (n, 3)).astype(np.float32)),
+        torch.ones(n), 0.2, box_size=BOX, pm_grid=NG, softening=0.05,
+        capacity=capacity, kick_mode="comoving")
+    assert kw["variant"] == ("vpu4b" if capacity == 64 else "vpu3")
+    pos, vel, mass, ids = tft.flatten_fast_state(fs, with_ids=True)
+    live = ids >= 0
+    pos, vel, mass, ids = pos[live], vel[live], mass[live], ids[live]
+    assert ids.numel() == n
+    got, got_kw = tft.initialize_fast(
+        pos, vel, mass, fs.scale_factor, box_size=BOX, pm_grid=NG,
+        softening=0.05, kick_mode="comoving", time=fs.time, step=fs.step,
+        plan_override=tft.grown_plan(kw, grown), ids=ids)
+    assert got_kw == dict(kw, capacity=grown, variant=variant)
+    want = tft.build_fast_state(
+        pos, vel, mass, fs.scale_factor, box_size=BOX,
+        plan={"ncell": kw["ncell"], "capacity": grown,
+              "margin": kw["margin"], "rs": kw["rs"]},
+        time=fs.time, step=fs.step, ids=ids)
+    acc, dropped = tft._accel(want, **{
+        k: got_kw[k] for k in ("box_size", "ng", "ncell", "capacity",
+                               "margin", "rs", "softening", "g_const",
+                               "gradient", "pm_only", "variant")})
+    want = want.replace(acc=acc, dropped=want.dropped + dropped)
+    for name in ("bpos", "bvel", "bmass", "ids", "acc", "scale_factor",
+                 "time", "step", "overflow", "dropped"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    assert int(got.overflow) == 0
+
+
 # ---- the KDK updates over live slots (ops/kdk_update.py) ----
 
 from lambda_cdm_tpu_torch.ops import kdk_update  # noqa: E402
