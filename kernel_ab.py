@@ -19,6 +19,8 @@ end):
   science_z0   with --record: the science run's final state, bucketed the
                same way (afresh: particles past a full cell's capacity
                are left out, as chip_smoke.py's science K3 line counts);
+               without one, the benchmark's science_1m.z0 start state
+               (nbody_bench/inputs.py, z = 0.5, seed Z0_SEED) on that plan;
   *_last       clustered and science_z0 with the cell grid rolled so that
                the fullest cell has the last cell id;
   k9_131k      131,072 uniform particles in 100 Mpc/h, softening 0.02;
@@ -56,8 +58,10 @@ its plan's 192^3 mesh and split scale) for K2.
 Then one process a --root, in the order given, imports that root's
 lambda_cdm_tpu_torch (building its kernels there) and times, on every
 bucket state: K3 (vpu3; vpu, vpu2 and mxu on treepm_1m) with CUDA
-events; K1 and K2 twice, as eager wrapper calls between CUDA events (what
-the stepper pays, host work included) and as device time from a CUDA
+events, and in a root whose K3 culls, the share of candidate j it kept
+(its counters under profiling.tracing()); K1 and K2 twice, as eager
+wrapper calls between CUDA events (what the stepper pays, host work
+included) and as device time from a CUDA
 graph of the same calls (each call's memset included); K9, K4 (v1 and
 v2), K4s (sym and sym2) and K5 (one sweep) with CUDA events; fof_labels and find_halos with
 the host clock around calls that end in a synchronise; on the lens
@@ -115,6 +119,7 @@ K3_REPS = {"treepm_1m": 20, "clustered": 3, "clustered_last": 3,
            "science_z24": 3, "science_z0": 3, "science_z0_last": 3}
 ROW7 = ("vpu", "vpu2", "mxu")
 K9_REPS = {"k9_131k": 3, "k9_1m": 1}
+Z0_SEED = 2026        # science_z0's start state without a --record
 K4_REPS = {"k4_10k": 50, "k4_100k": 5}
 K5_REPS = 10
 PM_REPS = 20
@@ -306,12 +311,21 @@ def make_inputs(out: str, record: str | None, groups) -> list:
                 g, *(torch.from_numpy(final[k]).to(device) for k in
                      ("pos_f", "vel_f", "masses")), float(final["a_f"]),
                 device)
-            _k3_state(eng._fstate, eng._fast_kw,
-                      os.path.join(out, "science_z0.npz"))
-            _k3_state(_fullest_last(eng._fstate, eng._fast_kw),
-                      eng._fast_kw, os.path.join(out, "science_z0_last.npz"))
-            names += ["science_z0", "science_z0_last"]
-            del eng
+        else:
+            from nbody_bench import harness, inputs
+            cell = harness.Cell("science_1m.z0")
+            st = inputs.start_state(cell.config, cell.traffic, Z0_SEED,
+                                    device)
+            mass = torch.full((st["pos"].shape[0],), st["mass"],
+                              device=device)
+            eng = science_run.plan_engine(g, st["pos"], st["vel"], mass,
+                                          st["a"], device)
+        _k3_state(eng._fstate, eng._fast_kw,
+                  os.path.join(out, "science_z0.npz"))
+        _k3_state(_fullest_last(eng._fstate, eng._fast_kw), eng._fast_kw,
+                  os.path.join(out, "science_z0_last.npz"))
+        names += ["science_z0", "science_z0_last"]
+        del eng
     if "k9" in groups:
         gen = torch.Generator(device=device).manual_seed(31)
         k9 = {"k9_131k": (torch.rand((131_072, 3), generator=gen,
@@ -820,6 +834,7 @@ def worker(root: str, out: str, names: list, sass_out=None) -> dict:
     import torch
     sys.path.insert(0, os.path.abspath(root))
     from lambda_cdm_tpu_torch.ops import cuda_build, direct, short_range
+    from lambda_cdm_tpu_torch.utils import profiling
     device = torch.device("cuda", 0)
     dump = None
     if sass_out:
@@ -866,6 +881,15 @@ def worker(root: str, out: str, names: list, sass_out=None) -> dict:
             ms = cuda_build.cuda_ms(lambda: short_range.short_range(
                 bpos, bmass, counts, variant=v, **geo), K3_REPS[name])
             res[f"{name}/{v}"] = {"ms": ms, "sha256": _sha(acc)}
+            if hasattr(profiling, "device_counters"):     # K3 culls
+                profiling.reset_trace()
+                with profiling.tracing():
+                    short_range.short_range(bpos, bmass, counts, variant=v,
+                                            **geo)
+                tally = profiling.trace_totals()["counters"]
+                profiling.reset_trace()
+                res[f"{name}/{v}"]["kept_share"] = (
+                    100.0 * tally["k3_j_kept"] / tally["k3_j_tested"])
         del acc
         pm_kernels(res, name, z, bpos, bmass, counts, device)
         kdk_calls(res, name, bpos, bmass, counts, device)
@@ -944,6 +968,10 @@ def main() -> int:
             if "planes" in have[0][key]:
                 line += (f" ({have[0][key]['planes']} planes, window "
                          f"{have[0][key]['window']})")
+        shares = [f"{r['root']} {r[key]['kept_share']:.3f}%" for r in have
+                  if "kept_share" in r[key]]
+        if shares:
+            line += "; K3 kept " + ", ".join(shares)
         if "two_calls_equal" in have[0][key]:
             line += "; two calls equal: " + ", ".join(
                 f"{r['root']} {r[key]['two_calls_equal']}" for r in have)

@@ -34,8 +34,9 @@
 // Design: the work is split by live rows, not by cells. A unit is a chunk
 // of at most kUnitRows = 32 live rows of one cell, and one warp takes one
 // unit: lane r holds row r, and each of the 27 neighbour cells' live j
-// slots passes through the warp's own 32-slot tile in shared memory, with
-// the shift applied and the mass scaled, behind __syncwarp only. A cell
+// slots is fetched with the shift applied and the mass scaled, and the
+// kept ones pass through the warp's own ring in shared memory (the cull,
+// below), behind __syncwarp only. A cell
 // of 8,000 rows is 250 units spread over the card, not one block walking
 // it alone while the card idles; a cell of 30 rows is one unit whose
 // lanes are nearly all live, whatever the capacity.
@@ -47,18 +48,39 @@
 // counter in that order, so the heaviest units start first and the tail
 // is the lightest. The counter orders the work only: each target's sum is
 // one warp's, over neighbour 0..26 and j ascending, written once; no
-// atomics touch the output, so the result is deterministic. The work is
-// sum_units 32-lane warps times the unit's neighbour load, so it tracks
-// occupancy, not the padded capacity that grow-and-retry raises.
+// atomics touch the output, so the result is deterministic. The tests
+// are sum_units of the unit's neighbour load, and the pair work 32-lane
+// warps times the j each unit keeps, so both track occupancy, not the
+// padded capacity that grow-and-retry raises.
+//
+// The cull: a unit's rows span a small box (a few Mpc/h of a 6.25 Mpc/h
+// cell on the science plan), and a j farther from that box than the split's
+// zero radius weighs exactly 0 for every row of it. So each lane tests the
+// one candidate j it fetched against the box (the squared distance to it,
+// plus eps^2, against r2_keep, where the float32 weight of every split form
+// is exactly 0: ops/short_range.keep_radius2), and the kept j are written
+// in candidate order (neighbour 0..26, j ascending: ballot and the popcount
+// of the lower lanes) into the warp's 64-slot ring in shared memory. Pairs
+// run on full tiles of 32 kept j, across neighbour boundaries, and on the
+// remainder at the unit's end. Each row's sum runs over the same j in the
+// same order as without the cull and drops only terms that are exactly 0,
+// so the output is the uncut kernel's value for value (r2_keep = +inf
+// launches that kernel), whatever the order of the rows in a cell.
 //
 // Inside a unit: lanes 0..26 hold the 27 neighbour cells (id, shift, live
-// count), read once; the next j chunk's loads are issued before the
-// current chunk's pairs, so their latency hides behind them; the split's
+// count), read once; the next candidate chunk's loads are issued before
+// the current chunk's test and tile, so their latency hides behind them
+// (two chunks ahead measured slower: kernel_ab, H100); the split's
 // coefficients are kernel parameters, read by the FFMAs from the constant
 // bank; the rsqrt skips rsqrtf's guard for denormal input (r^2 >= eps^2).
 //
+// Counting: given a non-null `tally` (int64[2]; the wrapper passes one only
+// while the program's tracing is on) each unit adds the j it tested and the
+// j it kept with one atomic each; given null, no atomics.
+//
 // Bound on the H100: float32 pair arithmetic (about 35-40 FLOP and one
-// rsqrt per pair); each staged j is reused by the 32 rows of a unit.
+// rsqrt per pair); each staged j is reused by the 32 rows of a unit; a
+// culled j costs its load and one box test.
 
 #include <cuda_runtime.h>
 
@@ -98,7 +120,10 @@ __device__ __forceinline__ float pair_weight(float r2, const float* q,
   }
   const float r = r2 * inv_r;
   if (SPLIT == kFactored) {
-    const float t = fminf(r, p1) * p0 - 1.0f;
+    // t rounded as the plain version rounds it (no FMA): at r >= r_max it
+    // is then exactly 1, so the weight there is exactly 0, as the cull
+    // takes it to be
+    const float t = __fadd_rn(__fmul_rn(fminf(r, p1), p0), -1.0f);
     float h = q[0];
 #pragma unroll
     for (int u = 1; u < nq; ++u) h = h * t + q[u];
@@ -283,6 +308,50 @@ __device__ __forceinline__ float4 fetch_j(const float* __restrict__ bpos,
                      bpos[2 * nslots + sj] + sz, bmass[sj] * mscale);
 }
 
+// the next chunk of kUnitRows candidate j over neighbours 0..26 in order,
+// empty ones skipped: neighbour nb (27 past the last) from jbase, of its nj
+// live j; the first chunk from nb = -1, nj = 0
+__device__ __forceinline__ void next_chunk(int& nb, int& jbase, int& nj,
+                                           int my_nj) {
+  jbase += kUnitRows;
+  if (jbase < nj) return;
+  jbase = 0;
+  do {
+    nj = ++nb < 27 ? __shfl_sync(0xffffffffu, my_nj, nb) : 0;
+  } while (nb < 27 && nj == 0);
+}
+
+// the pairs of a row with n staged j, in their order: acc += (m_j mscale)
+// w(r) dx
+template <int SPLIT>
+__device__ __forceinline__ void tile_pairs(const float4* tile, int n,
+                                           float xi, float yi, float zi,
+                                           float soft2, const float* q,
+                                           float p0, float p1, float& ax,
+                                           float& ay, float& az) {
+#pragma unroll 4
+  for (int t = 0; t < n; ++t) {
+    const float4 p = tile[t];
+    const float dx = p.x - xi;
+    const float dy = p.y - yi;
+    const float dz = p.z - zi;
+    // the x-space split amplifies an ulp of r: round r^2 as the plain
+    // version does (no FMA contraction) for it
+    const float r2 =
+        SPLIT == kXPoly
+            ? __fadd_rn(__fmul_rn(dx, dx),
+                        __fadd_rn(__fmul_rn(dy, dy),
+                                  __fadd_rn(__fmul_rn(dz, dz), soft2)))
+            : dx * dx + (dy * dy + (dz * dz + soft2));
+    const float w = p.w * pair_weight<SPLIT>(r2, q, p0, p1);
+    ax += w * dx;
+    ay += w * dy;
+    az += w * dz;
+  }
+}
+
+constexpr int kRing = 2 * kUnitRows;   // a warp's ring of kept j (power of 2)
+
 template <int SPLIT>
 __global__ void __launch_bounds__(kWarps * 32, 8)
 short_range_kernel(const float* __restrict__ bpos,
@@ -291,13 +360,16 @@ short_range_kernel(const float* __restrict__ bpos,
                    const __grid_constant__ Coeffs coeffs,
                    int* __restrict__ plan, float* __restrict__ out,
                    int nc, int cap, float box, float soft2, float p0,
-                   float p1, float mscale) {
-  __shared__ float4 tiles[kWarps][kUnitRows];
+                   float p1, float mscale, float r2_keep,
+                   unsigned long long* __restrict__ tally) {
+  __shared__ float4 rings[kWarps][kRing];
   const unsigned full = 0xffffffffu;
+  const float inf = __int_as_float(0x7f800000);
   const int ncells = nc * nc * nc;
   const long long nslots = (long long)ncells * cap;
   const int lane = threadIdx.x & 31;
-  float4* tile = tiles[threadIdx.x >> 5];
+  const unsigned lower = (1u << lane) - 1u;
+  float4* ring = rings[threadIdx.x >> 5];
   const int live = plan[kLive], units = plan[kUnits];
   const int* order = plan + kHeader + ncells;
   const int* ustart = plan + kHeader + 2 * ncells;
@@ -330,59 +402,75 @@ short_range_kernel(const float* __restrict__ bpos,
       my_cn = neighbour(cx, cy, cz, lane, nc, box, &my_sx, &my_sy, &my_sz);
       my_nj = counts[my_cn];
     }
+    // the unit's box: the extent of its active rows on each axis
+    float lox = active ? xi : inf, hix = active ? xi : -inf;
+    float loy = active ? yi : inf, hiy = active ? yi : -inf;
+    float loz = active ? zi : inf, hiz = active ? zi : -inf;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      lox = fminf(lox, __shfl_xor_sync(full, lox, off));
+      hix = fmaxf(hix, __shfl_xor_sync(full, hix, off));
+      loy = fminf(loy, __shfl_xor_sync(full, loy, off));
+      hiy = fmaxf(hiy, __shfl_xor_sync(full, hiy, off));
+      loz = fminf(loz, __shfl_xor_sync(full, loz, off));
+      hiz = fmaxf(hiz, __shfl_xor_sync(full, hiz, off));
+    }
     float ax = 0.f, ay = 0.f, az = 0.f;
 
-    // j chunks of kUnitRows over neighbours 0..26 in order; the next
-    // chunk's loads are issued before the current chunk's pairs
-    int nb = 0, jbase = 0;
-    int nj = __shfl_sync(full, my_nj, 0);
-    while (nj == 0 && ++nb < 27) nj = __shfl_sync(full, my_nj, nb);
+    // candidate chunks of kUnitRows j over neighbours 0..26 in order, each
+    // fetched one chunk ahead of its test
+    int nb = -1, jbase = 0, nj = 0;
+    next_chunk(nb, jbase, nj, my_nj);
     float4 next = make_float4(0.f, 0.f, 0.f, 0.f);
     if (nb < 27)
-      next = fetch_j(bpos, bmass, nslots, cap, nb, 0, nj, my_cn, my_sx,
+      next = fetch_j(bpos, bmass, nslots, cap, nb, jbase, nj, my_cn, my_sx,
                      my_sy, my_sz, mscale);
+    int head = 0, fill = 0;            // the ring's first kept j, kept j
+    unsigned tested = 0, kept = 0;
     while (nb < 27) {
+      const float4 p = next;
       const int nt = min(kUnitRows, nj - jbase);
-      tile[lane] = next;
-      __syncwarp();
-      jbase += kUnitRows;
-      if (jbase >= nj) {
-        jbase = 0;
-        do {
-          nj = ++nb < 27 ? __shfl_sync(full, my_nj, nb) : 0;
-        } while (nb < 27 && nj == 0);
-      }
+      next_chunk(nb, jbase, nj, my_nj);
       if (nb < 27)
         next = fetch_j(bpos, bmass, nslots, cap, nb, jbase, nj, my_cn,
                        my_sx, my_sy, my_sz, mscale);
-      if (active) {
-#pragma unroll 4
-        for (int t = 0; t < nt; ++t) {
-          const float4 p = tile[t];
-          const float dx = p.x - xi;
-          const float dy = p.y - yi;
-          const float dz = p.z - zi;
-          // the x-space split amplifies an ulp of r: round r^2 as the
-          // plain version does (no FMA contraction) for it
-          const float r2 =
-              SPLIT == kXPoly
-                  ? __fadd_rn(__fmul_rn(dx, dx),
-                              __fadd_rn(__fmul_rn(dy, dy),
-                                        __fadd_rn(__fmul_rn(dz, dz),
-                                                  soft2)))
-                  : dx * dx + (dy * dy + (dz * dz + soft2));
-          const float w = p.w * pair_weight<SPLIT>(r2, coeffs.q, p0, p1);
-          ax += w * dx;
-          ay += w * dy;
-          az += w * dz;
-        }
+      // the squared distance from this lane's j to the unit's box, plus
+      // eps^2, rounded as ops/short_range.cull_counts_plain rounds it
+      const float gx = fmaxf(fmaxf(lox - p.x, p.x - hix), 0.f);
+      const float gy = fmaxf(fmaxf(loy - p.y, p.y - hiy), 0.f);
+      const float gz = fmaxf(fmaxf(loz - p.z, p.z - hiz), 0.f);
+      const float d2 = __fadd_rn(
+          __fmul_rn(gx, gx),
+          __fadd_rn(__fmul_rn(gy, gy), __fadd_rn(__fmul_rn(gz, gz), soft2)));
+      const bool keep = lane < nt && d2 < r2_keep;
+      const unsigned kmask = __ballot_sync(full, keep);
+      if (keep) ring[(head + fill + __popc(kmask & lower)) & (kRing - 1)] = p;
+      fill += __popc(kmask);
+      tested += nt;
+      kept += __popc(kmask);
+      if (fill >= kUnitRows) {         // a full tile of kept j at head
+        __syncwarp();
+        if (active)
+          tile_pairs<SPLIT>(ring + head, kUnitRows, xi, yi, zi, soft2,
+                            coeffs.q, p0, p1, ax, ay, az);
+        __syncwarp();                  // the tile is consumed
+        head ^= kUnitRows;
+        fill -= kUnitRows;
       }
-      __syncwarp();                      // the tile is consumed
     }
+    __syncwarp();
+    if (active)                        // the remainder, fill < kUnitRows
+      tile_pairs<SPLIT>(ring + head, fill, xi, yi, zi, soft2, coeffs.q, p0,
+                        p1, ax, ay, az);
+    __syncwarp();                      // the ring is consumed
     if (active) {
       out[si] = ax;
       out[nslots + si] = ay;
       out[2 * nslots + si] = az;
+    }
+    if (tally != nullptr && lane == 0) {
+      atomicAdd(tally, (unsigned long long)tested);
+      atomicAdd(tally + 1, (unsigned long long)kept);
     }
   }
 }
@@ -392,7 +480,7 @@ template <int SPLIT>
 int launch(const float* bpos, const float* bmass, const int* counts,
            const Coeffs& coeffs, int* plan, float* out, int nc, int cap,
            float box, float soft2, float p0, float p1, float mscale,
-           cudaStream_t stream) {
+           float r2_keep, unsigned long long* tally, cudaStream_t stream) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -401,7 +489,7 @@ int launch(const float* bpos, const float* bmass, const int* counts,
   const int blocks = sms * per_sm > 0 ? sms * per_sm : 1;
   short_range_kernel<SPLIT><<<blocks, kWarps * 32, 0, stream>>>(
       bpos, bmass, counts, coeffs, plan, out, nc, cap, box, soft2, p0, p1,
-      mscale);
+      mscale, r2_keep, tally);
   return (int)cudaGetLastError();
 }
 
@@ -422,24 +510,28 @@ extern "C" int lcdm_short_range_plan(const int* counts, int* plan, int nc,
 // split: 0 even, 1 factored, 2 x-polynomial; coeffs: its coefficients,
 // highest first, in host memory (kMaxCoeffs, unused ones 0); counts:
 // live-first occupancies for every split; plan: lcdm_short_range_plan's,
-// whose counter this call consumes
+// whose counter this call consumes; r2_keep: the cull's squared radius
+// (+inf: every j kept); tally: int64[2] that the j tested and kept are
+// added to, or null
 extern "C" int lcdm_short_range(const float* bpos, const float* bmass,
                                 const int* counts, const float* host_coeffs,
                                 int* plan, float* out, int nc, int cap,
                                 int split, float box, float soft2, float p0,
-                                float p1, float mscale, void* stream) {
+                                float p1, float mscale, float r2_keep,
+                                void* tally, void* stream) {
   if (nc <= 0 || cap <= 0) return (int)cudaGetLastError();
   const cudaStream_t s = (cudaStream_t)stream;
+  unsigned long long* t = (unsigned long long*)tally;
   Coeffs coeffs;
   for (int u = 0; u < kMaxCoeffs; ++u) coeffs.q[u] = host_coeffs[u];
   if (split == kEven)
     return launch<kEven>(bpos, bmass, counts, coeffs, plan, out, nc, cap,
-                         box, soft2, p0, p1, mscale, s);
+                         box, soft2, p0, p1, mscale, r2_keep, t, s);
   if (split == kFactored)
     return launch<kFactored>(bpos, bmass, counts, coeffs, plan, out, nc,
-                             cap, box, soft2, p0, p1, mscale, s);
+                             cap, box, soft2, p0, p1, mscale, r2_keep, t, s);
   if (split == kXPoly)
     return launch<kXPoly>(bpos, bmass, counts, coeffs, plan, out, nc, cap,
-                          box, soft2, p0, p1, mscale, s);
+                          box, soft2, p0, p1, mscale, r2_keep, t, s);
   return (int)cudaErrorInvalidValue;
 }

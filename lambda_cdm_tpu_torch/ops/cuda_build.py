@@ -47,7 +47,7 @@ _SIGNATURES = {
                         _P],
     "lcdm_short_range_plan": [_P, _P, _I, _P],
     "lcdm_short_range": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
-                         _F, _F, _P],
+                         _F, _F, _F, _P, _P],
     "lcdm_short_range_rd_plan": [_P, _P, _I, _I, _I, _P],
     "lcdm_short_range_rd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                             _P],

@@ -31,6 +31,14 @@ before the launch and puts the results back).
 The kernel's work is a list of units, each at most UNIT_ROWS live rows of
 one cell, heaviest first (unit_plan, built on the card from the counts;
 unit_plan_plain is its plain version, plan_units decodes either).
+
+The kernel culls: a unit runs the pairs only with the candidate j whose
+squared distance to the bounding box of the unit's rows, plus eps^2, is
+below keep_radius2 (r_max^2 and a margin, where every split form's
+float32 weight is exactly 0), in candidate order, so its sums are the
+uncut ones value for value. cull_counts_plain is the plain version of
+its counters `k3_j_tested` and `k3_j_kept` (utils/profiling.py, counted
+on the card while tracing is on).
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import torch
 
 from . import cuda_build
 from ..forces.treepm import _fit_short_poly
+from ..utils import profiling
 
 _X_COEFFS, _X_MAX = _fit_short_poly()
 
@@ -54,6 +63,11 @@ VARIANTS = tuple(SPLITS)
 _SPLIT_ID = {"even": 0, "factored": 1, "xpoly": 2}
 UNIT_ROWS = 32     # live rows a unit of K3 (kUnitRows in short_range.cu)
 PLAN_HEADER = 4    # the plan's header (kHeader in short_range.cu)
+# the cull's relative margin over r_max^2: it covers the card's
+# rsqrt.approx (a few 1e-7) against the plain version's rsqrt
+KEEP_MARGIN = 1e-4
+# K3's device counters: candidate j tested and kept, summed over units
+TALLY = ("k3_j_tested", "k3_j_kept")
 
 launches = {"short_range": 0, "short_range_vpu": 0, "short_range_vpu2": 0,
             "short_range_mxu": 0}
@@ -206,6 +220,18 @@ def pair_weight(r2, variant: str, rs: float):
     return s * inv_r3
 
 
+def keep_radius2(variant: str, rs: float) -> float:
+    """K3's cull radius, squared (float32): r_max^2 (1 + KEEP_MARGIN),
+    r_max = 2 rs x_max. Past r_max every split form's float32 weight is
+    exactly 0 in the kernel's operation order (even: v clamps at 1 and
+    Q(1) < -r_max^-3; factored: t clamps at exactly 1; xpoly: the
+    select), as tests/test_torch_short_range.py checks for each form.
+    Pairs inside the margin are evaluated, and weigh 0. All three forms
+    end at the same radius, so `variant` does not move it."""
+    r_max = 2.0 * rs * float(_X_MAX)
+    return float(np.float32(r_max * r_max * (1.0 + KEEP_MARGIN)))
+
+
 def live_slots(bmass, counts):
     """[C, K] live mask: the first counts[c] slots, or without counts the
     slots of positive mass."""
@@ -326,6 +352,45 @@ def plan_units(plan, counts, ncell: int):
                                                 max=UNIT_ROWS)], dim=1)
 
 
+def cull_counts_plain(bpos, counts, *, ncell: int, capacity: int,
+                      box_size: float, softening: float, r2_keep: float,
+                      chunk: int = 0):
+    """Plain version of K3's cull counters: per unit of the plan (in
+    plan_units' order), -> ([U] int64 candidate j tested, [U] int64 kept).
+    A unit tests every live j of its 27 neighbour cells (shifted as K3
+    shifts them) and keeps those with gx^2 + (gy^2 + (gz^2 + eps^2)) <
+    r2_keep in float32, g the distance on each axis from the j to the
+    bounding box of the unit's live rows. Evaluated in chunks of `chunk`
+    units (default: about 16M candidate slots a chunk)."""
+    units = plan_units(unit_plan_plain(counts.cpu(), ncell), counts, ncell)
+    dev = bpos.device
+    counts = counts.to(dev)
+    kmax = max(int(counts.max()), 1)
+    chunk = chunk or max(1, (1 << 24) // (27 * kmax))
+    soft2 = float(softening) ** 2
+    r2_keep = float(np.float32(r2_keep))
+    lanes = torch.arange(UNIT_ROWS, device=dev)
+    slots = torch.arange(kmax, device=dev)
+    tested, kept = [], []
+    for u0 in range(0, units.shape[0], chunk):
+        cell, row0, rows = units[u0:u0 + chunk].to(dev).T
+        live_i = lanes[None] < rows[:, None]                     # [u, 32]
+        pi = bpos[:, cell[:, None],
+                  torch.clamp(row0[:, None] + lanes, max=capacity - 1)]
+        lo = torch.where(live_i, pi, math.inf).amin(-1)[..., None, None]
+        hi = torch.where(live_i, pi, -math.inf).amax(-1)[..., None, None]
+        ncid, shift = _neighbours(cell, ncell, box_size)         # [u, 27]
+        pj = bpos[:, ncid, :kmax] + shift[..., None]       # [3, u, 27, kmax]
+        g = torch.clamp(torch.maximum(lo - pj, pj - hi), min=0.0)
+        d2 = g[0] * g[0] + (g[1] * g[1] + (g[2] * g[2] + soft2))
+        live_j = slots < counts[ncid][..., None]
+        tested.append(live_j.sum((1, 2)))
+        kept.append((live_j & (d2 < r2_keep)).sum((1, 2)))
+    if not tested:
+        return (torch.zeros(0, dtype=torch.int64),) * 2
+    return torch.cat(tested).cpu(), torch.cat(kept).cpu()
+
+
 MAX_COEFFS = 12   # kMaxCoeffs in short_range.cu and short_range_rd.cu
 
 
@@ -343,10 +408,11 @@ def short_range(bpos, bmass, counts, *, ncell: int, capacity: int,
     """Short-range accelerations (unit G) for every bucket slot -> SoA
     [3, C, K], 0 on dead slots. CUDA tensors launch K3
     (csrc/short_range.cu, replacing pallas_short_range's kernel of that
-    variant: its plan from the counts, then the pair kernel); CPU tensors
-    take short_range_plain. `counts` ([C] int32, the
-    live-first layout's occupancies) may be None for vpu, vpu2 and mxu:
-    then any slot order is taken and a slot of mass 0 is dead."""
+    variant: its plan from the counts, then the pair kernel, culling at
+    keep_radius2 and, while tracing is on, counting into the device
+    counters TALLY); CPU tensors take short_range_plain. `counts` ([C]
+    int32, the live-first layout's occupancies) may be None for vpu, vpu2
+    and mxu: then any slot order is taken and a slot of mass 0 is dead."""
     _validate(bpos, bmass, counts, ncell, capacity, softening, variant)
     if bpos.device.type == "cpu":
         return short_range_plain(bpos, bmass, counts, ncell=ncell,
@@ -363,6 +429,20 @@ def short_range(bpos, bmass, counts, *, ncell: int, capacity: int,
     cuda_build.require_cuda("short_range", bpos, bmass, counts,
                             dtypes=(torch.float32, torch.float32,
                                     torch.int32))
+    out = _launch(bpos, bmass, counts, ncell=ncell, capacity=capacity,
+                  box_size=box_size, rs=rs, softening=softening,
+                  variant=variant, r2_keep=keep_radius2(variant, float(rs)),
+                  tally=profiling.device_counters(TALLY, bpos.device))
+    if perm is not None:
+        out = torch.zeros_like(out).scatter_(2, perm3, out)
+    return out
+
+
+def _launch(bpos, bmass, counts, *, ncell, capacity, box_size, rs,
+            softening, variant, r2_keep, tally=None):
+    """K3's plan and pair kernel on live-first CUDA buckets, culling at
+    `r2_keep` (+inf: the uncut kernel) and adding the j tested and kept
+    to `tally` (int64 [2] on the card) where one is given."""
     _, p0, p1, mscale = _split_params(variant, float(rs))
     coeffs = _host_coeffs(variant, float(rs))
     plan = unit_plan(counts, ncell)
@@ -373,7 +453,6 @@ def short_range(bpos, bmass, counts, *, ncell: int, capacity: int,
                       plan.data_ptr(),
                       out.data_ptr(), ncell, capacity,
                       _SPLIT_ID[SPLITS[variant]], float(box_size),
-                      float(softening) ** 2, p0, p1, mscale)
-    if perm is not None:
-        out = torch.zeros_like(out).scatter_(2, perm3, out)
+                      float(softening) ** 2, p0, p1, mscale, float(r2_keep),
+                      None if tally is None else tally.data_ptr())
     return out

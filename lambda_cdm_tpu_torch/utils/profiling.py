@@ -37,6 +37,15 @@ where the host waits on the card: every `synchronize` here, and each
 read of a device value on the fast path) and `pm_forces` (one a
 stateless PM force evaluation, forces/pm.pm_accelerations). Kernel
 launches count in each ops module's `launches` dict, not here.
+
+Counters a kernel adds up on the card (`device_counters(names, device)`):
+while tracing is on, an int64 accumulator on the device, one slot a name,
+that a kernel adds to with atomics; `trace_totals()` reads the ones
+handed out since the last `reset_trace()` into the counters (one copy to
+the host, after the window) and `reset_trace()` zeroes them. While
+tracing is off the kernel gets None (a null pointer) and counts nothing.
+K3's cull counts `k3_j_tested` and `k3_j_kept`, the candidate j its
+units tested and kept (ops/short_range.py).
 """
 
 from __future__ import annotations
@@ -102,8 +111,9 @@ class SpanTotals:
 class _Registry:
     """The process's spans and counters: the open `tracing()` contexts,
     the open spans, closed records not yet reduced, the totals, the
-    counters, the engine step, a pool of CUDA events and the streams
-    they were recorded on."""
+    counters, the engine step, a pool of CUDA events, the streams they
+    were recorded on, the device counters' accumulators by (names,
+    device) and the keys of those handed out since the last reset."""
     depth: int = 0
     stack: list = field(default_factory=list)
     pending: list = field(default_factory=list)
@@ -112,6 +122,8 @@ class _Registry:
     step: int = 0
     events: list = field(default_factory=list)
     streams: dict = field(default_factory=dict)
+    device_counters: dict = field(default_factory=dict)
+    device_used: set = field(default_factory=set)
 
     def record(self):
         """A pooled CUDA event recorded on the current stream (a cached
@@ -195,6 +207,23 @@ def count(name: str, k: int = 1) -> None:
         _REG.counters[name] = _REG.counters.get(name, 0) + k
 
 
+def device_counters(names: tuple, device):
+    """While tracing is on, the int64 [len(names)] accumulator on the
+    CUDA `device` that a kernel adds the counters `names` to; None while
+    tracing is off. It is made once a (names, device), by an asynchronous
+    copy from pinned host memory: no kernel launch and no host wait."""
+    if not tracing_on():
+        return None
+    key = (names, device)
+    acc = _REG.device_counters.get(key)
+    if acc is None:
+        acc = _REG.device_counters[key] = torch.zeros(
+            len(names), dtype=torch.int64).pin_memory().to(
+                device, non_blocking=True)
+    _REG.device_used.add(key)
+    return acc
+
+
 def set_step(step) -> None:
     """The engine step that spans opened from now on start at."""
     if tracing_on():
@@ -239,8 +268,12 @@ def trace_totals() -> dict:
     """{"spans": {name: SpanTotals as a dict}, "counters": {name: n}}
     of everything recorded since the last `reset_trace()`."""
     flush()
+    counters = dict(_REG.counters)
+    for key in _REG.device_used:
+        for name, k in zip(key[0], _REG.device_counters[key].tolist()):
+            counters[name] = counters.get(name, 0) + k
     return {"spans": {k: v.to_dict() for k, v in _REG.totals.items()},
-            "counters": dict(_REG.counters)}
+            "counters": counters}
 
 
 def totals_of(name: str) -> SpanTotals | None:
@@ -249,10 +282,15 @@ def totals_of(name: str) -> SpanTotals | None:
 
 
 def reset_trace() -> None:
-    """Clear the totals, the counters and the records not yet reduced."""
+    """Clear the totals, the counters (the device counters handed out
+    since the last reset zeroed in place, since a captured CUDA graph may
+    hold their address) and the records not yet reduced."""
     _REG.pending.clear()
     _REG.totals.clear()
     _REG.counters.clear()
+    for key in _REG.device_used:
+        _REG.device_counters[key].zero_()
+    _REG.device_used.clear()
     _REG.stack.clear()
     _REG.step = 0
 

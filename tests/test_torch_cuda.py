@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
 (K1 CIC deposit, K2 fd4 gather, also on a 5,000-row cell and a mostly
-dead layout, K3 short-range pairs in each split form,
+dead layout, K3 short-range pairs in each split form and its cull,
 K4/K4s direct sums and K4's cross form, K5 FoF hook, K6/K7 lens
 samplers, K8 rod-dense pairs, K9 pair potential and its cross form, K10
 alias probe, the fast stepper's KDK updates, the stateless PM's scatter,
@@ -249,6 +249,55 @@ def test_short_range_heavy_cell(cuda_device, variant):
     assert _rel(got, ref) < 1e-4
     assert torch.equal(got, again)
     assert bool(torch.all(got[:, bmass == 0] == 0))
+
+
+# K3's cull geometries: (particles, box, ncell, capacity, rs, softening,
+# clump): treepm_1m's plan (cells of 3.125 under the support 3.906),
+# science_1m's at z = 24 (cells of 6.25), and a clump of 3000 in one cell
+CULL_GEOMETRIES = {
+    "treepm_1m": (1_000_000, 100.0, 32, 64, 1.25 * 100.0 / 192, 0.02, 0),
+    "science_z24": (1_000_000, 100.0, 16, 8192, 1.25 * 100.0 / 192, 0.1, 0),
+    "clustered": (12_000, 40.0, 5, 4096, 1.0, 0.1, 3000)}
+
+
+@pytest.mark.parametrize("variant", ["vpu3", "vpu2", "vpu"])
+@pytest.mark.parametrize("geometry", list(CULL_GEOMETRIES))
+def test_short_range_cull_drops_nothing(cuda_device, geometry, variant):
+    """K3 with its cull equals the same launch uncut (r2_keep = +inf)
+    value for value (+-0 aside), holds the 1e-4 bar against
+    short_range_plain (on 4,096 sampled rows at 1M), and counts under
+    profiling.tracing() the j tested and kept that cull_counts_plain
+    counts."""
+    from lambda_cdm_tpu_torch.utils import profiling
+    n, box, ncell, cap, rs, soft, clump = CULL_GEOMETRIES[geometry]
+    if clump:
+        pos, m = clustered_particles(n, box, 3, n_clump=clump, sigma=1.0,
+                                     centre=(box / 2,) * 3)
+    else:
+        pos, m = uniform_particles(n, box, 11)
+    bpos, bmass, counts = _state(cuda_device, pos, m, box, ncell, cap)
+    kw = dict(ncell=ncell, capacity=cap, box_size=box, rs=rs,
+              softening=soft, variant=variant)
+    profiling.reset_trace()
+    with profiling.tracing():
+        got = short_range.short_range(bpos, bmass, counts, **kw)
+    counters = profiling.trace_totals()["counters"]
+    profiling.reset_trace()
+    uncut = short_range._launch(bpos, bmass, counts, r2_keep=math.inf, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, uncut)
+    live = torch.nonzero((bmass > 0).reshape(-1))[:, 0]
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    rows = live[torch.randperm(live.numel(), generator=gen,
+                               device=cuda_device)[:4096]]
+    ref = short_range.short_range_plain(bpos, bmass, counts, rows=rows, **kw)
+    assert _rel(got.reshape(3, -1)[:, rows], ref) < 1e-4
+    tested, kept = short_range.cull_counts_plain(
+        bpos, counts, ncell=ncell, capacity=cap, box_size=box,
+        softening=soft, r2_keep=short_range.keep_radius2(variant, rs))
+    assert counters["k3_j_tested"] == int(tested.sum())
+    assert counters["k3_j_kept"] == int(kept.sum())
+    assert int(kept.sum()) < int(tested.sum())
 
 
 @pytest.mark.parametrize("edges", [False, True])

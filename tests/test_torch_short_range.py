@@ -295,3 +295,62 @@ def test_unit_plan_heaviest_first(kind):
         assert n_top >= 157 + 26
         assert bool(torch.all(units[:n_top, 0].unique() == near))
         assert float(cls[n_top - 1]) > float(cls[n_top])
+
+
+# -- K3's cull ----------------------------------------------------------------
+
+# the tests' split scale and the benchmark plans' (1.25 x 100 / 192)
+CULL_RS = (RS, 1.25 * 100.0 / 192)
+CULL_FORMS = ("vpu3", "vpu2", "vpu")
+
+
+@pytest.mark.parametrize("rs", CULL_RS)
+@pytest.mark.parametrize("variant", CULL_FORMS)
+def test_keep_radius2_is_where_the_weight_ends(variant, rs):
+    """From keep_radius2 on, every float32 r^2 weighs exactly 0 in each
+    split form (each of the 16,384 floats from it, and a dense sweep to 16
+    times it), and the cut is tight: at most (1 + 1e-3) r_max^2."""
+    r2_keep = tsr.keep_radius2(variant, rs)
+    r_max = 2.0 * rs * float(tsr._X_MAX)
+    assert r_max ** 2 <= r2_keep <= (1.0 + 1e-3) * r_max ** 2
+    bits = torch.tensor([r2_keep], dtype=torch.float32).view(torch.int32)
+    near = (bits + torch.arange(1 << 14, dtype=torch.int32)).view(
+        torch.float32)
+    far = torch.linspace(r2_keep, 16.0 * r2_keep, 1 << 20,
+                         dtype=torch.float64).to(torch.float32)
+    for r2 in (near, far):
+        assert bool(torch.all(tsr.pair_weight(r2, variant, rs) == 0))
+
+
+@pytest.mark.parametrize("rs", [0.5, RS])
+@pytest.mark.parametrize("variant", CULL_FORMS)
+def test_cull_drops_only_zero_weights(variant, rs):
+    """cull_counts_plain on the clustered state (rs 0.5: r_max 3 in cells
+    of 6): each unit tests its cell's neighbour load and keeps at most
+    that, and the cull engages; each candidate j a unit culls weighs
+    exactly 0 (float32, the kernel's order of r^2) against every live row
+    of the unit, and the kept count is the box rule's, j by j."""
+    box, ncell, cap, (bpos, _, counts) = _clustered()
+    bpos, counts = tt(bpos), tt(counts, torch.int32)
+    soft2 = SOFT ** 2
+    r2_keep = tsr.keep_radius2(variant, rs)
+    tested, kept = tsr.cull_counts_plain(
+        bpos, counts, ncell=ncell, capacity=cap, box_size=box,
+        softening=SOFT, r2_keep=r2_keep)
+    units = tsr.plan_units(tsr.unit_plan_plain(counts, ncell), counts, ncell)
+    assert torch.equal(tested, tsr.neighbour_load(counts, ncell)[units[:, 0]])
+    assert bool(torch.all(kept <= tested))
+    assert int(kept.sum()) < int(tested.sum())
+    for (cell, row0, rows), k in zip(units.tolist(), kept.tolist()):
+        xi = bpos[:, cell, row0:row0 + rows]                     # [3, R]
+        ncid, shift = tsr._neighbours(torch.tensor([cell]), ncell, box)
+        live = torch.arange(cap)[None] < counts[ncid[0]][:, None]
+        pj = (bpos[:, ncid[0]] + shift[:, 0, :, None])[:, live]  # [3, J]
+        g = torch.clamp(torch.maximum(xi.amin(1, keepdim=True) - pj,
+                                      pj - xi.amax(1, keepdim=True)),
+                        min=0.0)
+        keep = g[0] * g[0] + (g[1] * g[1] + (g[2] * g[2] + soft2)) < r2_keep
+        assert int(keep.sum()) == k
+        d = pj[:, None, ~keep] - xi[:, :, None]                 # [3, R, J']
+        r2 = d[0] * d[0] + (d[1] * d[1] + (d[2] * d[2] + soft2))
+        assert bool(torch.all(tsr.pair_weight(r2, variant, rs) == 0))

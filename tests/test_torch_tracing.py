@@ -3,10 +3,11 @@ trace_totals) on a 2048-particle treepm_fast engine on the CPU: off
 without a profiler (no record_function, nothing kept), on under
 torch.profiler with the counters in closed form and every span in the
 exported trace, traced and untraced runs bit-identical, and
-profiling.detailed_timing's measured force time. The `cuda` case holds
-the readbacks counter to the card's sync-debug mode (skips without a
-card; on the card host: python -m pytest tests/test_torch_tracing.py
--m cuda --noconftest -q).
+profiling.detailed_timing's measured force time. The `cuda` cases hold
+the readbacks counter to the card's sync-debug mode and K3's device
+counters to the window that ran K3 (skip without a card; on the card
+host: python -m pytest tests/test_torch_tracing.py -m cuda --noconftest
+-q).
 """
 
 import json
@@ -327,6 +328,27 @@ def test_readbacks_match_the_cards_sync_debug_mode():
     assert n["warned"] > 0
     assert tot["counters"]["readbacks"] == n["warned"] + n["synchronized"]
     assert tot["spans"]["fast.accel"]["device_s"] > 0.0
+
+
+@pytest.mark.cuda
+def test_device_counters_end_with_their_window():
+    """K3's device counters report in the window that ran K3 on the card
+    and in no later one: after reset_trace(), a CPU segment under the
+    profiler counts exactly the CPU counters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (on the GPU host: python -m pytest "
+                    "tests/test_torch_tracing.py -m cuda --noconftest)")
+    with profiling.tracing():
+        _segment(_engine(device="cuda"), CHUNK)
+    counters = profiling.trace_totals()["counters"]
+    assert counters["k3_j_tested"] >= counters["k3_j_kept"] > 0
+    profiling.reset_trace()
+    eng = _engine()
+    rebuckets, readbacks = _expected_counts(eng, CHUNK)
+    with profile(activities=[ProfilerActivity.CPU]):
+        _segment(eng, CHUNK)
+    assert profiling.trace_totals()["counters"] == {
+        "rebuckets": rebuckets, "readbacks": readbacks}
 
 
 @pytest.mark.parametrize("device", [
